@@ -1,0 +1,88 @@
+"""Parity of the port's LK level (plain version of kernel K2) and
+``pyramidal_lk`` with the JAX matmul-sampler path and the Pallas v3 level
+kernel in interpret mode, batched over B = 2.
+
+Tolerances: status equal; u, tracked points and err within 1e-3 (float32
+sums over the 21×21 patch are taken in another order)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from tests.torch_parity import tn, tt
+from vins_rgbd_fast_torch.ops import image as timage
+from vins_rgbd_fast_torch.ops import lk as tlk
+from vins_rgbd_fast_tpu.ops import image as jimage
+from vins_rgbd_fast_tpu.ops import lk as jlk
+
+H, W = 120, 160
+
+
+def _inputs():
+    """The images and points of test_frontend_ops' LK kernel tests, plus a
+    second sequence with another shift: (imgs0, imgs1 (2, H, W), pts (2, 24, 2),
+    active (2, 24))."""
+    yy, xx = np.meshgrid(np.arange(H, dtype=np.float64), np.arange(W, dtype=np.float64),
+                         indexing="ij")
+    img0 = 120 + 50 * np.sin(xx / 7.0) * np.cos(yy / 9.0)
+    imgs1 = [120 + 50 * np.sin((xx - 1.4) / 7.0) * np.cos((yy + 0.8) / 9.0),
+             120 + 50 * np.sin((xx + 2.1) / 7.0) * np.cos((yy - 1.7) / 9.0)]
+    rng = np.random.default_rng(5)
+    pts = np.stack([rng.uniform(15, 145, 24), rng.uniform(15, 105, 24)], -1)
+    pts[0] = [11.0, 11.0]      # near the border
+    pts[1] = [-40.0, 200.0]    # far out: a diverged track
+    pts2 = np.stack([rng.uniform(5, 155, 24), rng.uniform(5, 115, 24)], -1)
+    act = np.ones((2, 24), bool)
+    act[0, 2] = False
+    imgs0 = np.stack([img0, img0]).astype(np.float32)
+    return (imgs0, np.stack(imgs1).astype(np.float32),
+            np.stack([pts, pts2]).astype(np.float32), act)
+
+
+@pytest.mark.parametrize("engine", ["xla", "pallas3"])
+def test_pyramidal_lk_matches_jax(engine):
+    imgs0, imgs1, pts, act = _inputs()
+    init = pts + np.float32(0.5)
+    out = tlk.pyramidal_lk(timage.build_pyramid(tt(imgs0), 2),
+                           timage.build_pyramid(tt(imgs1), 2), tt(pts), tt(init), tt(act),
+                           max_iters=8, coarse_iters=4)
+    for b in range(2):
+        p0 = tuple(jimage.build_pyramid(jnp.asarray(imgs0[b]), 2))
+        p1 = tuple(jimage.build_pyramid(jnp.asarray(imgs1[b]), 2))
+        ref = jlk.pyramidal_lk(p0, p1, jnp.asarray(pts[b]), jnp.asarray(init[b]),
+                               jnp.asarray(act[b]), max_iters=8, coarse_iters=4,
+                               sampler="matmul", engine=engine,
+                               engine_interpret=(engine == "pallas3"))
+        ok = np.asarray(ref.status)
+        assert np.array_equal(tn(out.status[b]), ok), b
+        assert ok.sum() >= 15
+        assert np.abs(tn(out.pts[b]) - np.asarray(ref.pts))[ok].max() < 1e-3
+        assert np.abs(tn(out.err[b]) - np.asarray(ref.err))[ok].max() < 1e-3
+
+
+def test_lk_level_matches_track_level_matmul():
+    """One level with a non-trivial warm start, against the JAX level
+    function directly (u, status and err)."""
+    imgs0, imgs1, pts, act = _inputs()
+    rng = np.random.default_rng(11)
+    flow = rng.normal(0, 2.0, pts.shape).astype(np.float32)
+    flow[:, 3] = [30.0, -25.0]  # a start outside the search margin
+    u, st, err = tlk.lk_level(tt(imgs0), tt(imgs1), tt(pts), tt(flow), tt(act), 21, 12,
+                              0.01, 1e-4, check_border=True)
+    for b in range(2):
+        ju, jst, jerr = jlk._track_level_matmul(
+            jnp.asarray(imgs0[b]), jnp.asarray(imgs1[b]), jnp.asarray(pts[b]),
+            jnp.asarray(flow[b]), jnp.asarray(act[b]), 21, 12, 0.01, 1e-4, True)
+        ok = np.asarray(jst)
+        assert np.array_equal(tn(st[b]), ok), b
+        assert np.abs(tn(u[b]) - np.asarray(ju))[ok].max() < 1e-3
+        assert np.abs(tn(err[b]) - np.asarray(jerr))[ok].max() < 1e-3
+
+
+def test_window_anchor_clamps_like_jax():
+    """Window origins are clamped to [0, Wp−WIN] in padded coordinates."""
+    pts = np.array([[[-500.0, 3.0], [5.0, 900.0], [80.0, 60.0]]], np.float32)
+    ax, ay = tlk.window_anchor(tt(pts), tt(np.zeros_like(pts)), H, W, 21, 8)
+    WIN = 21 + 1 + 16
+    assert tn(ax).tolist() == [[0, 0 + 5 + WIN - 10 - 8, 80 + WIN - 18]]
+    assert tn(ay).tolist() == [[3 + WIN - 18, H + 2 * WIN - WIN, 60 + WIN - 18]]

@@ -1,0 +1,360 @@
+"""Sliding-window VIO estimator programs over B sequences in lock step
+(twin of ``fill_step``, ``init_full``, ``vio_step`` and their helpers in
+``vins_rgbd_fast_tpu/backend/estimator.py``), plus a numpy port of the
+host IMU-interval pairing (``VinsEstimator._collect_interval_np``).
+
+Slot indices (``frame_idx``, the steady slot ``WINDOW_SIZE``) are Python
+ints.  Where JAX selects with ``lax.cond`` under ``vmap`` (keyframe vs
+non-keyframe slide and marginalization), both branches run and a
+per-sequence ``torch.where`` picks — no host synchronisation.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from ..config import FOCAL_LENGTH, EstimatorConfig
+from ..ops import imu_preintegration as imupre
+from ..ops import marginalization as marg
+from ..ops import solver as slv
+from ..utils import quaternion as quat
+from . import feature_table as ftab
+from . import initialization as init_ops
+from .feature_table import FeatureTable, FrameFeatures
+from .state import FRAMES, WINDOW_SIZE, WindowState, identity_state, where_state
+
+
+class EstimatorState(NamedTuple):
+    x: WindowState
+    table: FeatureTable
+    prior: slv.PriorFactor
+    imu_dts: torch.Tensor  # (B, FRAMES, MAXI); slot j spans (frame j-1, frame j]
+    imu_acc: torch.Tensor  # (B, FRAMES, MAXI+1, 3)
+    imu_gyr: torch.Tensor  # (B, FRAMES, MAXI+1, 3)
+    last_P: torch.Tensor   # (B, 3)
+    last_Q: torch.Tensor   # (B, 4)
+
+
+class ImuInterval(NamedTuple):
+    dts: torch.Tensor  # (B, MAXI)
+    acc: torch.Tensor  # (B, MAXI+1, 3)
+    gyr: torch.Tensor  # (B, MAXI+1, 3)
+
+
+class StepOutput(NamedTuple):
+    P: torch.Tensor  # newest pose, pre-slide
+    Q: torch.Tensor
+    V: torch.Tensor
+    Ba: torch.Tensor
+    Bg: torch.Tensor
+    is_keyframe: torch.Tensor
+    failure: torch.Tensor
+    cost: torch.Tensor
+    n_features: torch.Tensor
+    n_dynamic: torch.Tensor
+    last_track_num: torch.Tensor
+    wp_world: torch.Tensor  # (B, MAXF, 3) newest frame's landmarks, pre-slide
+    wp_uv: torch.Tensor
+    wp_norm: torch.Tensor
+    wp_valid: torch.Tensor
+    wp_ids: torch.Tensor
+
+
+def init_estimator_state(cfg: EstimatorConfig, ric, tic, td: float, B: int, device,
+                         dtype=torch.float32) -> EstimatorState:
+    """Fresh state; ``ric`` (3, 3) and ``tic`` (3,) are the imu<-cam extrinsic."""
+    x = identity_state(B, device, dtype)
+    ric_t = torch.as_tensor(np.asarray(ric), dtype=dtype, device=device).expand(B, 3, 3)
+    x = x._replace(qic=quat.R2q(ric_t).contiguous(),
+                   tic=torch.as_tensor(np.asarray(tic), dtype=dtype, device=device)
+                   .expand(B, 3).contiguous(),
+                   td=torch.full((B,), float(td), dtype=dtype, device=device))
+    z = dict(dtype=dtype, device=device)
+    return EstimatorState(
+        x=x, table=ftab.empty_table(B, cfg.maxf, device, dtype),
+        prior=slv.empty_prior(B, device, dtype),
+        imu_dts=torch.zeros((B, FRAMES, cfg.max_imu), **z),
+        imu_acc=torch.zeros((B, FRAMES, cfg.max_imu + 1, 3), **z),
+        imu_gyr=torch.zeros((B, FRAMES, cfg.max_imu + 1, 3), **z),
+        last_P=torch.zeros((B, 3), **z),
+        last_Q=quat.q_identity(dtype, device).expand(B, 4).clone())
+
+
+def _noise(cfg: EstimatorConfig) -> imupre.ImuNoise:
+    return imupre.ImuNoise(cfg.acc_n, cfg.gyr_n, cfg.acc_w, cfg.gyr_w)
+
+
+def _gravity(cfg: EstimatorConfig, ref: torch.Tensor) -> torch.Tensor:
+    return quat.const((0.0, 0.0, float(cfg.g_norm)), ref.dtype, ref.device)
+
+
+def _make_preints(cfg: EstimatorConfig, st: EstimatorState) -> slv.ImuData:
+    """Re-propagate all window preintegrations at the current biases."""
+    pre = imupre.preintegrate(st.imu_dts[:, 1:], st.imu_acc[:, 1:], st.imu_gyr[:, 1:],
+                              st.x.Ba[:, :-1], st.x.Bg[:, :-1], _noise(cfg))
+    s = torch.sum(st.imu_dts[:, 1:], dim=2)
+    return slv.ImuData(pre=pre, valid=(s > 0) & (s < 10.0))
+
+
+def _visual_data(cfg: EstimatorConfig, t: FeatureTable) -> slv.VisualData:
+    inv_depth, free, valid = ftab.solver_depth_view(t, cfg.fix_depth)
+    return slv.VisualData(start=t.start, pts=t.pts, vel=t.vel, td_obs=t.td_obs,
+                          row_scaled=t.uv[..., 1] * cfg.tr_over_row, obs_mask=t.obs_mask,
+                          inv_depth=inv_depth, depth_free=free, valid=valid)
+
+
+def _set_slot(a: torch.Tensor, j: int, v: torch.Tensor) -> torch.Tensor:
+    out = a.clone()
+    out[:, j] = v
+    return out
+
+
+def _propagate_newest(cfg: EstimatorConfig, st: EstimatorState, j: int) -> WindowState:
+    """IMU-propagate slot j from slot j-1 through the slot-j samples."""
+    x = st.x
+    i = j - 1
+    pre = imupre.preintegrate(st.imu_dts[:, j], st.imu_acc[:, j], st.imu_gyr[:, j],
+                              x.Ba[:, i], x.Bg[:, i], _noise(cfg))
+    g = _gravity(cfg, x.P)
+    dt = pre.sum_dt[:, None]
+    Qi = x.Q[:, i]
+    Pj = x.P[:, i] + x.V[:, i] * dt - 0.5 * g * dt * dt + quat.qrot(Qi, pre.delta_p)
+    Vj = x.V[:, i] - g * dt + quat.qrot(Qi, pre.delta_v)
+    Qj = quat.qnormalize(quat.qmul(Qi, pre.delta_q))
+    return x._replace(P=_set_slot(x.P, j, Pj), Q=_set_slot(x.Q, j, Qj),
+                      V=_set_slot(x.V, j, Vj), Ba=_set_slot(x.Ba, j, x.Ba[:, i]),
+                      Bg=_set_slot(x.Bg, j, x.Bg[:, i]))
+
+
+def _store_interval(st: EstimatorState, j: int, imu: ImuInterval) -> EstimatorState:
+    return st._replace(imu_dts=_set_slot(st.imu_dts, j, imu.dts),
+                       imu_acc=_set_slot(st.imu_acc, j, imu.acc),
+                       imu_gyr=_set_slot(st.imu_gyr, j, imu.gyr))
+
+
+def _start_points_world(x: WindowState, t: FeatureTable):
+    """World positions of the landmarks from their start-frame depth."""
+    t_wc, R_wc = ftab.cam_poses(x.P, x.Q, x.tic, x.qic)
+    s = t.start.to(torch.int64)
+    bidx = torch.arange(s.shape[0], device=s.device)[:, None]
+    pts_s = ftab.take_frame(t.pts, s)
+    rays = torch.cat([pts_s, torch.ones_like(pts_s[..., :1])], dim=-1)
+    p_w = (R_wc[bidx, s] @ (rays * t.est_depth[..., None])[..., None])[..., 0] + t_wc[bidx, s]
+    return p_w, t_wc, R_wc
+
+
+def _moving_consistency(cfg: EstimatorConfig, x: WindowState, t: FeatureTable) -> FeatureTable:
+    """Mark features whose mean reprojection error exceeds 10 px @ 460 or
+    whose mean 3D relative error exceeds 2.0 as dynamic."""
+    p_w, t_wc, R_wc = _start_points_world(x, t)
+    p_in_j = (torch.einsum("bfji,bnj->bnfi", R_wc, p_w)
+              - torch.einsum("bfji,bfj->bfi", R_wc, t_wc)[:, None])
+    z = p_in_j[..., 2]
+    proj = p_in_j[..., :2] / torch.where(torch.abs(z) > 1e-6, z, torch.full_like(z, 1e-6))[..., None]
+    obs = t.pts
+    err2d = torch.linalg.norm(proj - obs, dim=-1)
+    rays_obs = torch.cat([obs, torch.ones_like(obs[..., :1])], dim=-1)
+    err3d = torch.linalg.norm(p_in_j - rays_obs, dim=-1) / torch.clamp(t.est_depth[..., None], min=1e-6)
+    cnt_mask = t.obs_mask & (torch.arange(FRAMES, device=obs.device) != t.start[..., None])
+    cnt = torch.sum(cnt_mask, dim=-1)
+    n = torch.clamp(cnt, min=1)
+    zero = torch.zeros_like(err2d)
+    mean2d = torch.sum(torch.where(cnt_mask, err2d, zero), -1) / n
+    mean3d = torch.sum(torch.where(cnt_mask, err3d, zero), -1) / n
+    checked = (ftab.active_rows(t) & (ftab.obs_count(t) >= 2) & (t.start < WINDOW_SIZE - 2)
+               & (t.est_depth > 0) & (cnt > 0))
+    dynamic = checked & ((FOCAL_LENGTH * mean2d > 10.0) | (mean3d > 2.0))
+    return t._replace(is_dynamic=torch.where(checked, dynamic, t.is_dynamic))
+
+
+def _failure_flags(cfg: EstimatorConfig, st: EstimatorState, x_new: WindowState,
+                   last_track_num) -> torch.Tensor:
+    dp = x_new.P[:, WINDOW_SIZE] - st.last_P
+    return ((last_track_num < 2)
+            | (torch.linalg.norm(x_new.Ba[:, WINDOW_SIZE], dim=-1) > 2.5)
+            | (torch.linalg.norm(x_new.Bg[:, WINDOW_SIZE], dim=-1) > 1.0)
+            | (torch.linalg.norm(dp, dim=-1) > 5.0) | (torch.abs(dp[:, 2]) > 1.0))
+
+
+def _slide_old(st: EstimatorState) -> EstimatorState:
+    t_wc, R_wc = ftab.cam_poses(st.x.P, st.x.Q, st.x.tic, st.x.qic)
+    table = ftab.slide_old(st.table, t_wc[:, 0], R_wc[:, 0], t_wc[:, 1], R_wc[:, 1])
+
+    def roll(a):
+        return torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=1)
+
+    return st._replace(x=marg.shift_state_old(st.x), table=table, imu_dts=roll(st.imu_dts),
+                       imu_acc=roll(st.imu_acc), imu_gyr=roll(st.imu_gyr))
+
+
+def _slide_new(cfg: EstimatorConfig, st: EstimatorState) -> EstimatorState:
+    """Merge interval (8,9] + (9,10] into slot 9; when the merged sample
+    list exceeds the capacity it is decimated 2:1 (pair-summed dts)."""
+    maxi = cfg.max_imu
+    W = WINDOW_SIZE
+    d9, d10 = st.imu_dts[:, W - 1], st.imu_dts[:, W]
+    n9 = torch.sum(d9 > 0, dim=1)
+    n10 = torch.sum(d10 > 0, dim=1)
+    dts2 = torch.cat([d9, torch.zeros_like(d9)], dim=1)                    # (B, 2maxi)
+    acc2 = torch.cat([st.imu_acc[:, W - 1], torch.zeros_like(st.imu_acc[:, W - 1, 1:])], 1)
+    gyr2 = torch.cat([st.imu_gyr[:, W - 1], torch.zeros_like(st.imu_gyr[:, W - 1, 1:])], 1)
+    # slot-10 samples go behind the n9 samples of slot 9 (n9 <= maxi, so
+    # every target index is in range)
+    tgt = n9[:, None] + torch.arange(maxi, device=d9.device)
+    dts2.scatter_(1, tgt, d10)
+    tgt1 = (tgt + 1)[..., None].expand(-1, -1, 3)
+    acc2.scatter_(1, tgt1, st.imu_acc[:, W, 1:])
+    gyr2.scatter_(1, tgt1, st.imu_gyr[:, W, 1:])
+    fits = (n9 + n10) <= maxi
+    m_dts = torch.where(fits[:, None], dts2[:, :maxi], dts2[:, 0::2] + dts2[:, 1::2])
+    m_acc = torch.where(fits[:, None, None], acc2[:, :maxi + 1],
+                        torch.cat([acc2[:, :1], acc2[:, 2::2]], dim=1))
+    m_gyr = torch.where(fits[:, None, None], gyr2[:, :maxi + 1],
+                        torch.cat([gyr2[:, :1], gyr2[:, 2::2]], dim=1))
+    imu_dts = _set_slot(_set_slot(st.imu_dts, W - 1, m_dts), W, torch.zeros_like(d10))
+    return st._replace(x=marg.shift_state_new(st.x), table=ftab.slide_new(st.table),
+                       imu_dts=imu_dts, imu_acc=_set_slot(st.imu_acc, W - 1, m_acc),
+                       imu_gyr=_set_slot(st.imu_gyr, W - 1, m_gyr))
+
+
+def _slide(cfg: EstimatorConfig, st: EstimatorState, is_kf: torch.Tensor) -> EstimatorState:
+    """Both slide flavours, selected per sequence."""
+    return where_state(is_kf, _slide_old(st), _slide_new(cfg, st))
+
+
+def _window_points(x: WindowState, t: FeatureTable):
+    """Newest frame's depth-anchored landmarks (pre-slide)."""
+    j = FRAMES - 1
+    p_w, _, _ = _start_points_world(x, t)
+    valid = ftab.active_rows(t) & (t.est_depth > 0) & t.obs_mask[:, :, j] & ~t.is_dynamic
+    return p_w, t.uv[:, :, j], t.pts[:, :, j], valid, t.ids
+
+
+def fill_step(cfg: EstimatorConfig, st: EstimatorState, frame_idx: int,
+              feats: FrameFeatures, imu: ImuInterval) -> Tuple[EstimatorState, torch.Tensor]:
+    """Window-filling phase: store IMU, propagate (or gravity-align the
+    first frame), ingest, triangulate."""
+    st = _store_interval(st, frame_idx, imu)
+    if frame_idx == 0:
+        q0 = init_ops.init_first_imu_pose(imu.acc, torch.ones_like(imu.acc[..., 0], dtype=torch.bool))
+        st = st._replace(x=st.x._replace(Q=_set_slot(st.x.Q, 0, q0)))
+    else:
+        st = st._replace(x=_propagate_newest(cfg, st, frame_idx))
+    table, is_kf, _ = ftab.ingest_frame(st.table, frame_idx, feats, st.x.td,
+                                        cfg.depth_min_dist, cfg.min_parallax)
+    table = ftab.triangulate_with_depth(table, st.x.P, st.x.Q, st.x.tic, st.x.qic,
+                                        cfg.depth_min_dist, cfg.depth_max_dist)
+    return st._replace(table=table), is_kf
+
+
+def _solve_and_slide(cfg: EstimatorConfig, st: EstimatorState, is_kf, last_track_num
+                     ) -> Tuple[EstimatorState, StepOutput]:
+    """Triangulate → solve → write back → checks → marginalize → slide."""
+    g = _gravity(cfg, st.x.P)
+    st = st._replace(table=ftab.triangulate_with_depth(
+        st.table, st.x.P, st.x.Q, st.x.tic, st.x.qic, cfg.depth_min_dist, cfg.depth_max_dist))
+    vis = _visual_data(cfg, st.table)
+    imu_data = _make_preints(cfg, st)
+    sqrt_infos = imupre.sqrt_information(imu_data.pre)
+    res = slv.solve(cfg.solver, st.x, vis, imu_data, st.prior, g, sqrt_infos=sqrt_infos)
+    x_new = res.x
+    table = ftab.update_depths_from_solver(st.table, res.inv_depth, vis.depth_free)
+    table = _moving_consistency(cfg, x_new, table)
+    failure = _failure_flags(cfg, st, x_new, last_track_num)
+    st = st._replace(x=x_new, table=table)
+
+    vis_post = _visual_data(cfg, st.table)
+    prior = where_state(
+        is_kf,
+        marg.marginalize_old(cfg.solver, st.x, vis_post, imu_data, st.prior, g,
+                             sqrt_infos=sqrt_infos),
+        marg.marginalize_new(cfg.solver, st.x, st.prior))
+    st = st._replace(prior=prior)
+
+    wp_world, wp_uv, wp_norm, wp_valid, wp_ids = _window_points(st.x, st.table)
+    W = WINDOW_SIZE
+    out = StepOutput(
+        P=x_new.P[:, W], Q=x_new.Q[:, W], V=x_new.V[:, W], Ba=x_new.Ba[:, W],
+        Bg=x_new.Bg[:, W], is_keyframe=is_kf, failure=failure, cost=res.cost,
+        n_features=torch.sum(vis.valid, dim=1), n_dynamic=torch.sum(st.table.is_dynamic, dim=1),
+        last_track_num=last_track_num, wp_world=wp_world, wp_uv=wp_uv, wp_norm=wp_norm,
+        wp_valid=wp_valid, wp_ids=wp_ids)
+    st = st._replace(last_P=x_new.P[:, W], last_Q=x_new.Q[:, W])
+    return _slide(cfg, st, is_kf), out
+
+
+def init_full(cfg: EstimatorConfig, st: EstimatorState) -> Tuple[EstimatorState, StepOutput]:
+    """Static initialization at window-full: gyro-bias least squares, then
+    the solve/marginalize/slide tail with the first frame marginalized."""
+    pre0 = _make_preints(cfg, st)
+    dbg = init_ops.solve_gyroscope_bias(
+        pre0.pre.delta_q,
+        pre0.pre.jacobian[..., imupre.O_R:imupre.O_R + 3, imupre.O_BG:imupre.O_BG + 3],
+        st.x.Q, pre0.valid)
+    st = st._replace(x=st.x._replace(Bg=st.x.Bg + dbg[:, None]))
+    B = st.x.P.shape[0]
+    dev = st.x.P.device
+    return _solve_and_slide(cfg, st, torch.ones((B,), dtype=torch.bool, device=dev),
+                            torch.full((B,), 50, dtype=torch.int64, device=dev))
+
+
+def vio_step(cfg: EstimatorConfig, st: EstimatorState, feats: FrameFeatures,
+             imu: ImuInterval) -> Tuple[EstimatorState, StepOutput]:
+    """Steady-state per-frame program (the newest slot is WINDOW_SIZE)."""
+    j = WINDOW_SIZE
+    st = _store_interval(st, j, imu)
+    st = st._replace(x=_propagate_newest(cfg, st, j))
+    table, is_kf, ltn = ftab.ingest_frame(st.table, j, feats, st.x.td,
+                                          cfg.depth_min_dist, cfg.min_parallax)
+    return _solve_and_slide(cfg, st._replace(table=table), is_kf, ltn)
+
+
+class ImuIntervalBuffer:
+    """Host IMU buffer pairing samples to frame intervals (numpy port of
+    ``VinsEstimator.push_imu``/``_collect_interval_np``)."""
+
+    def __init__(self, max_imu: int):
+        self.max_imu = max_imu
+        self._buf: list = []
+
+    def push(self, t: float, acc, gyr) -> None:
+        if self._buf and t <= self._buf[-1][0]:
+            return  # out-of-order sample dropped
+        self._buf.append((float(t), np.asarray(acc, np.float64), np.asarray(gyr, np.float64)))
+
+    def collect(self, t0: float, t1: float):
+        """Samples spanning (t0, t1] as fixed buffers (dts, acc, gyr)."""
+        maxi = self.max_imu
+        dts = np.zeros(maxi)
+        acc = np.zeros((maxi + 1, 3))
+        gyr = np.zeros((maxi + 1, 3))
+        buf = self._buf
+        while len(buf) > 1 and buf[1][0] <= t0:
+            buf.pop(0)
+        if not buf:
+            return dts, acc, gyr
+        acc[0], gyr[0] = buf[0][1], buf[0][2]
+        t_prev, k, idx = t0, 0, 1
+        while idx < len(buf) and k < maxi:
+            ts, a, w = buf[idx]
+            if ts >= t1:
+                break
+            dts[k] = ts - t_prev
+            acc[k + 1], gyr[k + 1] = a, w
+            t_prev = ts
+            k += 1
+            idx += 1
+        if k < maxi and idx < len(buf):
+            ts, a, w = buf[idx]
+            dts[k] = t1 - t_prev
+            acc[k + 1], gyr[k + 1] = a, w
+            k += 1
+        if k > 0:
+            acc[k + 1:] = acc[k]
+            gyr[k + 1:] = gyr[k]
+        while len(buf) > 1 and buf[1][0] < t1:
+            buf.pop(0)
+        return dts, acc, gyr

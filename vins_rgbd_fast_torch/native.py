@@ -1,0 +1,85 @@
+"""Build-on-first-use loader for the hand-written CUDA kernels in ``csrc/``.
+
+All ``csrc/*.cu`` files are compiled by ``nvcc`` for ``sm_90a`` into ONE
+shared library with a plain C interface, loaded with ``ctypes`` (no
+PyTorch headers, so a build takes seconds).  The library lands in
+``vins_rgbd_fast_torch/build/`` under a name carrying the hash of the
+sources, so an edited source triggers a rebuild.  Nothing here runs at
+import time: the CPU tests import every module of the package.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_DIR, "csrc")
+BUILD = os.path.join(_DIR, "build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_lib = None
+_lock = threading.Lock()
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu"))) + sorted(
+        glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
+
+
+def build(verbose: bool = False) -> str:
+    """Compile the kernels if the library for the current sources is
+    missing; returns its path."""
+    h = hashlib.sha256()
+    for path in _sources():
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + f.read())
+    out = os.path.join(BUILD, f"libvins_kernels_{h.hexdigest()[:16]}.so")
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD, exist_ok=True)
+    tmp = out + f".{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS] + (["-Xptxas", "-v"] if verbose else []) + [
+        "-o", tmp] + [p for p in _sources() if p.endswith(".cu")]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    if verbose:
+        print(res.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            L = ctypes.CDLL(build())
+            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            L.fast_nms_launch.restype = i
+            L.fast_nms_launch.argtypes = [p, p, i, i, i, f, p]
+            L.lk_level_launch.restype = i
+            L.lk_level_launch.argtypes = [p, p, p, p, p, p, p, p, p, p,
+                                          i, i, i, i, i, i, i, f, f, p]
+            _lib = L
+    return _lib
+
+
+def check(status: int, name: str) -> None:
+    if status != 0:
+        raise RuntimeError(f"{name}: CUDA error {status} at launch")

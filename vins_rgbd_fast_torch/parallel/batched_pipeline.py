@@ -1,0 +1,170 @@
+"""Batched VIO runner: the whole per-frame pipeline (gyro prediction →
+tracker → depth lookup → backend step) over B sequences in lock step
+(twin of ``gyro_relative_R``, ``fused_frame_step`` and ``BatchedVioRunner``
+in ``vins_rgbd_fast_tpu/parallel/batched_pipeline.py``).
+
+Unlike the JAX runner, which is handed a state warmed by the host
+pipeline, this runner warms itself (``warm``: 11 window-filling frames and
+the static initialization).  ``run`` processes T staged frames with no
+host synchronisation per frame; outputs stay on the device and are
+stacked at the end.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from ..backend import estimator as est
+from ..backend.state import WINDOW_SIZE
+from ..config import EstimatorConfig, TrackerConfig
+from ..frontend import feature_tracker as ft
+from ..models.camera import PinholeCamera
+from ..ops import ransac as ransac_ops
+from ..utils import quaternion as quat
+
+
+class FrameBatch(NamedTuple):
+    """Per-frame staged inputs with leading axes (T, B, ...)."""
+    imgs: torch.Tensor     # (T, B, H, W)
+    depths: torch.Tensor   # (T, B, H, W)
+    ts: torch.Tensor       # (T, B)
+    imu_dts: torch.Tensor  # (T, B, MAXI)
+    imu_acc: torch.Tensor  # (T, B, MAXI+1, 3)
+    imu_gyr: torch.Tensor  # (T, B, MAXI+1, 3)
+
+
+class ScanOutputs(NamedTuple):
+    """Per-frame per-sequence outputs, stacked (T, B, ...)."""
+    P: torch.Tensor
+    Q: torch.Tensor
+    V: torch.Tensor
+    cost: torch.Tensor
+    is_keyframe: torch.Tensor
+    n_features: torch.Tensor
+
+
+def gyro_relative_R(dts, gyr, bg, qic) -> torch.Tensor:
+    """Camera-frame relative rotation R_{c1<-c0} from one interval of raw
+    gyro samples: dts (B, MAXI), gyr (B, MAXI+1, 3), bg (B, 3), qic (B, 4).
+    The quaternion chain is a pairwise tree product; padded steps are
+    identities."""
+    dq = quat.so3_exp((gyr[:, 1:] - bg[:, None]) * dts[..., None])  # (B, N, 4)
+    n = dq.shape[1]
+    m = 1
+    while m < n:
+        m *= 2
+    if m != n:
+        ident = quat.q_identity(dq.dtype, dq.device).expand(dq.shape[0], m - n, 4)
+        dq = torch.cat([dq, ident], dim=1)
+    while dq.shape[1] > 1:
+        dq = quat.qmul(dq[:, 0::2], dq[:, 1::2])
+    R_imu = quat.q2R(quat.qnormalize(dq[:, 0]))
+    R_ic = quat.q2R(qic)
+    return R_ic.transpose(1, 2) @ R_imu.transpose(1, 2) @ R_ic
+
+
+def fused_frame_step(tcfg: TrackerConfig, cam: PinholeCamera, ecfg: EstimatorConfig,
+                     trk: ft.TrackerState, st: est.EstimatorState, img, depth, t,
+                     imu: est.ImuInterval, ransac_u):
+    """One steady-state frame of B sequences: gyro prediction → tracker →
+    depth lookup → ``vio_step``."""
+    relR = gyro_relative_R(imu.dts, imu.gyr, st.x.Bg[:, WINDOW_SIZE], st.x.qic)
+    trk, tout = ft.track_frame(tcfg, cam, trk, img, t, relR, ransac_u)
+    feats = tout.features
+    feats = feats._replace(depth=ft.lookup_depth(depth, feats.uv, feats.ids >= 0))
+    st, sout = est.vio_step(ecfg, st, feats, imu)
+    return trk, st, sout
+
+
+def stage_frames(imgs: Sequence[torch.Tensor], depths: Sequence[torch.Tensor],
+                 seq_ts: Sequence[np.ndarray], buffers: Sequence[est.ImuIntervalBuffer],
+                 k0: int, k1: int, device, dtype=torch.float32) -> FrameBatch:
+    """Stage frames [k0, k1) of B sequences: rendered images/depths
+    (per-sequence (N, H, W) device stacks) and the IMU interval of each
+    frame, paired on the host and uploaded once.  Frame 0's interval is
+    (t0 − 1 ms, t0], as the host estimator pairs it."""
+    B = len(imgs)
+    T = k1 - k0
+    maxi = buffers[0].max_imu
+    dts = np.zeros((T, B, maxi))
+    acc = np.zeros((T, B, maxi + 1, 3))
+    gyr = np.zeros((T, B, maxi + 1, 3))
+    for b in range(B):
+        for i, k in enumerate(range(k0, k1)):
+            t_prev = float(seq_ts[b][k - 1]) if k > 0 else float(seq_ts[b][0]) - 1e-3
+            dts[i, b], acc[i, b], gyr[i, b] = buffers[b].collect(t_prev, float(seq_ts[b][k]))
+    ts = np.stack([np.asarray(seq_ts[b][k0:k1]) for b in range(B)], axis=1)
+
+    def put(a):
+        return torch.as_tensor(a, dtype=dtype).to(device)
+
+    return FrameBatch(
+        imgs=torch.stack([im[k0:k1] for im in imgs], dim=1).to(device=device, dtype=dtype),
+        depths=torch.stack([d[k0:k1] for d in depths], dim=1).to(device=device, dtype=dtype),
+        ts=put(ts), imu_dts=put(dts), imu_acc=put(acc), imu_gyr=put(gyr))
+
+
+class BatchedVioRunner:
+    """Batched multi-sequence VIO on one device.
+
+    ``warm`` runs the window-filling frames and the static initialization
+    in lock step; ``run`` then processes T steady frames.  RANSAC draws
+    come from one ``torch.Generator`` per sequence, seeded ``seed + b``."""
+
+    def __init__(self, tcfg: TrackerConfig, cam: PinholeCamera, ecfg: EstimatorConfig,
+                 device, B: int, seed: int = 17):
+        # the batched envelope: LK capped at 12 fine / 6 coarse iterations
+        self.tcfg = dataclasses.replace(tcfg, lk_max_iters=min(tcfg.lk_max_iters, 12),
+                                        lk_coarse_iters=min(tcfg.lk_coarse_iters, 6))
+        self.cam = cam
+        self.ecfg = ecfg
+        self.device = torch.device(device)
+        self.B = B
+        self.generators: List[torch.Generator] = []
+        for b in range(B):
+            g = torch.Generator(device=self.device)
+            g.manual_seed(seed + b)
+            self.generators.append(g)
+
+    def ransac_uniforms(self):
+        return ransac_ops.draw_uniforms(self.generators, self.tcfg.ransac_trials,
+                                        self.tcfg.maxc, self.device)
+
+    def init_states(self, ric, tic, td: float = 0.0):
+        trk = ft.init_state(self.tcfg, self.B, self.device)
+        st = est.init_estimator_state(self.ecfg, ric, tic, td, self.B, self.device)
+        return trk, st
+
+    def warm(self, trk, st, batch: FrameBatch):
+        """Frames 0..WINDOW_SIZE of ``batch`` fill the window (tracker,
+        depth lookup, ``fill_step``), then the static initialization runs;
+        returns (trk, st, StepOutput)."""
+        if batch.ts.shape[0] != WINDOW_SIZE + 1:
+            raise ValueError(f"warm needs {WINDOW_SIZE + 1} frames")
+        for k in range(WINDOW_SIZE + 1):
+            imu = est.ImuInterval(batch.imu_dts[k], batch.imu_acc[k], batch.imu_gyr[k])
+            relR = gyro_relative_R(imu.dts, imu.gyr, st.x.Bg[:, WINDOW_SIZE], st.x.qic)
+            trk, tout = ft.track_frame(self.tcfg, self.cam, trk, batch.imgs[k], batch.ts[k],
+                                       relR, self.ransac_uniforms())
+            feats = tout.features
+            feats = feats._replace(depth=ft.lookup_depth(batch.depths[k], feats.uv,
+                                                         feats.ids >= 0))
+            st, _ = est.fill_step(self.ecfg, st, k, feats, imu)
+        st, out = est.init_full(self.ecfg, st)
+        return trk, st, out
+
+    def run(self, trk, st, batch: FrameBatch):
+        """T steady frames; returns (trk, st, ScanOutputs (T, B, ...))."""
+        outs = []
+        for k in range(batch.ts.shape[0]):
+            imu = est.ImuInterval(batch.imu_dts[k], batch.imu_acc[k], batch.imu_gyr[k])
+            trk, st, sout = fused_frame_step(self.tcfg, self.cam, self.ecfg, trk, st,
+                                             batch.imgs[k], batch.depths[k], batch.ts[k],
+                                             imu, self.ransac_uniforms())
+            outs.append(ScanOutputs(P=sout.P, Q=sout.Q, V=sout.V, cost=sout.cost,
+                                    is_keyframe=sout.is_keyframe, n_features=sout.n_features))
+        return trk, st, ScanOutputs(*[torch.stack(f) for f in zip(*outs)])
