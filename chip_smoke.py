@@ -12,6 +12,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      (B = 8, N = 200, both pyramid levels, tracks between two rendered
      frames): status agrees on ≥ 99.5 % of points, u and err within 1e-3
      where both versions say ok;
+  4b. K3 (the LK iteration loop) against its plain version on the same
+     tracks at B = 1 and B = 8, N = 200, both levels (the K2 bounds), and
+     ``pyramidal_lk``'s K3 route against its K2 route;
   5. the main path: B = 8 sequences at 640×480 rendered on the device,
      ``BatchedVioRunner.warm`` (11 window-filling frames + static init) and
      ``run`` over T steady frames; finite costs, every kernel launched by
@@ -19,13 +22,23 @@ Phases (each prints one line; any failure raises and exits non-zero):
      max(0.05·travelled, 0.08 m); prints frames per second (CUDA events);
   6. kernel vs plain timings (CUDA events, median of 20, slice shapes), a
      per-stage split, and a profile of a few steady frames (chiprun_out/)
-     that must show no host synchronisation inside ``run``.
+     that must show no host synchronisation inside ``run``;
+  7. the latency path: ``VinsPipeline`` over one 640×480 stream (the bench's
+     ``run_latency`` with ``BENCH_LAT_LOOP=0``): 16 warm-up frames through
+     ``spin_once``, then 96 timed frames (CUDA-synchronised wall time);
+     NON_LINEAR after the warm-up, ATE under max(0.05·travelled, 0.08 m),
+     K1 once and K3 twice per frame and K2 never, and a profile of a few
+     more frames that must show no host wait inside ``spin_once``;
+  8. K3 vs plain timings at both shapes.
+Phases 5 and 7 each zero the kernels' launch counters just before their
+path and read them just after; the ``kernels`` line sums the two.
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA it exits
 non-zero before printing any result.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -39,19 +52,21 @@ import torch
 from vins_rgbd_fast_torch import native
 from vins_rgbd_fast_torch.backend import estimator as est
 from vins_rgbd_fast_torch.backend.estimator import ImuIntervalBuffer
-from vins_rgbd_fast_torch.config import EstimatorConfig, TrackerConfig
+from vins_rgbd_fast_torch.config import EstimatorConfig, TrackerConfig, VinsConfig
 from vins_rgbd_fast_torch.frontend import feature_tracker as ft
 from vins_rgbd_fast_torch.io import synthetic as syn
 from vins_rgbd_fast_torch.io.stream import ate_rmse
 from vins_rgbd_fast_torch.models.camera import PinholeCamera
 from vins_rgbd_fast_torch.ops import fast, image, lk
 from vins_rgbd_fast_torch.parallel import batched_pipeline as bp
+from vins_rgbd_fast_torch.pipeline import VinsPipeline
 
 # radtan coefficients of the bench rig (reference realsense vio.yaml)
 DISTORTION = dict(k1=0.13387871564774004, k2=-0.2731913133377051,
                   p1=0.0020296263577681264, p2=-0.00044384544608203714)
 OUT_DIR = "chiprun_out"
 RUN_SPAN = "chip_smoke::run"
+SPIN_SPAN = "chip_smoke::spin_once"
 HOST_SYNC_CALLS = ("cudaStreamSynchronize", "cudaEventSynchronize", "cudaDeviceSynchronize",
                    "cudaMemcpy")
 
@@ -111,8 +126,7 @@ def run_main_path(device, B: int, T: int, W: int = 640, H: int = 480, max_cnt: i
     runner = bp.BatchedVioRunner(tcfg, cam, ecfg, device, B)
     trk, st = runner.init_states(seqs[0].ric, seqs[0].tic)
 
-    fast.launches = 0
-    lk.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     trk, st, _ = runner.warm(trk, st, warm_batch)
     if timer is not None:
@@ -121,7 +135,7 @@ def run_main_path(device, B: int, T: int, W: int = 640, H: int = 480, max_cnt: i
     run_ms = timer.stop() if timer is not None else None
     P = outs.P.cpu().numpy()  # the one read-back of the steady run
     wall = time.perf_counter() - t0
-    counts = {"fast_nms": fast.launches, "lk_level": lk.launches}
+    counts = read_counts()
 
     cost = outs.cost.cpu().numpy()
     ates, bounds = [], []
@@ -141,11 +155,101 @@ def check_main_path(res, B: int, T: int, on_gpu: bool = True) -> None:
     if on_gpu:  # K1 runs once per frame over all B images; K2 once per level
         require(res["counts"]["fast_nms"] == frames, res["counts"])
         require(res["counts"]["lk_level"] == 2 * frames, res["counts"])
+        require(res["counts"]["lk_iterate"] == 0, res["counts"])
     for b in range(1, B):
         require(not np.allclose(res["P"][:, 0], res["P"][:, b], atol=1e-3),
                 f"sequences 0 and {b} coincide")
     for b, (ate, bound) in enumerate(zip(res["ates"], res["bounds"])):
         require(np.isfinite(ate) and ate < bound, ("ATE", b, ate, bound))
+
+
+def reset_counts() -> None:
+    fast.launches = 0
+    lk.level_launches = 0
+    lk.iterate_launches = 0
+
+
+def read_counts() -> dict:
+    return {"fast_nms": fast.launches, "lk_level": lk.level_launches,
+            "lk_iterate": lk.iterate_launches}
+
+
+def latency_config(rig, seq, max_cnt: int = 130) -> VinsConfig:
+    """bench.py _cfg for the latency cell on ``rig`` (min_dist scales with
+    the width below 640)."""
+    s = rig.width / 640.0
+    return VinsConfig(
+        imu=True, static_init=True, image_width=rig.width, image_height=rig.height,
+        intrinsics=(rig.fx, rig.fy, rig.cx, rig.cy), distortion=(rig.k1, rig.k2, rig.p1, rig.p2),
+        ric=tuple(seq.ric.ravel().tolist()), tic=tuple(seq.tic.tolist()),
+        max_cnt=max_cnt, min_dist=max(int(round(30 * s)), 4), num_grid_rows=7,
+        num_grid_cols=8, frontend_freq=0.0, freq=0.0, fix_depth=True, depth_max_dist=12.0,
+        acc_n=0.1, gyr_n=0.01, acc_w=1e-4, gyr_w=1e-5, max_imu_per_frame=32,
+        keyframe_parallax=10.0)
+
+
+def run_latency_path(device, n_frames: int = 112, warmup: int = 16, W: int = 640,
+                     H: int = 480, max_cnt: int = 130, profile: int = 0, path=None):
+    """bench.py run_latency with BENCH_LAT_LOOP=0 on the port: one stream
+    (make_trajectory seed 7), frames rendered on the device first, the
+    fused steady state with no read-back per frame (eager_outputs off,
+    failure check every 10**9 frames) and the envelope (LM 2 iterations,
+    LK 12/6).  ``profile`` more frames run under the profiler afterwards."""
+    rig, _, _, _ = slice_config(W, H, max_cnt)
+    seq = syn.make_trajectory(n_frames + profile, rig, seed=7, omega_scale=0.15,
+                              acc_scale=0.3)
+    ts, imgs, deps = syn.render_sequence(seq, rig, device)
+    pipe = VinsPipeline(latency_config(rig, seq, max_cnt), device, eager_outputs=False,
+                        failure_check_interval=10 ** 9, fused_steady_state=True)
+    pipe.estimator.cfg = dataclasses.replace(pipe.estimator.cfg, max_iters=2)
+    pipe.tcfg = dataclasses.replace(pipe.tcfg, lk_max_iters=12, lk_coarse_iters=6)
+    for (t, a, g) in seq.imu:
+        pipe.push_imu(t, a, g)
+
+    def feed(k0, k1):
+        for k in range(k0, k1):
+            pipe.push_image(ts[k], imgs[k])
+            pipe.push_depth(ts[k], deps[k])
+            pipe.spin_once()
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    reset_counts()
+    feed(0, warmup)
+    flag = pipe.estimator.solver_flag
+    sync()
+    t0 = time.perf_counter()
+    feed(warmup, n_frames)
+    sync()
+    elapsed = time.perf_counter() - t0
+    counts = read_counts()
+    prof = None
+    if profile:
+        prof = profile_span(lambda: feed(n_frames, n_frames + profile), SPIN_SPAN, profile,
+                            path, 1e3 * elapsed / (n_frames - warmup))
+    traj = [r for r in pipe.estimator.trajectory if r["t"] <= ts[n_frames - 1]]
+    ate = ate_rmse([r["t"] for r in traj], [r["P"] for r in traj], seq.times, seq.P,
+                   align=False) if len(traj) >= 5 else float("nan")
+    travelled = float(np.sum(np.linalg.norm(np.diff(seq.P[:n_frames], axis=0), axis=1)))
+    n_timed = n_frames - warmup
+    return dict(latency_fps=n_timed / elapsed, latency_ms_per_frame=1e3 * elapsed / n_timed,
+                latency_ate_m=ate, bound=max(0.05 * travelled, 0.08), frames=n_frames,
+                n_records=len(traj), solver_flag_after_warmup=flag, counts=counts,
+                profile=prof, timer=pipe.timer.summary())
+
+
+def check_latency_path(res, on_gpu: bool = True) -> None:
+    require(res["solver_flag_after_warmup"] == est.VinsEstimator.NON_LINEAR,
+            "NON_LINEAR after the warm-up")
+    require(np.isfinite(res["latency_ate_m"]) and res["latency_ate_m"] < res["bound"],
+            ("latency ATE", res["latency_ate_m"], res["bound"]))
+    if on_gpu:  # K1 once per frame, K3 once per pyramid level, never K2
+        n = res["frames"]
+        require(res["counts"] == {"fast_nms": n, "lk_level": 0, "lk_iterate": 2 * n},
+                ("latency launches", res["counts"]))
+        require(res["profile"]["host_syncs"] == 0, "no host wait inside spin_once")
 
 
 def require(ok, what) -> None:
@@ -197,38 +301,105 @@ def k2_inputs(prev_img, cur_img, tcfg, N: int, gen):
             pts, init, active)
 
 
+LK = dict(win=21, sm=8, eps=0.01, min_eig=1e-4)
+
+
+def parity(label, st_k, st_p, u_k, u_p, err_k, err_p) -> dict:
+    """Status agreement, and the largest |du| and |derr| where both say ok
+    (the K2/K3 bounds: ≥ 99.5 %, 1e-3), with the points that miss them."""
+    both = st_k & st_p
+    du = torch.where(both[..., None], (u_k - u_p).abs(), torch.zeros_like(u_k)).amax()
+    de = torch.where(both, (err_k - err_p).abs(), torch.zeros_like(err_k)).amax()
+    bad = torch.nonzero((st_k != st_p) | (both & (((u_k - u_p).abs().amax(-1) > 1e-3)
+                                                  | ((err_k - err_p).abs() > 1e-3))))
+    return dict(label, agree=(st_k == st_p).float().mean().item(), max_du=du.item(),
+                max_derr=de.item(), n_ok=int(both.sum()), mismatches=[
+                    dict(b=int(b), n=int(n), st_k=bool(st_k[b, n]), st_p=bool(st_p[b, n]),
+                         u_k=u_k[b, n].tolist(), u_p=u_p[b, n].tolist(),
+                         err_k=float(err_k[b, n]), err_p=float(err_p[b, n]))
+                    for b, n in bad.tolist()])
+
+
+def level_inputs(prev_pyr, cur_pyr, pts, flow, l: int):
+    pts_l = (pts / 2.0 ** l).contiguous()
+    prev, cur = prev_pyr[l], cur_pyr[l]
+    H, W = prev.shape[-2:]
+    ax, ay = lk.window_anchor(pts_l, flow, H, W, LK["win"], LK["sm"])
+    return prev, cur, pts_l, flow.contiguous(), ax, ay
+
+
 def compare_k2(prev_pyr, cur_pyr, pts, init, active, tcfg):
     """Both levels, kernel and plain version on identical inputs."""
-    win, sm, eps, min_eig = 21, 8, 0.01, 1e-4
+    win, sm, eps, min_eig = LK["win"], LK["sm"], LK["eps"], LK["min_eig"]
     report = []
     flow = (init - pts) / 2.0
     for l in (1, 0):
         iters = tcfg.lk_max_iters if l == 0 else tcfg.lk_coarse_iters
-        pts_l = (pts / 2.0 ** l).contiguous()
-        flow = flow.contiguous()
-        prev, cur = prev_pyr[l], cur_pyr[l]
+        prev, cur, pts_l, flow, ax, ay = level_inputs(prev_pyr, cur_pyr, pts, flow, l)
         H, W = prev.shape[-2:]
         # the wrapper (CUDA tensors: the kernel) against the plain version
         u_k, st_k, err_k = lk.lk_level(prev, cur, pts_l, flow, active, win, iters, eps,
                                        min_eig, check_border=(l == 0), search_margin=sm)
-        ax, ay = lk.window_anchor(pts_l, flow, H, W, win, sm)
         u_p, ok_p, err_p = lk.lk_level_plain(prev, cur, pts_l, flow, active, ax, ay, win,
                                              sm, iters, eps, min_eig)
         st_p = lk.level_status(pts_l, u_p, ok_p, active, ax, ay, H, W, win, sm, l == 0)
-        both = st_k & st_p
-        du = torch.where(both[..., None], (u_k - u_p).abs(), torch.zeros_like(u_k)).amax()
-        de = torch.where(both, (err_k - err_p).abs(), torch.zeros_like(err_k)).amax()
-        agree = (st_k == st_p).float().mean().item()
-        bad = torch.nonzero((st_k != st_p) | (both & (((u_k - u_p).abs().amax(-1) > 1e-3)
-                                                      | ((err_k - err_p).abs() > 1e-3))))
-        report.append(dict(level=l, iters=iters, agree=agree, max_du=du.item(),
-                           max_derr=de.item(), n_ok=int(both.sum()), mismatches=[
-                               dict(b=int(b), n=int(n), st_k=bool(st_k[b, n]),
-                                    st_p=bool(st_p[b, n]), u_k=u_k[b, n].tolist(),
-                                    u_p=u_p[b, n].tolist(), err_k=float(err_k[b, n]),
-                                    err_p=float(err_p[b, n])) for b, n in bad.tolist()]))
+        report.append(parity(dict(level=l, iters=iters), st_k, st_p, u_k, u_p, err_k, err_p))
         flow = 2.0 * u_p
     return report
+
+
+def k3_args(prev_pyr, cur_pyr, pts, flow, active, l: int, iters: int):
+    """K3's inputs at level l (``level_patches`` on the tracks), with what
+    ``level_status`` needs."""
+    prev, cur, pts_l, flow, ax, ay = level_inputs(prev_pyr, cur_pyr, pts, flow, l)
+    p = lk.level_patches(prev, cur, pts_l, ax, ay, LK["win"], LK["sm"], LK["min_eig"])
+    args = (p.tmpl, p.Ix, p.Iy, p.win_img, p.px, p.py, flow, ~(active & p.ok_eig), p.inv_det,
+            p.Gxx, p.Gxy, p.Gyy, iters, LK["eps"])
+    H, W = prev.shape[-2:]
+    return args, (pts_l, p.ok_eig, active, ax, ay, H, W, LK["win"], LK["sm"], l == 0)
+
+
+def compare_k3(prev_pyr, cur_pyr, pts, init, active, tcfg):
+    """Both levels, K3 and ``lk_iterate_plain`` on identical inputs, then
+    the K3 route of ``pyramidal_lk`` against its K2 route."""
+    report = []
+    flow = (init - pts) / 2.0
+    for l in (1, 0):
+        iters = tcfg.lk_max_iters if l == 0 else tcfg.lk_coarse_iters
+        args, st_args = k3_args(prev_pyr, cur_pyr, pts, flow, active, l, iters)
+        u_k, err_k = lk.lk_iterate(*args)  # CUDA tensors: the kernel
+        u_p, err_p = lk.lk_iterate_plain(*args)
+        st_k = lk.level_status(st_args[0], u_k, *st_args[1:])
+        st_p = lk.level_status(st_args[0], u_p, *st_args[1:])
+        report.append(parity(dict(level=l, iters=iters), st_k, st_p, u_k, u_p, err_k, err_p))
+        flow = 2.0 * u_p
+    routes = {eng: lk.pyramidal_lk(prev_pyr, cur_pyr, pts, init, active,
+                                   max_iters=tcfg.lk_max_iters,
+                                   coarse_iters=tcfg.lk_coarse_iters, engine=eng)
+              for eng in ("pallas", "pallas3")}
+    k3, k2 = routes["pallas"], routes["pallas3"]
+    report.append(parity(dict(level="pyramidal_lk K3 route vs K2 route"), k3.status,
+                         k2.status, k3.pts - pts, k2.pts - pts, k3.err, k2.err))
+    return report
+
+
+def check_parity(name: str, rep) -> float:
+    """Print mismatches and one line; require the bounds; returns the
+    largest error."""
+    for r in rep:
+        for m in r["mismatches"]:
+            print(f"  {name} mismatch level {r['level']}: {m}", flush=True)
+    for r in rep:
+        require(r["agree"] >= 0.995, (name, r))
+        require(r["max_du"] <= 1e-3 and r["max_derr"] <= 1e-3, (name, r))
+    return max(max(r["max_du"], r["max_derr"]) for r in rep)
+
+
+def summary(rep) -> str:
+    return "; ".join(
+        f"level {r['level']}" + (f" ({r['iters']} it)" if "iters" in r else "")
+        + f": status agree {100 * r['agree']:.2f}%, {r['n_ok']} ok, "
+        f"max|du| {r['max_du']:.2e}, max|derr| {r['max_derr']:.2e}" for r in rep)
 
 
 def nvidia_smi_line() -> str:
@@ -272,28 +443,34 @@ def stage_breakdown(res, batch):
 
 
 def profile_frames(res, path: str, step_ms: float):
-    """torch.profiler over the extra steady frames: kernel launches and
-    device kernel time per frame, the device's busy share against the
-    unprofiled step time, and the heaviest kernels (table in ``path``)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    """torch.profiler over the extra steady frames of the batched run."""
     trk, st = res["state"]
     batch = res["extra_batch"][1]
-    frames = int(batch.ts.shape[0])
+    return profile_span(lambda: res["runner"].run(trk, st, batch), RUN_SPAN,
+                        int(batch.ts.shape[0]), path, step_ms)
+
+
+def profile_span(fn, name: str, frames: int, path: str, step_ms: float):
+    """torch.profiler over ``fn`` (``frames`` frames) inside a span
+    ``name``: host waits inside the span, kernel launches and device kernel
+    time per frame, the device's busy share against the unprofiled step
+    time, and the heaviest kernels (table in ``path``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        with record_function(RUN_SPAN):
-            res["runner"].run(trk, st, batch)
+        with record_function(name):
+            fn()
         torch.cuda.synchronize()
-    # host waits that start and end inside run() (the profiler's own device
-    # synchronisation and the one above fall outside its span)
+    # host waits that start and end inside the span (the profiler's own
+    # device synchronisation and the one above fall outside it)
     span = next(e.time_range for e in prof.events()
-                if e.name == RUN_SPAN and e.device_type == DeviceType.CPU)
+                if e.name == name and e.device_type == DeviceType.CPU)
     host_syncs = sum(1 for e in prof.events() if e.name in HOST_SYNC_CALLS
                      and span.start <= e.time_range.start and e.time_range.end <= span.end)
     events = prof.key_averages()
     # the span also shows as a device-side annotation; it is not a kernel
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA and e.key != RUN_SPAN]
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA and e.key != name]
     dev_us = sum(e.self_device_time_total for e in kernels)
     n_kernels = sum(e.count for e in kernels)
     with open(path, "w") as f:
@@ -351,17 +528,16 @@ def main() -> int:
     # 4. K2 vs plain at the slice's shapes
     k2_in = k2_inputs(frame0, frame1, tcfg_run, N, gen)
     rep = compare_k2(*k2_in, tcfg_run)
-    k2_err = max(max(r["max_du"], r["max_derr"]) for r in rep)
-    for r in rep:
-        for m in r["mismatches"]:
-            print(f"  K2 mismatch level {r['level']}: {m}", flush=True)
-    print("[4 K2] " + "; ".join(
-        f"level {r['level']} ({r['iters']} it): status agree {100 * r['agree']:.2f}%, "
-        f"{r['n_ok']} ok, max|du| {r['max_du']:.2e}, max|derr| {r['max_derr']:.2e}"
-        for r in rep), flush=True)
-    for r in rep:
-        require(r["agree"] >= 0.995, r)
-        require(r["max_du"] <= 1e-3 and r["max_derr"] <= 1e-3, r)
+    print("[4 K2] " + summary(rep), flush=True)
+    k2_err = check_parity("K2", rep)
+
+    # 4b. K3 vs plain at the latency shape (B = 1) and the batched one
+    k3_in = {1: tuple(([x[:1].contiguous() for x in a] if isinstance(a, list)
+                       else a[:1].contiguous()) for a in k2_in), B: k2_in}
+    rep3 = {b: compare_k3(*k3_in[b], tcfg_run) for b in k3_in}
+    for b, r in rep3.items():
+        print(f"[4b K3] B={b}: " + summary(r), flush=True)
+    k3_err = max(check_parity("K3", r) for r in rep3.values())
 
     # 5. the main path
     res = run_main_path(dev, B, T, extra=EXTRA, timer=CudaTimer())
@@ -382,11 +558,10 @@ def main() -> int:
     k2_ms, k2_plain = 0.0, 0.0
     for l in (1, 0):
         iters = tcfg_run.lk_max_iters if l == 0 else tcfg_run.lk_coarse_iters
-        pts_l = (pts / 2.0 ** l).contiguous()
-        flow = ((init - pts) / 2.0).contiguous()
-        H, W = prev_pyr[l].shape[-2:]
-        ax, ay = lk.window_anchor(pts_l, flow, H, W, 21, 8)
-        args = (prev_pyr[l], cur_pyr[l], pts_l, flow, active, ax, ay, 21, 8, iters, 0.01, 1e-4)
+        prev, cur, pts_l, flow, ax, ay = level_inputs(prev_pyr, cur_pyr, pts,
+                                                      (init - pts) / 2.0, l)
+        args = (prev, cur, pts_l, flow, active, ax, ay, LK["win"], LK["sm"], iters,
+                LK["eps"], LK["min_eig"])
         k2_ms += median_ms(lambda: lk._lk_level_cuda(*args))
         k2_plain += median_ms(lambda: lk.lk_level_plain(*args))
     print(f"[6 timing] K1 fast_nms (8x480x640): {k1_ms:.4f} ms vs plain {k1_plain:.4f} ms; "
@@ -398,20 +573,51 @@ def main() -> int:
     print(f"[6 profile] {prof}", flush=True)
     require(prof["host_syncs"] == 0, "no host synchronisation inside run()")
 
+    # 7. the latency path (its own launch counts, zeroed just before it)
+    lat = run_latency_path(dev, profile=6, path=os.path.join(OUT_DIR, "profile_latency.txt"))
+    check_latency_path(lat)
+    print(f"[7 latency] 1 stream 640x480, warm 16 + {lat['frames'] - 16} timed frames: "
+          f"latency_fps {lat['latency_fps']:.2f}, latency_ms_per_frame "
+          f"{lat['latency_ms_per_frame']:.3f} (CUDA-synchronised wall), latency_ate_m "
+          f"{lat['latency_ate_m']:.4f} (bound {lat['bound']:.3f}); launches {lat['counts']}; "
+          f"profile {lat['profile']}", flush=True)
+
+    # 8. K3 timing, both levels summed, at both shapes
+    k3_ms, k3_plain = {}, {}
+    for b, (prev_pyr, cur_pyr, pts, init, active) in k3_in.items():
+        k3_ms[b] = k3_plain[b] = 0.0
+        for l in (1, 0):
+            iters = tcfg_run.lk_max_iters if l == 0 else tcfg_run.lk_coarse_iters
+            args, _ = k3_args(prev_pyr, cur_pyr, pts, ((init - pts) / 2.0), active, l, iters)
+            k3_ms[b] += median_ms(lambda: lk._lk_iterate_cuda(*args))
+            k3_plain[b] += median_ms(lambda: lk.lk_iterate_plain(*args))
+    print("[8 timing] K3 lk_iterate both levels: " + "; ".join(
+        f"B={b}x{N}: {k3_ms[b]:.4f} ms vs plain {k3_plain[b]:.4f} ms" for b in k3_ms),
+        flush=True)
+
+    counts = {k: res["counts"][k] + lat["counts"][k] for k in res["counts"]}
     kernels = [
         dict(name="fast_nms", route="cuda", source="vins_rgbd_fast_torch/csrc/fast_nms.cu",
              replaces="vins_rgbd_fast_tpu/ops/fast_pallas.py:99",
-             launches=res["counts"]["fast_nms"], max_abs_err=k1_err, ms=k1_ms,
+             launches=counts["fast_nms"], max_abs_err=k1_err, ms=k1_ms,
              plain_ms=k1_plain),
         dict(name="lk_level", route="cuda", source="vins_rgbd_fast_torch/csrc/lk_level.cu",
              replaces="vins_rgbd_fast_tpu/ops/lk_pallas3.py:273",
-             launches=res["counts"]["lk_level"], max_abs_err=k2_err, ms=k2_ms,
+             launches=counts["lk_level"], max_abs_err=k2_err, ms=k2_ms,
              plain_ms=k2_plain),
+        dict(name="lk_iterate", route="cuda", source="vins_rgbd_fast_torch/csrc/lk_level.cu",
+             replaces="vins_rgbd_fast_tpu/ops/lk_pallas2.py:120",
+             launches=counts["lk_iterate"], max_abs_err=k3_err, ms=k3_ms[1],
+             plain_ms=k3_plain[1]),
     ]
+    for k in kernels:
+        k["launches_by_path"] = {"batched": res["counts"][k["name"]],
+                                 "latency": lat["counts"][k["name"]]}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
-        json.dump(dict(card=smi, kernels=kernels, k2=rep, main={
+        json.dump(dict(card=smi, kernels=kernels, k2=rep, k3=rep3, main={
             k: res[k] for k in ("ates", "bounds", "counts", "run_ms", "wall_s", "frames")},
-            stages=stages, profile=prof), f, indent=1, default=float)
+            stages=stages, profile=prof, latency=lat, k3_ms=k3_ms, k3_plain_ms=k3_plain),
+            f, indent=1, default=float)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

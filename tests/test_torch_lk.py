@@ -1,6 +1,6 @@
-"""Parity of the port's LK level (plain version of kernel K2) and
-``pyramidal_lk`` with the JAX matmul-sampler path and the Pallas v3 level
-kernel in interpret mode, batched over B = 2.
+"""Parity of the port's LK level (plain versions of kernels K2 and K3) and
+``pyramidal_lk`` with the JAX matmul-sampler path, the Pallas v2 iteration
+kernel and the Pallas v3 level kernel in interpret mode, batched over B = 2.
 
 Tolerances: status equal; u, tracked points and err within 1e-3 (float32
 sums over the 21×21 patch are taken in another order)."""
@@ -8,12 +8,14 @@ sums over the 21×21 patch are taken in another order)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from tests.torch_parity import tn, tt
 from vins_rgbd_fast_torch.ops import image as timage
 from vins_rgbd_fast_torch.ops import lk as tlk
 from vins_rgbd_fast_tpu.ops import image as jimage
 from vins_rgbd_fast_tpu.ops import lk as jlk
+from vins_rgbd_fast_tpu.ops import lk_pallas2
 
 H, W = 120, 160
 
@@ -39,20 +41,20 @@ def _inputs():
             np.stack([pts, pts2]).astype(np.float32), act)
 
 
-@pytest.mark.parametrize("engine", ["xla", "pallas3"])
+@pytest.mark.parametrize("engine", ["xla", "pallas3", "pallas"])
 def test_pyramidal_lk_matches_jax(engine):
     imgs0, imgs1, pts, act = _inputs()
     init = pts + np.float32(0.5)
     out = tlk.pyramidal_lk(timage.build_pyramid(tt(imgs0), 2),
                            timage.build_pyramid(tt(imgs1), 2), tt(pts), tt(init), tt(act),
-                           max_iters=8, coarse_iters=4)
+                           max_iters=8, coarse_iters=4, engine=engine)
     for b in range(2):
         p0 = tuple(jimage.build_pyramid(jnp.asarray(imgs0[b]), 2))
         p1 = tuple(jimage.build_pyramid(jnp.asarray(imgs1[b]), 2))
         ref = jlk.pyramidal_lk(p0, p1, jnp.asarray(pts[b]), jnp.asarray(init[b]),
                                jnp.asarray(act[b]), max_iters=8, coarse_iters=4,
                                sampler="matmul", engine=engine,
-                               engine_interpret=(engine == "pallas3"))
+                               engine_interpret=(engine != "xla"))
         ok = np.asarray(ref.status)
         assert np.array_equal(tn(out.status[b]), ok), b
         assert ok.sum() >= 15
@@ -86,3 +88,51 @@ def test_window_anchor_clamps_like_jax():
     WIN = 21 + 1 + 16
     assert tn(ax).tolist() == [[0, 0 + 5 + WIN - 10 - 8, 80 + WIN - 18]]
     assert tn(ay).tolist() == [[3 + WIN - 18, H + 2 * WIN - WIN, 60 + WIN - 18]]
+
+
+def test_lk_iterate_matches_jax_lk_pallas2():
+    """K3's plain version against ``lk_pallas2.lk_iterate`` in interpret
+    mode on the same numpy inputs: real patches of one level, two rows that
+    start done and one whose warm start lies far outside its window."""
+    imgs0, imgs1, pts, act = _inputs()
+    win, sm, iters, eps, min_eig = 21, 8, 8, 0.01, 1e-4
+    WIN = win + 1 + 2 * sm
+    rng = np.random.default_rng(3)
+    flow = rng.normal(0, 1.5, pts.shape).astype(np.float32)
+    ax, ay = tlk.window_anchor(tt(pts), tt(flow), H, W, win, sm)
+    p = tlk.level_patches(tt(imgs0), tt(imgs1), tt(pts), ax, ay, win, sm, min_eig)
+    done0 = ~(tt(act) & p.ok_eig)
+    done0[:, 4] = True
+    done0[1, 5] = True
+    u0 = tt(flow)
+    u0[:, 6] = torch.tensor([40.0, -35.0])  # diverged: every sample leaves the window
+    assert not bool(done0[:, 6].any())
+    u, err = tlk.lk_iterate_plain(p.tmpl, p.Ix, p.Iy, p.win_img, p.px, p.py, u0, done0,
+                                  p.inv_det, p.Gxx, p.Gxy, p.Gyy, iters, eps)
+    for b in range(2):
+        ju, jerr = lk_pallas2.lk_iterate(
+            *[jnp.asarray(tn(a[b]), jnp.float32) for a in (p.tmpl, p.Ix, p.Iy, p.win_img,
+                                                           p.px, p.py, u0)],
+            jnp.asarray(tn(done0[b])),
+            *[jnp.asarray(tn(a[b]), jnp.float32) for a in (p.inv_det, p.Gxx, p.Gxy, p.Gyy)],
+            w=win, WIN=WIN, iters=iters, eps=eps, interpret=True)
+        ju, jerr = np.asarray(ju), np.asarray(jerr)
+        assert np.array_equal(tn(u[b])[tn(done0[b])], tn(u0[b])[tn(done0[b])])  # done rows stay
+        assert np.abs(tn(u[b]) - ju).max() < 1e-3, b
+        assert np.abs(tn(err[b]) - jerr).max() < 1e-3, b
+        assert np.all(np.isfinite(jerr)) and tn(err[b])[6] > 10.0  # the zero samples' error
+
+
+def test_lk_iterate_and_plain_engine_refuse_other_devices():
+    """A wrapper runs its plain version only for CPU tensors; the plain
+    level ("xla") is not allowed off the CPU either."""
+    t = torch.zeros((1, 1, 21, 21), device="meta")
+    s = torch.zeros((1, 1), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tlk.lk_iterate(t, t, t, torch.zeros((1, 1, 38, 38), device="meta"), s, s,
+                       torch.zeros((1, 1, 2), device="meta"), s.bool(), s, s, s, s, 4, 0.01)
+    img = torch.zeros((1, 40, 40), device="meta")
+    pts = torch.zeros((1, 3, 2), device="meta")
+    with pytest.raises(ValueError, match="'xla'"):
+        tlk.pyramidal_lk([img], [img], pts, pts, torch.ones((1, 3), dtype=torch.bool,
+                                                            device="meta"), engine="xla")

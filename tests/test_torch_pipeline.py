@@ -1,0 +1,290 @@
+"""The port's single-sequence latency pipeline (``VinsPipeline`` +
+``VinsEstimator``) against the JAX package's on the same small stream
+(160×120 radtan rig, max_cnt 32, 18 frames, the bench's latency envelope:
+LM 2 iterations, LK 12/6), unfused and with the fused steady state, with
+the JAX RANSAC draws injected; and the port-only behaviour of the host
+shell.
+
+Tolerances: the same solver-flag sequence and output count; per-frame
+newest position within 5 mm of JAX's (the bound of
+``test_torch_slice.py``: float32 Gauss-Newton from a large initial cost);
+ATE under max(0.05·travelled, 0.08 m)."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+import chip_smoke
+from tests.test_torch_tracker import jax_ransac_uniforms
+from tests.torch_parity import tn
+from vins_rgbd_fast_torch import config as tconfig
+from vins_rgbd_fast_torch.backend import estimator as tes
+from vins_rgbd_fast_torch.io import stream as tstream
+from vins_rgbd_fast_torch.io import synthetic as tsyn
+from vins_rgbd_fast_torch.pipeline import VinsPipeline as TPipeline
+from vins_rgbd_fast_tpu import config as jconfig
+from vins_rgbd_fast_tpu.backend import estimator as jest
+from vins_rgbd_fast_tpu.io import stream as jstream
+from vins_rgbd_fast_tpu.pipeline import VinsPipeline as JPipeline
+
+W, H, MAX_CNT, FRAMES = 160, 120, 32, 18
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def stream():
+    rig, _, _, _ = chip_smoke.slice_config(W, H, MAX_CNT)
+    seq = tsyn.make_trajectory(FRAMES, rig, seed=7, omega_scale=0.15, acc_scale=0.3)
+    ts, imgs, deps = tsyn.render_sequence(seq, rig, "cpu")
+    return seq, ts, tn(imgs), tn(deps), chip_smoke.latency_config(rig, seq, MAX_CNT)
+
+
+def _envelope(pipe):
+    pipe.estimator.cfg = dataclasses.replace(pipe.estimator.cfg, max_iters=2)
+    pipe.tcfg = dataclasses.replace(pipe.tcfg, lk_max_iters=12, lk_coarse_iters=6)
+    return pipe
+
+
+def _drive(pipe, seq, ts, imgs, deps, k0=0, k1=FRAMES):
+    """Push IMU (once) and frames [k0, k1); per frame the solver flag and the
+    newest position (None before NON_LINEAR)."""
+    if k0 == 0:
+        for (t, a, g) in seq.imu:
+            pipe.push_imu(t, a, g)
+    flags, Ps = [], []
+    for k in range(k0, k1):
+        pipe.push_image(ts[k], imgs[k])
+        pipe.push_depth(ts[k], deps[k])
+        out = pipe.spin_once()
+        flags.append(pipe.estimator.solver_flag)
+        Ps.append(None if out is None else np.asarray(out["P"], np.float64))
+    return flags, Ps
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+def test_pipeline_matches_jax(stream, fused):
+    seq, ts, imgs, deps, tcfg = stream
+    keys = jax.random.split(jax.random.PRNGKey(0), 4096)
+
+    def jax_draws(is_fused, i):  # the keys JAX's pipeline hands its tracker
+        key = jax.random.fold_in(jax.random.PRNGKey(2), i) if is_fused else keys[i % 4096]
+        return jax_ransac_uniforms(key, 64, tcfg.feature_capacity)
+
+    jpipe = _envelope(JPipeline(jconfig.VinsConfig(**dataclasses.asdict(tcfg)),
+                                dtype=jnp.float32, fused_steady_state=fused))
+    tpipe = _envelope(TPipeline(tcfg, "cpu", fused_steady_state=fused,
+                                ransac_uniforms=jax_draws))
+    jflags, jP = _drive(jpipe, seq, ts, imgs, deps)
+    tflags, tP = _drive(tpipe, seq, ts, imgs, deps)
+    assert tflags == jflags
+    assert [p is None for p in tP] == [p is None for p in jP]
+    n_out = sum(p is not None for p in tP)
+    assert n_out == FRAMES - 10
+    for k, (a, b) in enumerate(zip(tP, jP)):
+        if a is not None:
+            assert np.linalg.norm(a - b) < 5e-3, (k, a, b)
+    if fused:
+        assert tpipe._fused_step == FRAMES - 11  # the steady frames took the fused path
+    traj = tpipe.run()
+    assert len(traj) == n_out
+    ate = tstream.ate_rmse([r["t"] for r in traj], [r["P"] for r in traj], seq.times,
+                           seq.P, align=False)
+    travelled = np.sum(np.linalg.norm(np.diff(seq.P, axis=0), axis=1))
+    assert np.isfinite(ate) and ate < max(0.05 * travelled, 0.08), (ate, travelled)
+
+
+def test_frame_without_imu_coverage_is_held(stream):
+    """A frame whose IMU interval is not complete is held and processed on
+    a later spin once the samples arrive, not dropped."""
+    seq, ts, imgs, deps, tcfg = stream
+    pipe = TPipeline(tcfg, "cpu")
+    late = [s for s in seq.imu if s[0] > ts[0]]
+    for (t, a, g) in seq.imu[:len(seq.imu) - len(late)]:
+        pipe.push_imu(t, a, g)
+    for k in (0, 1):
+        pipe.push_image(ts[k], imgs[k])
+        pipe.push_depth(ts[k], deps[k])
+    assert pipe.spin_once() is None and pipe.estimator.frame_count == 1
+    assert pipe.spin_once() is None and pipe._held_frame is not None
+    assert pipe.estimator.frame_count == 1
+    for (t, a, g) in late:
+        pipe.push_imu(t, a, g)
+    pipe.spin_once()
+    assert pipe._held_frame is None and pipe.estimator.frame_count == 2
+    assert pipe.pairer.next_frame() is None
+
+
+def test_stream_discontinuity_resets(stream):
+    """A >1 s gap in the image stream resets the tracker and the estimator:
+    the frame after it starts a new window."""
+    seq, ts, imgs, deps, tcfg = stream
+    pipe = TPipeline(tcfg, "cpu")
+    _drive(pipe, seq, ts, imgs, deps, 0, 3)
+    assert pipe.estimator.frame_count == 3
+    t_gap = float(ts[3]) + 2.0
+    pipe.push_imu(t_gap, seq.imu[-1][1], seq.imu[-1][2])
+    pipe.push_image(t_gap, imgs[3])
+    pipe.push_depth(t_gap, deps[3])
+    pipe.spin_once()
+    assert pipe.estimator.frame_count == 1
+    assert pipe.estimator.headers[0] == t_gap
+    assert int(pipe.tracker_state.next_id[0]) == int((tn(pipe.tracker_state.ids) >= 0).sum())
+
+
+def test_fused_failure_reset(stream):
+    """A poisoned bias is caught by the failure check of the fused path:
+    no output, the estimator back to INITIAL (as ``test_fused_latency``)."""
+    seq, ts, imgs, deps, tcfg = stream
+    pipe = _envelope(TPipeline(tcfg, "cpu", fused_steady_state=True))
+    _drive(pipe, seq, ts, imgs, deps, 0, 13)
+    assert pipe.estimator.solver_flag == tes.VinsEstimator.NON_LINEAR
+    st = pipe.estimator.state
+    pipe.estimator.state = st._replace(x=st.x._replace(Ba=st.x.Ba + 100.0))
+    flags, Ps = _drive(pipe, seq, ts, imgs, deps, 13, 14)
+    assert Ps == [None] and flags == [tes.VinsEstimator.INITIAL]
+    assert pipe.estimator.frame_count == 0
+
+
+def test_latest_odometry_matches_jax(stream):
+    """IMU-rate propagation of the newest solved state through the buffered
+    samples, from the same base record and the same samples."""
+    seq, ts, _, _, tcfg = stream
+    je = jest.VinsEstimator(jconfig.VinsConfig(**dataclasses.asdict(tcfg)), jnp.float32)
+    te = tes.VinsEstimator(tcfg, "cpu")
+    rng = np.random.default_rng(4)
+    t_last = float(ts[5])
+    base = dict(P=rng.normal(size=3), Q=np.array([0.9, 0.1, -0.3, 0.2]) / np.linalg.norm(
+        [0.9, 0.1, -0.3, 0.2]), V=rng.normal(size=3), Ba=rng.normal(0, 0.05, 3),
+        Bg=rng.normal(0, 0.01, 3))
+    for e in (je, te):
+        for (t, a, g) in seq.imu:
+            e.push_imu(t, a, g)
+        e.push_imu(0.5 * (seq.imu[3][0] + seq.imu[4][0]), np.ones(3), np.ones(3))  # dropped
+        e.solver_flag = e.NON_LINEAR
+        e._pending = [(t_last, None)]
+        e._latest_base = (t_last, base)
+    for t in (None, float(ts[7]), float(ts[5]) + 0.012):
+        a, b = te.latest_odometry(t), je.latest_odometry(t)
+        assert a["t"] == b["t"]
+        for k in ("P", "Q", "V"):
+            np.testing.assert_allclose(a[k], b[k], rtol=0, atol=1e-12)
+
+
+RIG_YAML = """%YAML:1.0
+---
+# the rig of a RealSense D435i (reference-format rig file)
+imu: 1
+static_init: 1
+image_topic: "/camera/color/image_raw"
+depth_topic: "/camera/aligned_depth_to_color/image_raw"
+output_path: "/tmp/output/"   # trailing comment
+model_type: PINHOLE
+camera_name: camera
+image_width: 640
+image_height: 480
+distortion_parameters:
+   k1: 1.3387871564774004e-01
+   k2: -2.731913133377051e-01
+   p1: 2.0296263577681264e-03
+   p2: -4.4384544608203714e-04
+projection_parameters:
+   fx: 6.045821781259577e+02
+   fy: 6.0425e+02
+   cx: 3.2126e+02
+   cy: 2.3971e+02
+estimate_extrinsic: 0
+extrinsicRotation: !!opencv-matrix
+   rows: 3
+   cols: 3
+   dt: d
+   data: [ 0.99964621,  0.01105994,  0.02418954,
+           -0.01088975,  0.9999151, -0.00715601,
+           -0.02426663,  0.00689047,  0.99965894]
+extrinsicTranslation: !!opencv-matrix
+   rows: 3
+   cols: 1
+   dt: d
+   data: [0.17336835, 0.049596, -0.10574841]
+max_cnt: 130
+min_dist: 30
+freq: 10
+frontend_freq: 20
+F_threshold: 1.0
+fast_threshold: 25
+equalize: 0
+fisheye: 0
+max_solver_time: 0.04
+max_num_iterations: 8
+keyframe_parallax: 10.0
+acc_n: 0.1
+gyr_n: 0.01
+acc_w: 1e-4
+gyr_w: 0.0001
+g_norm: 9.805
+depth_min_dist: 0.3
+depth_max_dist: 12
+fix_depth: 1
+estimate_td: 1
+td: 0.001
+rolling_shutter: 1
+rolling_shutter_tr: 0.033
+loop_closure: 0
+"""
+
+
+def test_load_config_matches_jax(tmp_path):
+    path = tmp_path / "rig.yaml"
+    path.write_text(RIG_YAML)
+    t, j = tconfig.load_config(str(path)), jconfig.load_config(str(path))
+    for f in dataclasses.fields(t):
+        assert getattr(t, f.name) == getattr(j, f.name), f.name
+    assert t.fast_threshold == 25 and t.estimate_td and t.tic[2] == -0.10574841
+    np.testing.assert_array_equal(t.ric_matrix(), j.ric_matrix())
+
+
+def test_unported_options_raise(stream):
+    tcfg = stream[4]
+    for change in (dict(loop_closure=True), dict(static_init=False), dict(estimate_td=True),
+                   dict(estimate_extrinsic=2), dict(fast_relocalization=True),
+                   dict(imu=False), dict(equalize=True)):
+        with pytest.raises(NotImplementedError):
+            TPipeline(dataclasses.replace(tcfg, **change), "cpu")
+    with pytest.raises(NotImplementedError):
+        dataclasses.replace(tcfg, model_type="MEI").camera()
+
+
+def test_stream_pairer_matches_jax():
+    """The port's copy of the pairer gives JAX's frames on a jittered
+    stream with unmatched stamps, a >1 s gap and a backwards jump."""
+    rng = np.random.default_rng(9)
+    t_img = list(np.arange(0.0, 1.5, 1 / 30.0)) + list(np.arange(3.0, 3.6, 1 / 30.0)) \
+        + list(np.arange(2.0, 2.3, 1 / 30.0))
+    pairers = (tstream.StreamPairer(), jstream.StreamPairer())
+    msgs = (tstream, jstream)
+    outs = ([], [])
+    for k, t in enumerate(t_img):
+        td = t + rng.uniform(-0.004, 0.004)
+        for p, m, out in zip(pairers, msgs, outs):
+            if k % 11 != 5:  # some images lose their depth
+                p.push_depth(m.DepthMsg(t=td, depth=None))
+            p.push_image(m.ImageMsg(t=t, image=None))
+            while (f := p.next_frame()) is not None:
+                out.append((f.t, f.publish, p.consume_reset()))
+    assert outs[0] == outs[1]
+    assert any(r for _, _, r in outs[0]) and not all(pub for _, pub, _ in outs[0])
+
+
+def test_port_imports_nothing_of_jax():
+    """The pipeline and chip_smoke import in a process where ``jax`` cannot
+    be imported, and load no module of the JAX package."""
+    code = ("import sys; sys.modules['jax'] = None; "
+            "import vins_rgbd_fast_torch.pipeline, chip_smoke; "
+            "bad = [m for m in sys.modules if m.startswith('vins_rgbd_fast_tpu')]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)

@@ -8,9 +8,10 @@ counterpart, so a reader finds each twin by its path.  Idiom differences:
     where the JAX package relies on ``vmap``;
   * Python loops where JAX uses ``scan``/``while_loop``;
   * an explicit ``device`` on every constructor, no implicit CPU fallback;
-  * the two TPU kernels of the main path (FAST+NMS, one LK pyramid level)
-    are hand-written CUDA kernels for Hopper (``csrc/``), each with a plain
-    PyTorch version beside its wrapper that runs for CPU tensors.
+  * the three TPU kernels (FAST+NMS, one LK pyramid level, the LK
+    iteration loop) are hand-written CUDA kernels for Hopper (``csrc/``),
+    each with a plain PyTorch version beside its wrapper that runs for CPU
+    tensors.
 """
 
 __version__ = "0.1.0"

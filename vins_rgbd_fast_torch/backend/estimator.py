@@ -358,3 +358,171 @@ class ImuIntervalBuffer:
         while len(buf) > 1 and buf[1][0] < t1:
             buf.pop(0)
         return dts, acc, gyr
+
+
+class VinsEstimator:
+    """Host orchestration of one sequence: IMU pairing, the INITIAL →
+    NON_LINEAR phases and the failure reset (twin of ``VinsEstimator``,
+    ``vins_rgbd_fast_tpu/backend/estimator.py:960-1319``).  The state is
+    the batched state at B = 1.
+
+    Only static initialization is ported: a config that asks for dynamic
+    or monocular initialization, td or extrinsic estimation or
+    relocalization raises ``NotImplementedError`` here, at construction
+    (``EstimatorConfig.from_vins``).  With ``eager_outputs=False`` nothing
+    is read back on a steady frame except the failure check, every
+    ``failure_check_interval`` frames."""
+
+    INITIAL = 0
+    NON_LINEAR = 1
+
+    def __init__(self, vcfg, device, dtype=torch.float32, eager_outputs: bool = True,
+                 failure_check_interval: int = 1):
+        self.vcfg = vcfg
+        self.cfg = EstimatorConfig.from_vins(vcfg)
+        self.device = torch.device(device)
+        self.dtype = dtype
+        self.eager_outputs = eager_outputs
+        self.failure_check_interval = failure_check_interval
+        self._imu = ImuIntervalBuffer(self.cfg.max_imu)
+        self.prev_time = None
+        self._pending: list = []  # (t, StepOutput on the device)
+        self._latest_base = None
+        self.reset()
+
+    def reset(self):
+        self.state = init_estimator_state(self.cfg, self.vcfg.ric_matrix(),
+                                          self.vcfg.tic_vector(), self.vcfg.td, 1,
+                                          self.device, self.dtype)
+        self.frame_count = 0
+        self.solver_flag = self.INITIAL
+        self.headers = [0.0] * FRAMES
+        self._step = 0
+        self._td_cache = float(self.vcfg.td)
+
+    # -- IMU ----------------------------------------------------------------
+    def push_imu(self, t: float, acc, gyr):
+        self._imu.push(t, acc, gyr)  # disordered samples are dropped
+
+    def imu_available(self, t: float) -> bool:
+        buf = self._imu._buf
+        return bool(buf) and buf[-1][0] >= t
+
+    def _collect_interval_np(self, t0: float, t1: float):
+        return self._imu.collect(t0, t1)
+
+    def _upload_interval(self, dts, acc, gyr) -> ImuInterval:
+        def put(a):
+            return torch.as_tensor(a[None], dtype=self.dtype).to(self.device)
+        return ImuInterval(put(dts), put(acc), put(gyr))
+
+    # -- frames -------------------------------------------------------------
+    def process_features(self, feats: FrameFeatures, t: float):
+        """One backend step for a tracked frame (B = 1) at time t; returns
+        the odometry (a dict, or the device ``StepOutput`` without
+        ``eager_outputs``) once NON_LINEAR, else None."""
+        cfg = self.cfg
+        cur_time = t + self._td_cache
+        imu = self._upload_interval(*self._collect_interval_np(
+            self.prev_time if self.prev_time is not None else cur_time - 1e-3, cur_time))
+        self.prev_time = cur_time
+
+        out = None
+        if self.solver_flag == self.INITIAL:
+            self.state, _ = fill_step(cfg, self.state, self.frame_count, feats, imu)
+            self.headers[self.frame_count] = t
+            if self.frame_count == WINDOW_SIZE:
+                self.state, step_out = init_full(cfg, self.state)
+                self.solver_flag = self.NON_LINEAR
+                out = self._emit(step_out, t)
+            else:
+                self.frame_count += 1
+        else:
+            self.state, step_out = vio_step(cfg, self.state, feats, imu)
+            self.headers = self.headers[1:] + [t]
+            if self._step % self.failure_check_interval == 0 and bool(step_out.failure[0]):
+                self.reset()
+                self.prev_time = None
+                return None
+            out = self._emit(step_out, t)
+        self._step += 1
+        return out
+
+    def latest_odometry(self, t=None):
+        """IMU-rate odometry: midpoint-propagate the newest solved state
+        through the buffered IMU samples up to ``t`` (numpy, one read-back
+        per solved frame)."""
+        if self.solver_flag != self.NON_LINEAR or not self._pending:
+            return None
+        t_last, out = self._pending[-1]
+        if self._latest_base is not None and self._latest_base[0] == t_last:
+            base = self._latest_base[1]
+        else:
+            base = self._materialize(t_last, out)
+            self._latest_base = (t_last, base)
+        P = np.asarray(base["P"], np.float64).copy()
+        Q = np.asarray(base["Q"], np.float64).copy()
+        V = np.asarray(base["V"], np.float64).copy()
+        g = np.array([0.0, 0.0, self.cfg.g_norm])
+        ba = np.asarray(base.get("Ba", np.zeros(3)), np.float64)
+        bg = np.asarray(base.get("Bg", np.zeros(3)), np.float64)
+        samples = [s for s in self._imu._buf if s[0] > t_last and (t is None or s[0] <= t)]
+        t_prev = t_last
+        acc_prev = gyr_prev = None
+
+        def rot(q, v):
+            w0, x, y, z = q
+            R = np.array([
+                [1 - 2 * (y * y + z * z), 2 * (x * y - w0 * z), 2 * (x * z + w0 * y)],
+                [2 * (x * y + w0 * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w0 * x)],
+                [2 * (x * z - w0 * y), 2 * (y * z + w0 * x), 1 - 2 * (x * x + y * y)],
+            ])
+            return R @ v
+
+        for (ts, acc, gyr) in samples:
+            dt = ts - t_prev
+            if acc_prev is None:
+                acc_prev, gyr_prev = acc, gyr
+            half = 0.5 * (0.5 * (gyr_prev + gyr) - bg) * dt
+            dq = np.array([1.0, half[0], half[1], half[2]])
+            Qn = np.array([
+                Q[0] * dq[0] - Q[1] * dq[1] - Q[2] * dq[2] - Q[3] * dq[3],
+                Q[0] * dq[1] + Q[1] * dq[0] + Q[2] * dq[3] - Q[3] * dq[2],
+                Q[0] * dq[2] - Q[1] * dq[3] + Q[2] * dq[0] + Q[3] * dq[1],
+                Q[0] * dq[3] + Q[1] * dq[2] - Q[2] * dq[1] + Q[3] * dq[0],
+            ])
+            Qn /= np.linalg.norm(Qn)
+            a = 0.5 * ((rot(Q, acc_prev - ba) - g) + (rot(Qn, acc - ba) - g))
+            P = P + V * dt + 0.5 * a * dt * dt
+            V = V + a * dt
+            Q = Qn
+            acc_prev, gyr_prev = acc, gyr
+            t_prev = ts
+        return dict(t=t_prev, P=P, Q=Q, V=V)
+
+    def _emit(self, step_out: StepOutput, t: float):
+        self._pending.append((t, step_out))
+        if self.eager_outputs:
+            return self._materialize(t, step_out)
+        return step_out
+
+    @staticmethod
+    def _materialize(t: float, step_out: StepOutput) -> dict:
+        h = StepOutput(*[f[0].detach().cpu().numpy() for f in step_out])
+        return dict(t=t, P=h.P, Q=h.Q, V=h.V, Ba=h.Ba, Bg=h.Bg,
+                    is_keyframe=bool(h.is_keyframe), cost=float(h.cost),
+                    n_features=int(h.n_features), wp_world=h.wp_world, wp_uv=h.wp_uv,
+                    wp_norm=h.wp_norm, wp_valid=h.wp_valid, wp_ids=h.wp_ids)
+
+    @property
+    def trajectory(self) -> list:
+        """Materialized odometry records; one device fetch per field."""
+        if not self._pending:
+            return []
+        outs = [o for _, o in self._pending]
+        host = {k: torch.stack([getattr(o, k)[0] for o in outs]).cpu().numpy()
+                for k in ("P", "Q", "V", "is_keyframe", "cost", "n_features")}
+        return [dict(t=t, P=host["P"][i], Q=host["Q"][i], V=host["V"][i],
+                     is_keyframe=bool(host["is_keyframe"][i]), cost=float(host["cost"][i]),
+                     n_features=int(host["n_features"][i]))
+                for i, (t, _) in enumerate(self._pending)]

@@ -2,7 +2,8 @@
 ``track_frame``/``lookup_depth`` in
 ``vins_rgbd_fast_tpu/frontend/feature_tracker.py``).
 
-pipeline per frame: pyramid → IMU-predicted pyramidal LK (K2) →
+pipeline per frame: pyramid → IMU-predicted pyramidal LK (K3 by default,
+K2 in the batched runner: ``TrackerConfig.lk_engine``) →
 border/status cull → F-RANSAC → FAST + 3×3 NMS (K1) → per-grid top-k →
 min-distance admission (long tracks first) → compaction → undistortion
 and per-id velocities.  No CLAHE and no fisheye mask (the slice's
@@ -143,7 +144,8 @@ def track_frame(cfg: TrackerConfig, cam: PinholeCamera, state: TrackerState,
     lk = lk_ops.pyramidal_lk(
         list(state.pyramid[:levels]), list(pyr[:levels]), state.pts, pred,
         active & state.has_prev[:, None],
-        max_iters=cfg.lk_max_iters, coarse_iters=cfg.lk_coarse_iters)
+        max_iters=cfg.lk_max_iters, coarse_iters=cfg.lk_coarse_iters,
+        engine=cfg.lk_engine)
     in_b = _in_border(cfg, lk.pts)
     tracked = lk.status & in_b
     unstable = active & state.has_prev[:, None] & ~lk.status & in_b

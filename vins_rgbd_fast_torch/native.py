@@ -76,6 +76,8 @@ def lib() -> ctypes.CDLL:
             L.lk_level_launch.restype = i
             L.lk_level_launch.argtypes = [p, p, p, p, p, p, p, p, p, p,
                                           i, i, i, i, i, i, i, f, f, p]
+            L.lk_iterate_launch.restype = i
+            L.lk_iterate_launch.argtypes = [p] * 14 + [i, i, i, i, i, f, p]
             _lib = L
     return _lib
 

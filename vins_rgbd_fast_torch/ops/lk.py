@@ -1,21 +1,30 @@
 """Pyramidal Lucas-Kanade optical flow over a batch of sequences (twin of
 the matmul-sampler path of ``vins_rgbd_fast_tpu/ops/lk.py``).
 
-One pyramid level is ``lk_level``, the wrapper of kernel K2
-(``csrc/lk_level.cu``, the Hopper replacement of
-``ops/lk_pallas3.py:lk_level_fused``).  For CPU tensors it runs
-``lk_level_plain``, the port of ``_track_level_matmul``: the same
-semantics with the selector matmuls written as masked bilinear gathers
-(a selector row has at most two non-zero weights) and the while-loop as a
-fixed-count done-masked loop.
+One pyramid level runs by one of three engines, as in JAX:
+  * ``"pallas3"``: ``lk_level`` launches kernel K2 (``csrc/lk_level.cu``,
+    the Hopper replacement of ``ops/lk_pallas3.py:lk_level_fused``), the
+    whole level in one kernel;
+  * ``"pallas"``: ``level_patches`` (template, gradients, structure tensor
+    and search window: plain gathers, the work JAX does outside its
+    kernel) followed by ``lk_iterate``, the wrapper of kernel K3 (the
+    iterate-only entry of ``csrc/lk_level.cu``, replacing
+    ``ops/lk_pallas2.py:lk_iterate``);
+  * ``"xla"``: ``lk_level_plain``, CPU tensors only.
+For CPU tensors every wrapper runs its plain version: ``lk_level_plain``
+(= ``level_patches`` + ``lk_iterate_plain``), the port of
+``_track_level_matmul`` with the selector matmuls written as masked
+bilinear gathers (a selector row has at most two non-zero weights) and the
+while-loop as the fixed-count done-masked loop of ``lk_pallas2``.
 
-Level semantics (shared by both versions):
+Level semantics (shared by every version):
   * the level images are edge-padded by WIN = win + 1 + 2·search_margin;
     the template anchor is clamped to [0, Wp−PS−1] and the window anchor
     to [0, Wp−WIN] in padded coordinates — realised here by clamp-to-edge
     reads, so no padded copy is made;
   * every Gauss-Newton step samples win×win bilinearly inside the WIN×WIN
-    window; samples that fall outside the window read 0;
+    window at ``p + u`` with ``p = pts_l − window origin − win//2`` taken
+    once per level; samples that fall outside the window read 0;
   * status = active & ok_eig & in_win & in-border (finest level).
 """
 
@@ -27,7 +36,8 @@ import torch
 
 from .. import native
 
-launches = 0  # K2 launches (the CUDA path only)
+level_launches = 0    # K2 launches (the CUDA path only)
+iterate_launches = 0  # K3 launches (the CUDA path only)
 _BIG = float(2 ** 20)  # sample coordinates are clamped here before floor()
 
 
@@ -35,6 +45,20 @@ class LKResult(NamedTuple):
     pts: torch.Tensor     # (B, N, 2) tracked positions, level-0 coords
     status: torch.Tensor  # (B, N) bool
     err: torch.Tensor     # (B, N) mean abs residual of the final patch
+
+
+class LevelPatches(NamedTuple):
+    tmpl: torch.Tensor     # (B, N, win, win) bilinear template
+    Ix: torch.Tensor       # (B, N, win, win) central-difference gradients
+    Iy: torch.Tensor
+    win_img: torch.Tensor  # (B, N, WIN, WIN) search window of cur
+    Gxx: torch.Tensor      # (B, N) structure tensor
+    Gxy: torch.Tensor
+    Gyy: torch.Tensor
+    inv_det: torch.Tensor  # (B, N)
+    ok_eig: torch.Tensor   # (B, N) bool min-eigenvalue gate
+    px: torch.Tensor       # (B, N) patch origin at u = 0, window coords
+    py: torch.Tensor
 
 
 def _floor_int(x: torch.Tensor) -> torch.Tensor:
@@ -64,9 +88,10 @@ def _gather_tiles(img, y0, x0, rows: int, cols: int, pad: int):
     return img.reshape(B, H * W).gather(1, flat).reshape(*y0.shape, rows, cols)
 
 
-def lk_level_plain(prev, cur, pts_l, flow, active, ax, ay, win: int,
-                   search_margin: int, iters: int, eps: float, min_eig: float):
-    """Plain PyTorch LK level.  Returns (u (B,N,2), ok_eig (B,N), err (B,N))."""
+def level_patches(prev, cur, pts_l, ax, ay, win: int, search_margin: int,
+                  min_eig: float) -> LevelPatches:
+    """Everything of one level outside the GN loop (``ops/lk.py:139-163``
+    and ``:193`` of the JAX package)."""
     B, H, W = prev.shape
     dtype = prev.dtype
     PS = win + 2
@@ -74,7 +99,6 @@ def lk_level_plain(prev, cur, pts_l, flow, active, ax, ay, win: int,
     pad = WIN
     Hp, Wp = H + 2 * pad, W + 2 * pad
     half = (PS - 1) // 2
-    hw = win // 2
 
     # template patch + central-difference gradients
     bx = _floor_int(pts_l[..., 0])
@@ -99,13 +123,25 @@ def lk_level_plain(prev, cur, pts_l, flow, active, ax, ay, win: int,
     inv_det = 1.0 / torch.where(torch.abs(det) > 1e-12, det, torch.full_like(det, 1e-12))
 
     win_img = _gather_tiles(cur, ay, ax, WIN, WIN, pad)  # (B, N, WIN, WIN)
-    axf = ax.to(dtype) - pad
-    ayf = ay.to(dtype) - pad
-    offs = torch.arange(win, device=prev.device, dtype=torch.int32)
+    px = pts_l[..., 0] - (ax.to(dtype) - pad) - win // 2
+    py = pts_l[..., 1] - (ay.to(dtype) - pad) - win // 2
+    return LevelPatches(tmpl.contiguous(), Ix.contiguous(), Iy.contiguous(), win_img,
+                        Gxx, Gxy, Gyy, inv_det, ok_eig, px, py)
+
+
+def lk_iterate_plain(tmpl, Ix, Iy, win_img, px, py, u0, done0, inv_det, Gxx, Gxy, Gyy,
+                     iters: int, eps: float):
+    """Plain version of K3: ``iters`` done-masked Gauss-Newton steps from
+    ``u0`` and the mean |final sample − template|.  Returns (u (B, N, 2),
+    err (B, N))."""
+    B, N, win, _ = tmpl.shape
+    WIN = win_img.shape[-1]
+    dtype = tmpl.dtype
+    offs = torch.arange(win, device=tmpl.device, dtype=torch.int32)
 
     def sample(u):
-        sx = torch.nan_to_num(pts_l[..., 0] + u[..., 0] - axf - hw, nan=_BIG).clamp(-_BIG, _BIG)
-        sy = torch.nan_to_num(pts_l[..., 1] + u[..., 1] - ayf - hw, nan=_BIG).clamp(-_BIG, _BIG)
+        sx = torch.nan_to_num(px + u[..., 0], nan=_BIG).clamp(-_BIG, _BIG)
+        sy = torch.nan_to_num(py + u[..., 1], nan=_BIG).clamp(-_BIG, _BIG)
         bxs = torch.floor(sx)
         bys = torch.floor(sy)
         fx = (sx - bxs)[..., None, None]
@@ -115,7 +151,7 @@ def lk_level_plain(prev, cur, pts_l, flow, active, ax, ay, win: int,
 
         def rows(i):
             ok = ((i >= 0) & (i < WIN)).to(dtype)[..., None]
-            g = torch.clamp(i, 0, WIN - 1).to(torch.int64)[..., None].expand(B, -1, win, WIN)
+            g = torch.clamp(i, 0, WIN - 1).to(torch.int64)[..., None].expand(B, N, win, WIN)
             return win_img.gather(2, g), ok
 
         r0, m0 = rows(idy)
@@ -124,15 +160,15 @@ def lk_level_plain(prev, cur, pts_l, flow, active, ax, ay, win: int,
 
         def cols(i):
             ok = ((i >= 0) & (i < WIN)).to(dtype)[..., None, :]
-            g = torch.clamp(i, 0, WIN - 1).to(torch.int64)[..., None, :].expand(B, -1, win, win)
+            g = torch.clamp(i, 0, WIN - 1).to(torch.int64)[..., None, :].expand(B, N, win, win)
             return RW.gather(3, g), ok
 
         c0, n0 = cols(idx)
         c1, n1 = cols(idx + 1)
         return c0 * ((1.0 - fx) * n0) + c1 * (fx * n1)
 
-    done = ~(active & ok_eig)
-    u = flow
+    done = done0
+    u = u0
     eps2 = eps * eps
     for _ in range(iters):
         dI = sample(u) - tmpl
@@ -143,12 +179,31 @@ def lk_level_plain(prev, cur, pts_l, flow, active, ax, ay, win: int,
         u = torch.where(done[..., None], u, u - du)
         done = done | (torch.sum(du * du, dim=-1) < eps2)
     err = torch.mean(torch.abs(sample(u) - tmpl), dim=(-2, -1))
-    return u, ok_eig, err
+    return u, err
+
+
+def lk_level_plain(prev, cur, pts_l, flow, active, ax, ay, win: int,
+                   search_margin: int, iters: int, eps: float, min_eig: float):
+    """Plain PyTorch LK level (the plain version of K2).  Returns
+    (u (B,N,2), ok_eig (B,N), err (B,N))."""
+    p = level_patches(prev, cur, pts_l, ax, ay, win, search_margin, min_eig)
+    u, err = lk_iterate_plain(p.tmpl, p.Ix, p.Iy, p.win_img, p.px, p.py, flow,
+                              ~(active & p.ok_eig), p.inv_det, p.Gxx, p.Gxy, p.Gyy,
+                              iters, eps)
+    return u, p.ok_eig, err
+
+
+def _check_args(name: str, ref: torch.Tensor, specs) -> None:
+    for arg, t, dt, shape in specs:
+        if t.device != ref.device or t.dtype != dt or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be a contiguous {dt} "
+                             f"tensor of shape {shape} on {ref.device}")
 
 
 def _lk_level_cuda(prev, cur, pts_l, flow, active, ax, ay, win, search_margin,
                    iters, eps, min_eig):
-    global launches
+    global level_launches
     B, H, W = prev.shape
     N = pts_l.shape[1]
     PS = win + 2
@@ -156,46 +211,95 @@ def _lk_level_cuda(prev, cur, pts_l, flow, active, ax, ay, win, search_margin,
     if PS + 1 > 33 or WIN > 48:
         raise ValueError(f"lk_level: win={win}, search_margin={search_margin} "
                          "exceed the kernel's shared-memory tiles")
-    for name, t, dt, shape in (
-            ("prev", prev, torch.float32, (B, H, W)),
-            ("cur", cur, torch.float32, (B, H, W)),
-            ("pts_l", pts_l, torch.float32, (B, N, 2)),
-            ("flow", flow, torch.float32, (B, N, 2)),
-            ("active", active, torch.bool, (B, N)),
-            ("ax", ax, torch.int32, (B, N)), ("ay", ay, torch.int32, (B, N))):
-        if t.device != prev.device or t.dtype != dt or tuple(t.shape) != shape \
-                or not t.is_contiguous():
-            raise ValueError(f"lk_level: {name} must be a contiguous {dt} "
-                             f"tensor of shape {shape} on {prev.device}")
-    u = torch.empty((B, N, 2), dtype=torch.float32, device=prev.device)
+    f32, i32 = torch.float32, torch.int32
+    _check_args("lk_level", prev, (
+        ("prev", prev, f32, (B, H, W)), ("cur", cur, f32, (B, H, W)),
+        ("pts_l", pts_l, f32, (B, N, 2)), ("flow", flow, f32, (B, N, 2)),
+        ("active", active, torch.bool, (B, N)),
+        ("ax", ax, i32, (B, N)), ("ay", ay, i32, (B, N))))
+    u = torch.empty((B, N, 2), dtype=f32, device=prev.device)
     ok = torch.empty((B, N), dtype=torch.bool, device=prev.device)
-    err = torch.empty((B, N), dtype=torch.float32, device=prev.device)
+    err = torch.empty((B, N), dtype=f32, device=prev.device)
     stream = torch.cuda.current_stream(prev.device).cuda_stream
     native.check(native.lib().lk_level_launch(
         prev.data_ptr(), cur.data_ptr(), pts_l.data_ptr(), flow.data_ptr(),
         active.data_ptr(), ax.data_ptr(), ay.data_ptr(), u.data_ptr(),
         ok.data_ptr(), err.data_ptr(), B, N, H, W, win, search_margin, iters,
         float(eps) * float(eps), float(min_eig), stream), "lk_level")
-    launches += 1
+    level_launches += 1
     return u, ok, err
+
+
+def _lk_iterate_cuda(tmpl, Ix, Iy, win_img, px, py, u0, done0, inv_det, Gxx, Gxy, Gyy,
+                     iters, eps):
+    global iterate_launches
+    B, N, win, _ = tmpl.shape
+    WIN = win_img.shape[-1]
+    if win * win > 31 * 31 or WIN > 48:
+        raise ValueError(f"lk_iterate: win={win}, WIN={WIN} exceed the kernel's "
+                         "shared-memory tiles")
+    f32 = torch.float32
+    pw, pn = (B, N, win, win), (B, N)
+    _check_args("lk_iterate", tmpl, (
+        ("tmpl", tmpl, f32, pw), ("Ix", Ix, f32, pw), ("Iy", Iy, f32, pw),
+        ("win", win_img, f32, (B, N, WIN, WIN)), ("px", px, f32, pn), ("py", py, f32, pn),
+        ("u0", u0, f32, (B, N, 2)), ("done0", done0, torch.bool, pn),
+        ("inv_det", inv_det, f32, pn), ("Gxx", Gxx, f32, pn), ("Gxy", Gxy, f32, pn),
+        ("Gyy", Gyy, f32, pn)))
+    u = torch.empty((B, N, 2), dtype=f32, device=tmpl.device)
+    err = torch.empty((B, N), dtype=f32, device=tmpl.device)
+    stream = torch.cuda.current_stream(tmpl.device).cuda_stream
+    native.check(native.lib().lk_iterate_launch(
+        tmpl.data_ptr(), Ix.data_ptr(), Iy.data_ptr(), win_img.data_ptr(), px.data_ptr(),
+        py.data_ptr(), u0.data_ptr(), done0.data_ptr(), inv_det.data_ptr(), Gxx.data_ptr(),
+        Gxy.data_ptr(), Gyy.data_ptr(), u.data_ptr(), err.data_ptr(), B, N, win, WIN,
+        iters, float(eps) * float(eps), stream), "lk_iterate")
+    iterate_launches += 1
+    return u, err
+
+
+def lk_iterate(tmpl, Ix, Iy, win_img, px, py, u0, done0, inv_det, Gxx, Gxy, Gyy,
+               iters: int, eps: float):
+    """K3's wrapper: the GN loop of one level for B×N points; returns
+    (u (B, N, 2), err (B, N))."""
+    args = (tmpl, Ix, Iy, win_img, px, py, u0, done0, inv_det, Gxx, Gxy, Gyy, iters, eps)
+    if tmpl.device.type == "cpu":
+        return lk_iterate_plain(*args)
+    if tmpl.device.type == "cuda":
+        return _lk_iterate_cuda(*[a.contiguous() for a in args[:12]], iters, eps)
+    raise ValueError(f"lk_iterate: unsupported device {tmpl.device}")
 
 
 def lk_level(prev, cur, pts_l, flow, active, win: int, max_iters: int,
              eps: float, min_eig: float, check_border: bool,
-             search_margin: int = 8):
-    """One LK pyramid level for B×N points; returns (u, status, err)."""
+             search_margin: int = 8, engine: str = "pallas3"):
+    """One LK pyramid level for B×N points by ``engine`` ("pallas3": K2,
+    "pallas": patches + K3, "xla": the plain level, CPU only); returns
+    (u, status, err)."""
     B, H, W = prev.shape
+    dev = prev.device.type
+    if engine == "xla" and dev != "cpu":
+        raise ValueError("lk_level: engine 'xla' (the plain level) runs on CPU "
+                         "tensors only; use 'pallas' or 'pallas3' on the card")
+    if dev not in ("cpu", "cuda"):
+        raise ValueError(f"lk_level: unsupported device {prev.device}")
     ax, ay = window_anchor(pts_l, flow, H, W, win, search_margin)
-    if prev.device.type == "cpu":
+    if engine == "pallas":
+        p = level_patches(prev, cur, pts_l, ax, ay, win, search_margin, min_eig)
+        u, err = lk_iterate(p.tmpl, p.Ix, p.Iy, p.win_img, p.px, p.py, flow,
+                            ~(active & p.ok_eig), p.inv_det, p.Gxx, p.Gxy, p.Gyy,
+                            max_iters, eps)
+        ok_eig = p.ok_eig
+    elif engine == "xla" or (engine == "pallas3" and dev == "cpu"):
         u, ok_eig, err = lk_level_plain(prev, cur, pts_l, flow, active, ax, ay,
                                         win, search_margin, max_iters, eps, min_eig)
-    elif prev.device.type == "cuda":
+    elif engine == "pallas3":
         u, ok_eig, err = _lk_level_cuda(
             prev.contiguous(), cur.contiguous(), pts_l.contiguous(),
             flow.contiguous(), active.contiguous(), ax, ay, win,
             search_margin, max_iters, eps, min_eig)
     else:
-        raise ValueError(f"lk_level: unsupported device {prev.device}")
+        raise ValueError(f"lk_level: unknown engine {engine!r}")
     status = level_status(pts_l, u, ok_eig, active, ax, ay, H, W, win, search_margin,
                           check_border)
     return u, status, err
@@ -221,9 +325,12 @@ def level_status(pts_l, u, ok_eig, active, ax, ay, H: int, W: int, win: int,
 def pyramidal_lk(prev_pyr: List[torch.Tensor], cur_pyr: List[torch.Tensor],
                  pts, init_pts, active, win: int = 21, max_iters: int = 30,
                  eps: float = 0.01, min_eig: float = 1e-4,
-                 coarse_iters: int = 0) -> LKResult:
+                 coarse_iters: int = 0, engine: str = "auto") -> LKResult:
     """Track pts (B, N, 2) from prev to cur coarse→fine, warm-started at
-    ``init_pts``; ``coarse_iters`` caps the iterations of levels > 0."""
+    ``init_pts``; ``coarse_iters`` caps the iterations of levels > 0.
+    ``engine``: "pallas3" (K2), "pallas" (patches + K3), "xla" (the plain
+    level, CPU only); "auto" is "pallas"."""
+    eng = "pallas" if engine == "auto" else engine
     levels = len(prev_pyr)
     flow = (init_pts - pts) / (2.0 ** (levels - 1))
     status = active
@@ -232,7 +339,8 @@ def pyramidal_lk(prev_pyr: List[torch.Tensor], cur_pyr: List[torch.Tensor],
         pts_l = pts / (2.0 ** l)
         iters_l = max_iters if (l == 0 or coarse_iters <= 0) else min(coarse_iters, max_iters)
         flow, status_l, err = lk_level(prev_pyr[l], cur_pyr[l], pts_l, flow, active,
-                                       win, iters_l, eps, min_eig, check_border=(l == 0))
+                                       win, iters_l, eps, min_eig, check_border=(l == 0),
+                                       engine=eng)
         status = status & status_l
         if l > 0:
             flow = flow * 2.0

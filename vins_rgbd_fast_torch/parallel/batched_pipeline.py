@@ -117,8 +117,11 @@ class BatchedVioRunner:
 
     def __init__(self, tcfg: TrackerConfig, cam: PinholeCamera, ecfg: EstimatorConfig,
                  device, B: int, seed: int = 17):
-        # the batched envelope: LK capped at 12 fine / 6 coarse iterations
-        self.tcfg = dataclasses.replace(tcfg, lk_max_iters=min(tcfg.lk_max_iters, 12),
+        # the batched envelope: LK capped at 12 fine / 6 coarse iterations;
+        # "auto" is the whole-level kernel K2, as JAX picks on TPU
+        eng = "pallas3" if tcfg.lk_engine == "auto" else tcfg.lk_engine
+        self.tcfg = dataclasses.replace(tcfg, lk_engine=eng,
+                                        lk_max_iters=min(tcfg.lk_max_iters, 12),
                                         lk_coarse_iters=min(tcfg.lk_coarse_iters, 6))
         self.cam = cam
         self.ecfg = ecfg
