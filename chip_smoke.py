@@ -7,7 +7,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
   1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
   2. build of the hand-written kernels (``csrc/*.cu``, nvcc, sm_90a);
   3. K1 (FAST + NMS) against its plain PyTorch version: bit-exact on 8
-     rendered 640×480 frames and 2 uniform-noise images;
+     and on 1 rendered 640×480 frames and uniform-noise images, and on one
+     frame 638 wide and one whose rows do not start on 16 bytes (the
+     kernel's scalar loads and stores);
   4. K2 (one LK level) against its plain version at the slice's shapes
      (B = 8, N = 200, both pyramid levels, tracks between two rendered
      frames): status agrees on ≥ 99.5 % of points, u and err within 1e-3
@@ -20,16 +22,22 @@ Phases (each prints one line; any failure raises and exits non-zero):
      ``run`` over T steady frames; finite costs, every kernel launched by
      the path, distinct sequences, per-sequence ATE under
      max(0.05·travelled, 0.08 m); prints frames per second (CUDA events);
-  6. kernel vs plain timings (CUDA events, median of 20, slice shapes), a
+  6. kernel timings at the path shapes (K1 at 8×480×640 on the rendered
+     frames and on noise, and at 1×480×640; K2 per level at 8×200): device
+     ms per launch over R launches between one pair of CUDA events, the
+     wrapper's host µs per call, the bound from the work these inputs need
+     (K1's pre-test survivors, K2's covered pixels, the GN steps taken) and
+     the share of it; the plain versions' time per call (no yardstick); a
      per-stage split, and a profile of a few steady frames (chiprun_out/)
-     that must show no host synchronisation inside ``run``;
+     that must show no host synchronisation inside ``run`` and gives each
+     kernel's device ms per frame by name;
   7. the latency path: ``VinsPipeline`` over one 640×480 stream (the bench's
      ``run_latency`` with ``BENCH_LAT_LOOP=0``): 16 warm-up frames through
      ``spin_once``, then 96 timed frames (CUDA-synchronised wall time);
      NON_LINEAR after the warm-up, ATE under max(0.05·travelled, 0.08 m),
      K1 once and K3 twice per frame and K2 never, and a profile of a few
      more frames that must show no host wait inside ``spin_once``;
-  8. K3 vs plain timings at both shapes.
+  8. K3 timings per level at 1×200 and 8×200, as in phase 6.
 Phases 5 and 7 each zero the kernels' launch counters just before their
 path and read them just after; the ``kernels`` line sums the two.
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA it exits
@@ -41,6 +49,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -69,6 +78,112 @@ RUN_SPAN = "chip_smoke::run"
 SPIN_SPAN = "chip_smoke::spin_once"
 HOST_SYNC_CALLS = ("cudaStreamSynchronize", "cudaEventSynchronize", "cudaDeviceSynchronize",
                    "cudaMemcpy")
+KERNELS = ("fast_nms", "lk_level", "lk_iterate")  # launch counters, and <name>_kernel on the card
+
+# H100 SXM peaks (NVIDIA's data sheet): device memory, and float32 outside
+# the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
+# K1 per pixel: 16 ring differences; the compass pre-test's 8 comparisons
+# (4 compass points against +thr and -thr); 9 for the 3×3 NMS; 5 for the
+# polarity max, the threshold and border selects.  Per (pixel, polarity)
+# that passes the pre-test: its 9-arc term by doubling, 4 × 16 min/max + 16
+# for the best arc.
+FAST_OPS_PER_PX = 16 + 8 + 9 + 5
+FAST_OPS_PER_PAIR = 80
+# one bilinear sample of a GN pass and its two products: 4 taps, 3 blends
+# (2 flop each), the residual and the two multiply-adds
+LK_FLOP_PER_SAMPLE = 16
+
+
+def _bound(nbytes: float, ops: float) -> dict:
+    t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
+    t_ops = 1e3 * ops / PEAK_F32_PER_S
+    return dict(bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def kernel_bounds(B: int, H: int, W: int, N: int, iters: int, win: int = 21,
+                  search_margin: int = 8, pairs=None, footprint=None, steps=None) -> dict:
+    """The least time one launch of each kernel can take on the card: the
+    larger of its bytes (each input read once, each output written once)
+    over the memory rate and its operations over the float32 rate.  K1 on
+    B×H×W images; K2 and K3 on B×N points at a level of at most ``iters``
+    GN steps.
+
+    Where the work depends on the data, the caller passes what its data
+    needs: ``pairs``, the (pixel, polarity) pairs that pass K1's compass
+    pre-test (``fast_pairs``); ``footprint``, the pixels of prev and of cur
+    that K2's template tiles and search windows cover, each once however
+    many tiles hold it (``k2_footprint``); ``steps``, the GN steps that the
+    B×N points take in all (``gn_steps``).  Without them the counts are the
+    most the shapes could need: both polarities of every pixel, one tile
+    and one window per point but no more than the level images, ``iters``
+    steps per point."""
+    px = B * H * W
+    P = B * N
+    S, PS, WIN = win * win, win + 2, win + 1 + 2 * search_margin
+    pairs = 2 * px if pairs is None else pairs
+    if footprint is None:
+        footprint = (min(P * (PS + 1) ** 2, px), min(P * WIN ** 2, px))
+    # every point ends with one residual pass, done or not
+    gn_ops = ((P * iters if steps is None else steps) + P) * S * LK_FLOP_PER_SAMPLE
+    # K2: the covered pixels of prev and cur; pts, flow (2 f32 each), active
+    # (1 B), anchors (2 i32) in; u (2 f32), ok (1 B), err (f32) out.
+    # Template: two blends per tile pixel, gradients and the structure
+    # tensor per sample.
+    k2_bytes = 4 * sum(footprint) + P * (8 + 8 + 1 + 8 + 8 + 1 + 4)
+    k2_ops = gn_ops + P * (8 * PS * PS + 8 * S)
+    # K3: per point template, two gradients and the window; px, py, u0,
+    # done0 (1 B), inv_det and the 3 structure terms in; u, err out
+    k3_bytes = P * (4 * (3 * S + WIN ** 2) + 8 + 8 + 1 + 16 + 8 + 4)
+    return {"fast_nms": _bound(2 * 4 * px, FAST_OPS_PER_PX * px + FAST_OPS_PER_PAIR * pairs),
+            "lk_level": _bound(k2_bytes, k2_ops),
+            "lk_iterate": _bound(k3_bytes, gn_ops)}
+
+
+def fast_pairs(img: torch.Tensor, thr: float) -> int:
+    """The (pixel, polarity) pairs of (B, H, W) images, inside the 3-px
+    border, that pass K1's compass pre-test: two cyclically adjacent points
+    of the ring's {0, 4, 8, 12} beyond the threshold.  Only these need the
+    arc work."""
+    d = fast.ring_differences(img)[[0, 4, 8, 12]]
+    H, W = img.shape[-2:]
+    inner = torch.zeros((H, W), dtype=torch.bool, device=img.device)
+    inner[3:H - 3, 3:W - 3] = True
+
+    def passes(beyond):
+        return (beyond & beyond.roll(-1, 0)).any(0) & inner
+
+    return int(passes(d > thr).sum() + passes(d < -thr).sum())
+
+
+def k2_footprint(prev: torch.Tensor, pts_l, ax, ay, win: int = 21,
+                 search_margin: int = 8):
+    """The pixels of prev and of cur (each counted once) that K2 reads: the
+    (win + 3)² template tiles at ``pts_l`` and the search windows at the
+    anchors (ax, ay), with clamp-to-edge addresses as ``ops/lk.py`` takes
+    them."""
+    B, H, W = prev.shape
+    WIN = win + 1 + 2 * search_margin
+    pad, PS = WIN, win + 2
+    half = (PS - 1) // 2
+    x0 = torch.clamp(lk._floor_int(pts_l[..., 0]) + pad - half, 0, W + 2 * pad - PS - 1)
+    y0 = torch.clamp(lk._floor_int(pts_l[..., 1]) + pad - half, 0, H + 2 * pad - PS - 1)
+    ids = torch.arange(B * H * W, device=prev.device).reshape(B, H, W)
+
+    def covered(y, x, n):
+        return int(lk._gather_tiles(ids, y, x, n, n, pad).unique().numel())
+
+    return covered(y0, x0, PS + 1), covered(ay, ax, WIN)
+
+
+def gn_steps(u_at_cap, iters: int) -> list:
+    """The points that take GN step k, for k = 1 .. ``iters``: those whose
+    u moves when the iteration cap rises from k - 1 to k.  ``u_at_cap(k)``
+    gives u (B, N, 2) at cap k."""
+    u = [u_at_cap(k) for k in range(iters + 1)]
+    return [int((u[k] != u[k - 1]).any(-1).sum()) for k in range(1, iters + 1)]
 
 
 def slice_config(W: int = 640, H: int = 480, max_cnt: int = 130):
@@ -170,8 +285,7 @@ def reset_counts() -> None:
 
 
 def read_counts() -> dict:
-    return {"fast_nms": fast.launches, "lk_level": lk.level_launches,
-            "lk_iterate": lk.iterate_launches}
+    return dict(zip(KERNELS, (fast.launches, lk.level_launches, lk.iterate_launches)))
 
 
 def latency_config(rig, seq, max_cnt: int = 130) -> VinsConfig:
@@ -271,6 +385,9 @@ class CudaTimer:
 
 
 def median_ms(fn, n: int = 20, warmup: int = 3) -> float:
+    """Median ms of one call between a pair of CUDA events recorded on an
+    idle stream: host and device time together (the plain versions, whose
+    many small launches are host-bound)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -281,6 +398,57 @@ def median_ms(fn, n: int = 20, warmup: int = 3) -> float:
         fn()
         times.append(tm.stop())
     return statistics.median(times)
+
+
+class LaunchTimer:
+    """Device ms per launch and host µs per call of a kernel's wrapper.
+
+    ``reps`` calls go between one pair of CUDA events, queued behind a
+    spin kernel (``torch.cuda._sleep``) that lasts longer than the host
+    takes to enqueue them, so the device runs them back to back and the
+    events bracket device work alone; if no spin outlasted the enqueue, it
+    raises rather than return a time with host time in it.  A host clock
+    around the same calls, before any synchronisation, gives the wrapper's
+    cost per call.  The inputs stay the same across calls (they stay in the
+    50 MB L2, as on the path, where the previous kernel has just touched
+    them)."""
+
+    def __init__(self, reps: int = 100, warmup: int = 5):
+        self.reps, self.warmup = reps, warmup
+        cycles = 10 ** 7
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(cycles)  # first call loads the spin kernel
+        e0.record()
+        torch.cuda._sleep(cycles)
+        e1.record()
+        e1.synchronize()
+        self.cycles_per_ms = cycles / e0.elapsed_time(e1)
+
+    def __call__(self, fn) -> dict:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(self.warmup):
+            fn()
+        host_ms = 1e3 * (time.perf_counter() - t0) / self.warmup
+        torch.cuda.synchronize()
+        # the spin must outlast the enqueue of all reps: 3× the warm-up's
+        # host time per call, doubled until the queue was ahead throughout
+        for margin in (3, 6, 12, 24):
+            es, e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+            es.record()
+            torch.cuda._sleep(int(self.cycles_per_ms * max(margin * self.reps * host_ms, 1.0)))
+            e0.record()
+            t0 = time.perf_counter()
+            for _ in range(self.reps):
+                fn()
+            host_s = time.perf_counter() - t0
+            e1.record()
+            e1.synchronize()
+            if 1e3 * host_s < es.elapsed_time(e0):
+                return dict(device_ms=e0.elapsed_time(e1) / self.reps,
+                            host_us=1e6 * host_s / self.reps, reps=self.reps)
+        raise RuntimeError(f"LaunchTimer: the host took {1e3 * host_s:.3f} ms to enqueue "
+                           f"{self.reps} calls, longer than every spin; no device time")
 
 
 def k2_inputs(prev_img, cur_img, tcfg, N: int, gen):
@@ -477,11 +645,19 @@ def profile_span(fn, name: str, frames: int, path: str, step_ms: float):
         f.write(events.table(sort_by="self_cuda_time_total", row_limit=50))
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     dev_ms = dev_us / 1e3 / frames
+    # the port's kernels by name (demangled "(anonymous namespace)::<name>_kernel(...)")
+    ours = {}
+    for k in KERNELS:
+        hits = [e for e in kernels if re.search(rf"(^|\W){k}_kernel(\W|$)", e.key)]
+        us = sum(e.self_device_time_total for e in hits)
+        n = sum(e.count for e in hits)
+        ours[k] = dict(device_ms_per_frame=us / 1e3 / frames, launches_per_frame=n / frames,
+                       device_ms_per_launch=us / 1e3 / n if n else "not launched")
     return dict(frames=frames, kernels_per_frame=n_kernels / frames, host_syncs=host_syncs,
                 device_ms_per_frame=round(dev_ms, 3),
                 busy_share=round(dev_ms / step_ms, 4) if dev_ms > 0 else "not measured",
                 top_ms_per_frame=[(e.key[:50], round(e.self_device_time_total / 1e3 / frames, 3))
-                                  for e in top])
+                                  for e in top], by_kernel=ours)
 
 
 def main() -> int:
@@ -513,17 +689,32 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
 
-    # 3. K1 bit-exactness
-    noise = torch.rand((2, 480, 640), generator=gen, device=dev) * 255.0
-    k1_err = 0.0
+    # 3. K1 bit-exactness at both path shapes (noise defeats the pre-test)
+    noise = torch.rand((B, 480, 640), generator=gen, device=dev) * 255.0
+    k1_err, corners = 0.0, {}
     for name, imgs in (("rendered", frame0), ("noise", noise)):
-        out_k = fast.fast_nms(imgs, tcfg.fast_threshold)
-        out_p = fast.nms3(fast.fast_score(imgs, tcfg.fast_threshold))
-        torch.cuda.synchronize()
+        for b in (B, 1):
+            x = imgs[:b].contiguous()
+            out_k = fast.fast_nms(x, tcfg.fast_threshold)
+            out_p = fast.nms3(fast.fast_score(x, tcfg.fast_threshold))
+            torch.cuda.synchronize()
+            k1_err = max(k1_err, float((out_k - out_p).abs().max()))
+            require(torch.equal(out_k, out_p), f"K1 bit-exact on {b} {name} images")
+            corners[f"{b}x {name}"] = int((out_k > 0).sum())
+    # the scalar staging and stores: a width that is not a multiple of 4, and
+    # rows that do not start on 16 bytes (an image one float into its storage)
+    shifted = torch.empty(480 * 640 + 1, device=dev)[1:].view(1, 480, 640)
+    shifted.copy_(frame0[:1])
+    for name, x in (("1x480x638", frame0[:1, :, :638].contiguous()),
+                    ("1x480x640 unaligned", shifted)):
+        out_k = fast.fast_nms(x, tcfg.fast_threshold)
+        out_p = fast.nms3(fast.fast_score(x, tcfg.fast_threshold))
         k1_err = max(k1_err, float((out_k - out_p).abs().max()))
-        require(torch.equal(out_k, out_p), f"K1 bit-exact on {name} images")
-    print(f"[3 K1] bit-exact on {frame0.shape[0]} rendered + 2 noise images, "
-          f"{int((out_k > 0).sum())} corners in the last batch", flush=True)
+        require(torch.equal(out_k, out_p), f"K1 bit-exact on {name}")
+        corners[name] = int((out_k > 0).sum())
+    print(f"[3 K1] bit-exact on {B} and 1 rendered and noise images of 480x640, and on "
+          f"1x480x638 and an unaligned 1x480x640 (scalar path); corners {corners}",
+          flush=True)
 
     # 4. K2 vs plain at the slice's shapes
     k2_in = k2_inputs(frame0, frame1, tcfg_run, N, gen)
@@ -551,22 +742,39 @@ def main() -> int:
           f"{res['n_features'][-1].tolist()}", flush=True)
 
     # 6. timings and profile
-    imgs8 = frame0
-    k1_ms = median_ms(lambda: fast.fast_nms(imgs8, tcfg.fast_threshold))
-    k1_plain = median_ms(lambda: fast.nms3(fast.fast_score(imgs8, tcfg.fast_threshold)))
+    timer = LaunchTimer()
+    timings = []
+
+    def timing(kernel, shape, fn, plain, bound):
+        t = dict(kernel=kernel, shape=shape, **timer(fn), plain_ms=median_ms(plain), **bound)
+        t["share_of_bound"] = t["bound_ms"] / t["device_ms"]
+        timings.append(t)
+        print(f"[{6 if kernel != 'lk_iterate' else 8} timing] {kernel} {shape}: "
+              f"{t['device_ms']:.5f} ms per launch on the device ({t['reps']} per event "
+              f"pair), wrapper {t['host_us']:.1f} us per call on the host; bound "
+              f"{t['bound_ms']:.5f} ms ({t['bound_by']}; {t['bytes'] / 1e6:.3f} MB, "
+              f"{t['ops'] / 1e6:.1f} M ops), {100 * t['share_of_bound']:.1f} % of it; plain "
+              f"{t['plain_ms']:.4f} ms per call (no yardstick)", flush=True)
+
+    thr = tcfg.fast_threshold
+    for b, name, imgs in ((B, "rendered", frame0), (B, "noise", noise),
+                          (1, "rendered", frame0[:1].contiguous())):
+        timing("fast_nms", f"{b}x480x640 {name}", lambda: fast.fast_nms(imgs, thr),
+               lambda: fast.nms3(fast.fast_score(imgs, thr)),
+               kernel_bounds(b, 480, 640, N, 0, pairs=fast_pairs(imgs, thr))["fast_nms"])
     prev_pyr, cur_pyr, pts, init, active = k2_in
-    k2_ms, k2_plain = 0.0, 0.0
     for l in (1, 0):
         iters = tcfg_run.lk_max_iters if l == 0 else tcfg_run.lk_coarse_iters
         prev, cur, pts_l, flow, ax, ay = level_inputs(prev_pyr, cur_pyr, pts,
                                                       (init - pts) / 2.0, l)
         args = (prev, cur, pts_l, flow, active, ax, ay, LK["win"], LK["sm"], iters,
                 LK["eps"], LK["min_eig"])
-        k2_ms += median_ms(lambda: lk._lk_level_cuda(*args))
-        k2_plain += median_ms(lambda: lk.lk_level_plain(*args))
-    print(f"[6 timing] K1 fast_nms (8x480x640): {k1_ms:.4f} ms vs plain {k1_plain:.4f} ms; "
-          f"K2 lk_level both levels (8x200): {k2_ms:.4f} ms vs plain {k2_plain:.4f} ms",
-          flush=True)
+        steps = gn_steps(lambda k: lk.lk_level_plain(*args[:9], k, *args[10:])[0], iters)
+        timing("lk_level", f"{B}x{N} level {l}", lambda: lk._lk_level_cuda(*args),
+               lambda: lk.lk_level_plain(*args),
+               kernel_bounds(B, *prev.shape[-2:], N, iters, footprint=k2_footprint(
+                   prev, pts_l, ax, ay), steps=sum(steps))["lk_level"])
+        timings[-1]["points_by_step"] = steps
     stages = stage_breakdown(res, res["extra_batch"][0])
     print(f"[6 stages] ms per steady frame, synchronised per stage: {stages}", flush=True)
     prof = profile_frames(res, os.path.join(OUT_DIR, "profile_steady.txt"), res["run_ms"] / T)
@@ -582,42 +790,48 @@ def main() -> int:
           f"{lat['latency_ate_m']:.4f} (bound {lat['bound']:.3f}); launches {lat['counts']}; "
           f"profile {lat['profile']}", flush=True)
 
-    # 8. K3 timing, both levels summed, at both shapes
-    k3_ms, k3_plain = {}, {}
+    # 8. K3 timing per level at both shapes
     for b, (prev_pyr, cur_pyr, pts, init, active) in k3_in.items():
-        k3_ms[b] = k3_plain[b] = 0.0
         for l in (1, 0):
             iters = tcfg_run.lk_max_iters if l == 0 else tcfg_run.lk_coarse_iters
             args, _ = k3_args(prev_pyr, cur_pyr, pts, ((init - pts) / 2.0), active, l, iters)
-            k3_ms[b] += median_ms(lambda: lk._lk_iterate_cuda(*args))
-            k3_plain[b] += median_ms(lambda: lk.lk_iterate_plain(*args))
-    print("[8 timing] K3 lk_iterate both levels: " + "; ".join(
-        f"B={b}x{N}: {k3_ms[b]:.4f} ms vs plain {k3_plain[b]:.4f} ms" for b in k3_ms),
-        flush=True)
+            steps = gn_steps(lambda k: lk.lk_iterate_plain(*args[:12], k, args[13])[0], iters)
+            timing("lk_iterate", f"{b}x{N} level {l}", lambda: lk._lk_iterate_cuda(*args),
+                   lambda: lk.lk_iterate_plain(*args),
+                   kernel_bounds(b, 0, 0, N, iters, steps=sum(steps))["lk_iterate"])
+            timings[-1]["points_by_step"] = steps
 
-    counts = {k: res["counts"][k] + lat["counts"][k] for k in res["counts"]}
-    kernels = [
-        dict(name="fast_nms", route="cuda", source="vins_rgbd_fast_torch/csrc/fast_nms.cu",
-             replaces="vins_rgbd_fast_tpu/ops/fast_pallas.py:99",
-             launches=counts["fast_nms"], max_abs_err=k1_err, ms=k1_ms,
-             plain_ms=k1_plain),
-        dict(name="lk_level", route="cuda", source="vins_rgbd_fast_torch/csrc/lk_level.cu",
-             replaces="vins_rgbd_fast_tpu/ops/lk_pallas3.py:273",
-             launches=counts["lk_level"], max_abs_err=k2_err, ms=k2_ms,
-             plain_ms=k2_plain),
-        dict(name="lk_iterate", route="cuda", source="vins_rgbd_fast_torch/csrc/lk_level.cu",
-             replaces="vins_rgbd_fast_tpu/ops/lk_pallas2.py:120",
-             launches=counts["lk_iterate"], max_abs_err=k3_err, ms=k3_ms[1],
-             plain_ms=k3_plain[1]),
-    ]
-    for k in kernels:
-        k["launches_by_path"] = {"batched": res["counts"][k["name"]],
-                                 "latency": lat["counts"][k["name"]]}
+    # the kernels line: per launch at the main path's shapes (K1 8x480x640,
+    # K2 8x200 averaged over its two levels) and K3 at the latency path's
+    # 1x200 (it never runs on the main path)
+    counts = {k: res["counts"][k] + lat["counts"][k] for k in KERNELS}
+    errs = {"fast_nms": k1_err, "lk_level": k2_err, "lk_iterate": k3_err}
+    main_shape = {"fast_nms": f"{B}x480x640 rendered", "lk_level": f"{B}x{N} level",
+                  "lk_iterate": f"1x{N} level"}
+    sources = {"fast_nms": ("fast_nms.cu", "vins_rgbd_fast_tpu/ops/fast_pallas.py:99"),
+               "lk_level": ("lk_level.cu", "vins_rgbd_fast_tpu/ops/lk_pallas3.py:273"),
+               "lk_iterate": ("lk_level.cu", "vins_rgbd_fast_tpu/ops/lk_pallas2.py:120")}
+    kernels = []
+    for name in KERNELS:
+        rows = [t for t in timings if t["kernel"] == name and t["shape"].startswith(
+            main_shape[name])]
+
+        def mean(key):
+            return statistics.fmean(t[key] for t in rows)
+
+        kernels.append(dict(
+            name=name, route="cuda", source="vins_rgbd_fast_torch/csrc/" + sources[name][0],
+            replaces=sources[name][1], launches=counts[name], max_abs_err=errs[name],
+            ms=mean("device_ms"), plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
+            bound_by=rows[0]["bound_by"], library_ms=None,
+            launches_by_path={"batched": res["counts"][name], "latency": lat["counts"][name]},
+            host_us=mean("host_us"), profile_ms_per_frame={
+                "batched": prof["by_kernel"][name]["device_ms_per_frame"],
+                "latency": lat["profile"]["by_kernel"][name]["device_ms_per_frame"]}))
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
-        json.dump(dict(card=smi, kernels=kernels, k2=rep, k3=rep3, main={
+        json.dump(dict(card=smi, kernels=kernels, timings=timings, k2=rep, k3=rep3, main={
             k: res[k] for k in ("ates", "bounds", "counts", "run_ms", "wall_s", "frames")},
-            stages=stages, profile=prof, latency=lat, k3_ms=k3_ms, k3_plain_ms=k3_plain),
-            f, indent=1, default=float)
+            stages=stages, profile=prof, latency=lat), f, indent=1, default=float)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

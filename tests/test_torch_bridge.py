@@ -87,7 +87,7 @@ def test_port_imports_without_jax():
 
 def test_no_jax_import_in_port_sources():
     pat = re.compile(r"^\s*(import jax|from jax)", re.M)
-    for p in list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+    for p in list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "kernel_ab.py"]:
         assert not pat.search(p.read_text()), p
 
 
@@ -107,3 +107,14 @@ def test_chip_smoke_needs_a_gpu_and_the_repo(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def test_kernel_ab_needs_a_gpu():
+    """The A/B timing script refuses to run without CUDA (exit 2), before
+    it builds anything."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    res = subprocess.run([sys.executable, "kernel_ab.py", "--old", str(ROOT)], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 2, res.stderr
+    assert "CUDA is not available" in res.stderr

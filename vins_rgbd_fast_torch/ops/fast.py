@@ -5,7 +5,10 @@
 replacement of ``ops/fast_pallas.py:fast_score_nms``): on a CUDA tensor it
 launches the kernel, on a CPU tensor it runs the plain version
 ``nms3(fast_score(...))`` below.  The two agree bit for bit (every step is
-a subtraction, a min or a max of float32 values).
+a subtraction, a min, a max or a negation of float32 values).  The kernel
+skips the arc work of pixels that fail a compass pre-test and builds the
+arc minima by doubling; ``tests/test_torch_fast.py`` holds that arithmetic
+to ``ring_differences`` and ``arc_terms`` here.
 """
 
 from __future__ import annotations
@@ -27,14 +30,18 @@ ARC_LEN = 9
 launches = 0  # K1 launches (the CUDA path only)
 
 
-def fast_score(img: torch.Tensor, threshold: float = 10.0) -> torch.Tensor:
-    """FAST-9/16 V-measure score map (B, H, W), 0 for non-corners: the max
-    over contiguous 9-arcs of the arc's min ring difference, bright and
-    dark arcs separately; 3-px border zeroed."""
-    f = img.to(torch.float32)
+def ring_differences(f: torch.Tensor) -> torch.Tensor:
+    """(16, B, H, W): ring point k minus the centre, for float32 images
+    (B, H, W); the image wraps around at its edges."""
     ring = torch.stack([torch.roll(f, (-dy, -dx), dims=(-2, -1))
                         for dy, dx in FAST_OFFSETS], dim=0)
-    diff = ring - f[None]
+    return ring - f[None]
+
+
+def arc_terms(diff: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bright and dark terms of the V-measure from ``ring_differences``:
+    the max over the 16 contiguous 9-arcs of the arc's min difference, of
+    the differences and of their negation."""
     ring2_b = torch.cat([diff, diff[:ARC_LEN - 1]], dim=0)
     ring2_d = -ring2_b
 
@@ -44,8 +51,15 @@ def fast_score(img: torch.Tensor, threshold: float = 10.0) -> torch.Tensor:
             m = torch.minimum(m, x[k:k + 16])
         return m
 
-    bright = arc_min(ring2_b).amax(dim=0)
-    dark = arc_min(ring2_d).amax(dim=0)
+    return arc_min(ring2_b).amax(dim=0), arc_min(ring2_d).amax(dim=0)
+
+
+def fast_score(img: torch.Tensor, threshold: float = 10.0) -> torch.Tensor:
+    """FAST-9/16 V-measure score map (B, H, W), 0 for non-corners: the max
+    over contiguous 9-arcs of the arc's min ring difference, bright and
+    dark arcs separately; 3-px border zeroed."""
+    f = img.to(torch.float32)
+    bright, dark = arc_terms(ring_differences(f))
     score = torch.maximum(bright, dark)
     score = torch.where(score > threshold, score, torch.zeros_like(score))
     H, W = f.shape[-2:]
@@ -71,6 +85,8 @@ def fast_nms(img: torch.Tensor, threshold: float = 10.0) -> torch.Tensor:
         raise ValueError(f"fast_nms: unsupported device {img.device}")
     if img.dtype != torch.float32 or img.dim() != 3 or not img.is_contiguous():
         raise ValueError("fast_nms: needs a contiguous (B, H, W) float32 tensor")
+    if not threshold >= 0.0:
+        raise ValueError(f"fast_nms: the kernel takes a threshold >= 0 (got {threshold})")
     B, H, W = img.shape
     out = torch.empty_like(img)
     stream = torch.cuda.current_stream(img.device).cuda_stream

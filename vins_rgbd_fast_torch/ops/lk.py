@@ -4,12 +4,14 @@ the matmul-sampler path of ``vins_rgbd_fast_tpu/ops/lk.py``).
 One pyramid level runs by one of three engines, as in JAX:
   * ``"pallas3"``: ``lk_level`` launches kernel K2 (``csrc/lk_level.cu``,
     the Hopper replacement of ``ops/lk_pallas3.py:lk_level_fused``), the
-    whole level in one kernel;
+    whole level in one kernel: one warp per point, its template and
+    gradients in registers, no block barrier (``win`` must be 21);
   * ``"pallas"``: ``level_patches`` (template, gradients, structure tensor
     and search window: plain gathers, the work JAX does outside its
     kernel) followed by ``lk_iterate``, the wrapper of kernel K3 (the
     iterate-only entry of ``csrc/lk_level.cu``, replacing
-    ``ops/lk_pallas2.py:lk_iterate``);
+    ``ops/lk_pallas2.py:lk_iterate``), which keeps one 256-thread block
+    per point and a block reduction per Gauss-Newton step;
   * ``"xla"``: ``lk_level_plain``, CPU tensors only.
 For CPU tensors every wrapper runs its plain version: ``lk_level_plain``
 (= ``level_patches`` + ``lk_iterate_plain``), the port of
@@ -38,6 +40,7 @@ from .. import native
 
 level_launches = 0    # K2 launches (the CUDA path only)
 iterate_launches = 0  # K3 launches (the CUDA path only)
+K2_WIN = 21           # K2's compile-time patch side (both pipelines run 21)
 _BIG = float(2 ** 20)  # sample coordinates are clamped here before floor()
 
 
@@ -206,11 +209,10 @@ def _lk_level_cuda(prev, cur, pts_l, flow, active, ax, ay, win, search_margin,
     global level_launches
     B, H, W = prev.shape
     N = pts_l.shape[1]
-    PS = win + 2
     WIN = win + 1 + 2 * search_margin
-    if PS + 1 > 33 or WIN > 48:
-        raise ValueError(f"lk_level: win={win}, search_margin={search_margin} "
-                         "exceed the kernel's shared-memory tiles")
+    if win != K2_WIN or search_margin < 0 or WIN > 48:
+        raise ValueError(f"lk_level: the kernel takes win={K2_WIN} and a search window "
+                         f"of at most 48 (got win={win}, search_margin={search_margin})")
     f32, i32 = torch.float32, torch.int32
     _check_args("lk_level", prev, (
         ("prev", prev, f32, (B, H, W)), ("cur", cur, f32, (B, H, W)),
