@@ -5,7 +5,10 @@
 
 Phases (each prints one line; any failure raises and exits non-zero):
   1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-  2. build of the hand-written kernels (``csrc/*.cu``, nvcc, sm_90a);
+  2. build of the hand-written kernels (``csrc/*.cu``, one nvcc per source,
+     sm_90a, started together) and ptxas's registers, static shared memory
+     and spills of each kernel (none may spill), K3's warps per point and
+     its dynamic shared memory at WIN = 38;
   3. K1 (FAST + NMS) against its plain PyTorch version: bit-exact on 8
      and on 1 rendered 640×480 frames and uniform-noise images, and on one
      frame 638 wide and one whose rows do not start on 16 bytes (the
@@ -140,6 +143,29 @@ def kernel_bounds(B: int, H: int, W: int, N: int, iters: int, win: int = 21,
     return {"fast_nms": _bound(2 * 4 * px, FAST_OPS_PER_PX * px + FAST_OPS_PER_PAIR * pairs),
             "lk_level": _bound(k2_bytes, k2_ops),
             "lk_iterate": _bound(k3_bytes, gn_ops)}
+
+
+def ptxas_usage(log: str) -> dict:
+    """Registers, static shared memory, stack and spills of each of the
+    port's kernels, from the messages of ``nvcc -Xptxas -v`` (the log that
+    ``native.build`` writes beside the library)."""
+    usage = {}
+    for chunk in log.split("Compiling entry function '")[1:]:
+        mangled = chunk.split("'", 1)[0]
+        name = next((k for k in KERNELS if re.search(rf"\d{k}_kernel", mangled)), None)
+        if name is None:
+            continue
+
+        def num(pattern):
+            m = re.search(pattern, chunk)
+            return int(m.group(1)) if m else 0
+
+        usage[name] = dict(registers=num(r"Used (\d+) registers"),
+                           smem_bytes=num(r"(\d+) bytes smem"),
+                           stack_bytes=num(r"(\d+) bytes stack frame"),
+                           spill_bytes=num(r"(\d+) bytes spill stores")
+                           + num(r"(\d+) bytes spill loads"))
+    return usage
 
 
 def fast_pairs(img: torch.Tensor, thr: float) -> int:
@@ -678,7 +704,14 @@ def main() -> int:
     t0 = time.perf_counter()
     path = native.build(verbose=True)
     native.lib()
-    print(f"[2 build] {time.perf_counter() - t0:.2f} s ({path})", flush=True)
+    build_s = time.perf_counter() - t0
+    with open(path + ".log") as f:
+        usage = ptxas_usage(f.read())
+    require(set(usage) == set(KERNELS), ("ptxas report", usage))
+    require(all(u["spill_bytes"] == 0 for u in usage.values()), ("spills", usage))
+    nw = lk.K3_WARPS
+    print(f"[2 build] {build_s:.2f} s ({path}); ptxas {usage}; K3 {nw} warps per point, "
+          f"{4 * (38 * 53 + 4 * nw)} B dynamic shared memory at WIN = 38", flush=True)
 
     B, N, T, EXTRA = 8, 200, 40, 10
     rig, tcfg, ecfg, cam = slice_config()

@@ -16,12 +16,17 @@ inputs:
     between one pair of CUDA events, queued behind a spin kernel) at the
     path shapes, in turns old, new, new, old: K1 on 8 rendered frames and
     on 8 uniform-noise images at 8x480x640 and on one rendered frame at
-    1x480x640, K2 per level at 8x200 and K3 per level at 1x200.
+    1x480x640, K2 per level at 8x200 and K3 per level at 1x200 (the
+    latency path's shape) and 8x200.
+``OTHER`` may also be a copy of this checkout with one design choice
+changed, for example K3's warps per point (``K3_WARPS`` in
+``csrc/lk_level.cu``) set to 1 or 2.
 Prints one line per case; the last line is one JSON object with each
-case's means and old/new ratio (the turns, K2's iteration-cap sweep at the
-fine level, the points that take each GN step and an empty launch's time
-go to ``kernel_ab.json`` in ``chip_smoke.py``'s output directory).  Exits
-non-zero without CUDA or when a parity bound fails.
+case's means and old/new ratio (the turns, the iteration-cap sweeps of K2 at
+8x200 and K3 at 1x200, both at the fine level, the points that take each
+GN step and an empty launch's time go to ``kernel_ab.json`` in
+``chip_smoke.py``'s output directory).  Exits non-zero without CUDA or
+when a parity bound fails.
 """
 
 from __future__ import annotations
@@ -126,6 +131,7 @@ def main() -> int:
 
     # K2 and K3 per level, from the same noisy warm start as phase 4
     flow = (init - pts) / 2.0
+    k3_fine = None
     for l in (1, 0):
         iters = tcfg_run.lk_max_iters if l == 0 else tcfg_run.lk_coarse_iters
         prev, cur, pts_l, flow, ax, ay = cs.level_inputs(prev_pyr, cur_pyr, pts, flow, l)
@@ -139,33 +145,47 @@ def main() -> int:
                              {w: o[2] for w, o in out.items()})
         record(f"K2 {B}x{N} level {l} ({iters} it)", lambda: lk._lk_level_cuda(*k2), what, ok)
 
-        # K3 on the first sequence's points (the latency path's 1x200)
-        k3, st_args = cs.k3_args([p[:1].contiguous() for p in prev_pyr],
-                                 [c[:1].contiguous() for c in cur_pyr],
-                                 *(x[:1].contiguous() for x in (pts, flow, active)), l, iters)
-        k3 = tuple(a.contiguous() if torch.is_tensor(a) else a for a in k3)
-        out3 = {w: run(w, lambda: lk._lk_iterate_cuda(*k3)) for w in libs}
-        st3 = {w: lk.level_status(st_args[0], o[0], *st_args[1:]) for w, o in out3.items()}
-        what, ok = lk_parity(st3, {w: o[0] for w, o in out3.items()},
-                             {w: o[1] for w, o in out3.items()})
-        record(f"K3 1x{N} level {l} ({iters} it)", lambda: lk._lk_iterate_cuda(*k3), what, ok)
+        # K3 on the first sequence's points (the latency path's 1x200) and on all
+        for b in (1, B):
+            k3, st_args = cs.k3_args(*([x[:b].contiguous() for x in pyr]
+                                       for pyr in (prev_pyr, cur_pyr)),
+                                     *(x[:b].contiguous() for x in (pts, flow, active)), l,
+                                     iters)
+            k3 = tuple(a.contiguous() if torch.is_tensor(a) else a for a in k3)
+            if b == 1 and l == 0:
+                k3_fine = k3
+            out3 = {w: run(w, lambda: lk._lk_iterate_cuda(*k3)) for w in libs}
+            st3 = {w: lk.level_status(st_args[0], o[0], *st_args[1:]) for w, o in out3.items()}
+            what, ok = lk_parity(st3, {w: o[0] for w, o in out3.items()},
+                                 {w: o[1] for w, o in out3.items()})
+            record(f"K3 {b}x{N} level {l} ({iters} it)", lambda: lk._lk_iterate_cuda(*k3),
+                   what, ok)
         flow = 2.0 * out["new"][0]
 
-    # where K2's time goes: the fine level at an iteration cap of 0 (tiles,
-    # template, final residual) up to 12, the points that take each GN step
-    # (the plain version), and the floor of a launch (a spin of 0 cycles)
-    caps = (0, 1, 2, 3, 4, 6, 8, 10, 12)
+    # where K2's and K3's time goes: the fine level at an iteration cap of 0
+    # (copies, template, final residual) up to 12, the points that take each
+    # GN step (the plain version), and the floor of a launch (a spin of 0
+    # cycles)
+    caps = tuple(range(13))
     sweep = {w: {it: run(w, lambda: timer(lambda: lk._lk_level_cuda(
         *k2[:9], it, *k2[10:]))["device_ms"]) for it in caps} for w in libs}
     moving = cs.gn_steps(lambda it: lk.lk_level_plain(*k2[:9], it, *k2[10:])[0], 12)
+    sweep3 = {w: {it: run(w, lambda: timer(lambda: lk._lk_iterate_cuda(
+        *k3_fine[:12], it, k3_fine[13]))["device_ms"]) for it in caps} for w in libs}
+    moving3 = cs.gn_steps(lambda it: lk.lk_iterate_plain(*k3_fine[:12], it, k3_fine[13])[0],
+                          12)
     floor_ms = timer(lambda: torch.cuda._sleep(0))["device_ms"]
-    print(f"[K2 level 0 by iteration cap] {sweep}; points taking steps 1..12 {moving}; "
-          f"empty launch {floor_ms:.5f} ms", flush=True)
+    print(f"[K2 {B}x{N} level 0 by iteration cap] {sweep}; points taking steps 1..12 "
+          f"{moving}", flush=True)
+    print(f"[K3 1x{N} level 0 by iteration cap] {sweep3}; points taking steps 1..12 "
+          f"{moving3}; empty launch {floor_ms:.5f} ms", flush=True)
 
     os.makedirs(cs.OUT_DIR, exist_ok=True)
     with open(os.path.join(cs.OUT_DIR, "kernel_ab.json"), "w") as f:
-        json.dump(dict(card=smi, reps=timer.reps, results=results, k2_iteration_sweep=sweep,
-                       k2_points_by_step=moving, empty_launch_ms=floor_ms), f, indent=1)
+        json.dump(dict(card=smi, reps=timer.reps, results=results,
+                       k2_iteration_sweep=sweep, k2_points_by_step=moving,
+                       k3_iteration_sweep=sweep3, k3_points_by_step=moving3,
+                       empty_launch_ms=floor_ms), f, indent=1)
     print(smi)
     print(json.dumps(dict(card=smi, results={k: {x: v[x] for x in (
         "old_ms", "new_ms", "old_over_new")} for k, v in results.items()})))

@@ -117,3 +117,44 @@ def test_k2_wrapper_refuses_shapes_the_kernel_lacks(win, search_margin):
     a = torch.zeros((1, 3), dtype=torch.int32)
     with pytest.raises(ValueError, match="win=21"):
         lk._lk_level_cuda(img, img, pts, pts, act, a, a, win, search_margin, 4, 0.01, 1e-4)
+
+
+@pytest.mark.parametrize("win, search_margin", [(15, 8), (21, 14)])
+def test_k3_wrapper_refuses_shapes_the_kernel_lacks(win, search_margin):
+    """K3 is compiled for win = 21 and a window of at most 48 pixels (21 with
+    a margin of 14 makes 50); the wrapper raises before it touches a
+    device."""
+    WIN = win + 1 + 2 * search_margin
+    p = torch.zeros((1, 3, win, win))
+    s = torch.zeros((1, 3))
+    with pytest.raises(ValueError, match="win=21"):
+        lk._lk_iterate_cuda(p, p, p, torch.zeros((1, 3, WIN, WIN)), s, s,
+                            torch.zeros((1, 3, 2)), s.bool(), s, s, s, s, 4, 0.01)
+
+
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__ed9fa6c0_11_fast_nms_cu_30c4d4c115fast_nms_kernelEPKfPfiifi' for 'sm_90a'
+ptxas info    : Function properties for _ZN44_GLOBAL__N__ed9fa6c0_11_fast_nms_cu_30c4d4c115fast_nms_kernelEPKfPfiifi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 39 registers, used 1 barriers, 31572 bytes smem
+ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__08154346_11_lk_level_cu_46d3495b17lk_iterate_kernelEPKfS1_S1_S1_S1_S1_S1_PKhS1_S1_S1_S1_PfS4_iif' for 'sm_90a'
+ptxas info    : Function properties for _ZN44_GLOBAL__N__08154346_11_lk_level_cu_46d3495b17lk_iterate_kernelEPKfS1_S1_S1_S1_S1_S1_PKhS1_S1_S1_S1_PfS4_iif
+    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 163 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__08154346_11_lk_level_cu_46d3495b15lk_level_kernelEPKfS1_S1_S1_PKhPKiS5_PfPhS6_iiiiiiff' for 'sm_90a'
+ptxas info    : Function properties for _ZN44_GLOBAL__N__08154346_11_lk_level_cu_46d3495b15lk_level_kernelEPKfS1_S1_S1_PKhPKiS5_PfPhS6_iiiiiiff
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 0 barriers
+"""
+
+
+def test_ptxas_usage_reads_each_kernel():
+    """Phase 2's report of ``nvcc -Xptxas -v``: each kernel by its mangled
+    name, its registers, static shared memory and spilled bytes."""
+    u = chip_smoke.ptxas_usage(PTXAS_LOG)
+    assert u == {
+        "fast_nms": dict(registers=39, smem_bytes=31572, stack_bytes=0, spill_bytes=0),
+        "lk_iterate": dict(registers=163, smem_bytes=0, stack_bytes=8, spill_bytes=16),
+        "lk_level": dict(registers=128, smem_bytes=0, stack_bytes=0, spill_bytes=0)}
+    assert chip_smoke.ptxas_usage("") == {}

@@ -136,3 +136,140 @@ def test_lk_iterate_and_plain_engine_refuse_other_devices():
     with pytest.raises(ValueError, match="'xla'"):
         tlk.pyramidal_lk([img], [img], pts, pts, torch.ones((1, 3), dtype=torch.bool,
                                                             device="meta"), engine="xla")
+
+
+PITCH = 53  # K3's row pitch of the window in shared memory
+
+
+def _k3_emulate(tmpl, Ix, Iy, win_img, px, py, u0, done0, inv_det, Gxx, Gxy, Gyy, iters,
+                eps, nw):
+    """Plain-torch emulation of K3's indexing with ``nw`` warps per point:
+    the window at a row pitch of 53; thread t takes samples t + 32·nw·k at
+    offset r·53 + c, the last k masked past 441; the unmasked path where
+    ibx, iby ≥ 0 and ibx + 21, iby + 21 < WIN, clamped taps and masks
+    otherwise; per thread two partial sums (even and odd k) in the kernel's
+    order, an xor-butterfly per warp, then the warps in order.  Returns u,
+    err and, per pass, whether each point took the unmasked path, whether
+    every tap of the masked path lay inside the window, and which points
+    were not done."""
+    B, N, w, _ = tmpl.shape
+    WIN = win_img.shape[-1]
+    S, T = w * w, 32 * nw
+    NK = -(-S // T)
+    wn = torch.zeros((B, N, WIN, PITCH))
+    wn[..., :WIN] = win_img
+    wn = wn.reshape(B, N, WIN * PITCH)
+    i = torch.arange(T)[:, None] + T * torch.arange(NK)  # (T, NK)
+    valid = i < S
+    iv = torch.where(valid, i, 0)
+    r, c = iv // w, iv % w
+    off = r * PITCH + c
+
+    def per_thread(x):  # (B, N, w, w) -> (B, N, T, NK), 0 past 441
+        return torch.where(valid, x.reshape(B, N, S)[..., iv], torch.zeros(()))
+
+    tm, gx, gy = per_thread(tmpl), per_thread(Ix), per_thread(Iy)
+    lane = torch.arange(32)
+
+    def point_sum(v):  # (B, N, T) -> (B, N): butterflies, then warps in order
+        v = v.reshape(B, N, nw, 32)
+        for o in (16, 8, 4, 2, 1):
+            v = v + v[..., lane ^ o]
+        assert torch.equal(v, v[..., :1].expand_as(v))  # every lane the same bits
+        s = v[..., 0, 0]
+        for q in range(1, nw):
+            s = s + v[..., q, 0]
+        return s
+
+    def gather(q):
+        return wn.gather(2, q.clamp(0, WIN * PITCH - 1).reshape(B, N, -1)).reshape(q.shape)
+
+    def samples(ux, uy):
+        sx = torch.nan_to_num(px + ux, nan=2.0 ** 20).clamp(-2.0 ** 20, 2.0 ** 20)
+        sy = torch.nan_to_num(py + uy, nan=2.0 ** 20).clamp(-2.0 ** 20, 2.0 ** 20)
+        bx, by = torch.floor(sx), torch.floor(sy)
+        fx, fy = (sx - bx)[..., None, None], (sy - by)[..., None, None]
+        ibx, iby = bx.to(torch.int64), by.to(torch.int64)
+        fast = (ibx >= 0) & (iby >= 0) & (ibx + w < WIN) & (iby + w < WIN)
+
+        def blend(v00, v10, v01, v11):
+            return (v00 * (1 - fy) + v10 * fy) * (1 - fx) + (v01 * (1 - fy) + v11 * fy) * fx
+
+        q = (iby * PITCH + ibx)[..., None, None] + off
+        v_fast = blend(gather(q), gather(q + PITCH), gather(q + 1), gather(q + PITCH + 1))
+        iy, ix = iby[..., None, None] + r, ibx[..., None, None] + c
+        my0, my1 = (iy >= 0) & (iy < WIN), (iy + 1 >= 0) & (iy + 1 < WIN)
+        mx0, mx1 = (ix >= 0) & (ix < WIN), (ix + 1 >= 0) & (ix + 1 < WIN)
+        y0, y1 = iy.clamp(0, WIN - 1) * PITCH, (iy + 1).clamp(0, WIN - 1) * PITCH
+        x0, x1 = ix.clamp(0, WIN - 1), (ix + 1).clamp(0, WIN - 1)
+        zero = torch.zeros(())
+        v_masked = blend(torch.where(my0 & mx0, gather(y0 + x0), zero),
+                         torch.where(my1 & mx0, gather(y1 + x0), zero),
+                         torch.where(my0 & mx1, gather(y0 + x1), zero),
+                         torch.where(my1 & mx1, gather(y1 + x1), zero))
+        inside = ((my0 & my1 & mx0 & mx1) | ~valid).all(-1).all(-1)
+        return torch.where(fast[..., None, None], v_fast, v_masked), fast, inside
+
+    def thread_sums(terms):  # (B, N, T, NK) -> (B, N, T), the kernel's order
+        a = [torch.zeros((B, N, T)), torch.zeros((B, N, T))]
+        for k in range(NK):
+            a[k & 1] = a[k & 1] + torch.where(valid[:, k], terms[..., k], torch.zeros(()))
+        return a[0] + a[1]
+
+    ux, uy = u0[..., 0].clone(), u0[..., 1].clone()
+    done = done0.clone()
+    paths = []
+    for _ in range(iters):
+        v, fast, inside = samples(ux, uy)
+        paths.append((fast, inside, ~done))
+        dI = v - tm
+        bx, by = point_sum(thread_sums(dI * gx)), point_sum(thread_sums(dI * gy))
+        dux = inv_det * (Gyy * bx - Gxy * by)
+        duy = inv_det * (-Gxy * bx + Gxx * by)
+        ux = torch.where(done, ux, ux - dux)
+        uy = torch.where(done, uy, uy - duy)
+        done = done | (dux * dux + duy * duy < eps * eps)
+    v, _, _ = samples(ux, uy)
+    err = point_sum(thread_sums((v - tm).abs())) / S
+    return torch.stack([ux, uy], -1), err, paths
+
+
+@pytest.mark.parametrize("nw", [1, 2, 4])
+def test_k3_indexing_matches_lk_iterate_plain(nw):
+    """K3's sample ownership, pitch-53 offsets, path choice and summation
+    order, emulated in plain torch, against ``lk_iterate_plain`` on real
+    patches: warm starts inside, on and just past the window edge, two rows
+    that start done and one whose warm start lies far outside its window.
+    The unmasked path is taken exactly where every tap lies inside the
+    window, and both paths are exercised."""
+    imgs0, imgs1, pts, act = _inputs()
+    win, sm, iters, eps, min_eig = 21, 8, 8, 0.01, 1e-4
+    WIN = win + 1 + 2 * sm
+    rng = np.random.default_rng(3)
+    flow = rng.normal(0, 1.5, pts.shape).astype(np.float32)
+    ax, ay = tlk.window_anchor(tt(pts), tt(flow), H, W, win, sm)
+    p = tlk.level_patches(tt(imgs0), tt(imgs1), tt(pts), ax, ay, win, sm, min_eig)
+    done0 = ~(tt(act) & p.ok_eig)
+    done0[:, 4] = True
+    done0[1, 5] = True
+    u0 = tt(flow)
+    u0[:, 6] = torch.tensor([40.0, -35.0])  # diverged: every sample leaves the window
+    # patch origins (window coordinates) on and past the edges of the
+    # unmasked path: ibx = 0, WIN - 22 (last unmasked), WIN - 21 and -1
+    for n, x in ((7, 0.0), (8, WIN - 22 + 0.25), (9, WIN - 21 + 0.5), (10, -0.5)):
+        u0[:, n, 0] = x - p.px[:, n]
+        u0[:, n, 1] = 8.5 - p.py[:, n]
+        done0[:, n] = False
+    args = (p.tmpl, p.Ix, p.Iy, p.win_img, p.px, p.py, u0, done0, p.inv_det, p.Gxx, p.Gxy,
+            p.Gyy, iters, eps)
+    u_ref, err_ref = tlk.lk_iterate_plain(*args)
+    u, err, paths = _k3_emulate(*args, nw=nw)
+    assert torch.abs(u - u_ref).max() < 1e-3
+    assert torch.abs(err - err_ref).max() < 1e-3
+    assert torch.equal(u[done0], u0[done0])
+    fast = torch.cat([f[m] for f, _, m in paths])
+    inside = torch.cat([i[m] for _, i, m in paths])
+    assert torch.equal(fast, inside)
+    assert bool(fast.any()) and bool((~fast).any())
+    # the edge starts: ibx = 0 and WIN - 22 unmasked, WIN - 21 and -1 masked
+    assert paths[0][0][:, 7:11].tolist() == [[True, True, False, False]] * 2

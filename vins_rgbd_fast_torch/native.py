@@ -1,11 +1,13 @@
 """Build-on-first-use loader for the hand-written CUDA kernels in ``csrc/``.
 
-All ``csrc/*.cu`` files are compiled by ``nvcc`` for ``sm_90a`` into ONE
-shared library with a plain C interface, loaded with ``ctypes`` (no
-PyTorch headers, so a build takes seconds).  The library lands in
-``vins_rgbd_fast_torch/build/`` under a name carrying the hash of the
-sources, so an edited source triggers a rebuild.  Nothing here runs at
-import time: the CPU tests import every module of the package.
+Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``, all
+started together, and the objects are linked into ONE shared library with
+a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a build
+takes seconds).  The library lands in ``vins_rgbd_fast_torch/build/`` under
+a name carrying the hash of the sources, so an edited source triggers a
+rebuild; ptxas's report of each kernel's registers, shared memory and
+spills goes beside it (``<library>.log``).  Nothing here runs at import
+time: the CPU tests import every module of the package.
 """
 
 from __future__ import annotations
@@ -16,13 +18,14 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_DIR, "csrc")
 BUILD = os.path.join(_DIR, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
 _lock = threading.Lock()
@@ -42,25 +45,40 @@ def _nvcc() -> str:
 
 
 def build(verbose: bool = False) -> str:
-    """Compile the kernels if the library for the current sources is
-    missing; returns its path."""
+    """Compile the kernels if the library for the current sources, or its
+    log, is missing; returns its path.  The compilers' messages (ptxas's
+    registers, shared memory and spills per kernel among them) are written
+    to the library's path + ".log" and, with ``verbose``, printed."""
     h = hashlib.sha256()
     for path in _sources():
         with open(path, "rb") as f:
             h.update(os.path.basename(path).encode() + f.read())
     out = os.path.join(BUILD, f"libvins_kernels_{h.hexdigest()[:16]}.so")
-    if os.path.exists(out):
+    if os.path.exists(out) and os.path.exists(out + ".log"):
         return out
     os.makedirs(BUILD, exist_ok=True)
-    tmp = out + f".{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS] + (["-Xptxas", "-v"] if verbose else []) + [
-        "-o", tmp] + [p for p in _sources() if p.endswith(".cu")]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        srcs = [p for p in _sources() if p.endswith(".cu")]
+        objs = [os.path.join(tmp, os.path.basename(p) + ".o") for p in srcs]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, p],
+                                  stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+                 for p, o in zip(srcs, objs)]
+        logs = [proc.communicate()[1] for proc in procs]  # waits for all, drains each pipe
+        for p, proc, err in zip(srcs, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {os.path.basename(p)} "
+                                   f"({proc.returncode}):\n{err}")
+        lib_tmp = os.path.join(tmp, "lib.so")
+        res = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                              "-o", lib_tmp, *objs], capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
+        with open(out + ".log", "w") as f:
+            f.write("".join(logs))
+        os.replace(lib_tmp, out)
     if verbose:
-        print(res.stderr)
-    os.replace(tmp, out)
+        print("".join(logs))
     return out
 
 

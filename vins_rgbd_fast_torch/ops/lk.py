@@ -10,8 +10,10 @@ One pyramid level runs by one of three engines, as in JAX:
     and search window: plain gathers, the work JAX does outside its
     kernel) followed by ``lk_iterate``, the wrapper of kernel K3 (the
     iterate-only entry of ``csrc/lk_level.cu``, replacing
-    ``ops/lk_pallas2.py:lk_iterate``), which keeps one 256-thread block
-    per point and a block reduction per Gauss-Newton step;
+    ``ops/lk_pallas2.py:lk_iterate``), which runs K2's Gauss-Newton loop
+    on the given patches: one block of 4 warps per point (``K3_WARPS``),
+    its template and gradients in registers, no block-wide barrier
+    (``win`` must be 21);
   * ``"xla"``: ``lk_level_plain``, CPU tensors only.
 For CPU tensors every wrapper runs its plain version: ``lk_level_plain``
 (= ``level_patches`` + ``lk_iterate_plain``), the port of
@@ -40,7 +42,9 @@ from .. import native
 
 level_launches = 0    # K2 launches (the CUDA path only)
 iterate_launches = 0  # K3 launches (the CUDA path only)
-K2_WIN = 21           # K2's compile-time patch side (both pipelines run 21)
+K2_WIN = 21           # K2's and K3's compile-time patch side (both pipelines run 21)
+MAX_WIN = 48          # the largest search window K2 and K3 take
+K3_WARPS = 4          # K3's warps per point (``K3_WARPS`` of csrc/lk_level.cu)
 _BIG = float(2 ** 20)  # sample coordinates are clamped here before floor()
 
 
@@ -210,9 +214,10 @@ def _lk_level_cuda(prev, cur, pts_l, flow, active, ax, ay, win, search_margin,
     B, H, W = prev.shape
     N = pts_l.shape[1]
     WIN = win + 1 + 2 * search_margin
-    if win != K2_WIN or search_margin < 0 or WIN > 48:
+    if win != K2_WIN or search_margin < 0 or WIN > MAX_WIN:
         raise ValueError(f"lk_level: the kernel takes win={K2_WIN} and a search window "
-                         f"of at most 48 (got win={win}, search_margin={search_margin})")
+                         f"of at most {MAX_WIN} (got win={win}, "
+                         f"search_margin={search_margin})")
     f32, i32 = torch.float32, torch.int32
     _check_args("lk_level", prev, (
         ("prev", prev, f32, (B, H, W)), ("cur", cur, f32, (B, H, W)),
@@ -237,9 +242,9 @@ def _lk_iterate_cuda(tmpl, Ix, Iy, win_img, px, py, u0, done0, inv_det, Gxx, Gxy
     global iterate_launches
     B, N, win, _ = tmpl.shape
     WIN = win_img.shape[-1]
-    if win * win > 31 * 31 or WIN > 48:
-        raise ValueError(f"lk_iterate: win={win}, WIN={WIN} exceed the kernel's "
-                         "shared-memory tiles")
+    if win != K2_WIN or WIN > MAX_WIN:
+        raise ValueError(f"lk_iterate: the kernel takes win={K2_WIN} and a search window "
+                         f"of at most {MAX_WIN} (got win={win}, WIN={WIN})")
     f32 = torch.float32
     pw, pn = (B, N, win, win), (B, N)
     _check_args("lk_iterate", tmpl, (
