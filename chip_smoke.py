@@ -40,9 +40,26 @@ Phases (each prints one line; any failure raises and exits non-zero):
      NON_LINEAR after the warm-up, ATE under max(0.05·travelled, 0.08 m),
      K1 once and K3 twice per frame and K2 never, and a profile of a few
      more frames that must show no host wait inside ``spin_once``;
-  8. K3 timings per level at 1×200 and 8×200, as in phase 6.
-Phases 5 and 7 each zero the kernels' launch counters just before their
-path and read them just after; the ``kernels`` line sums the two.
+  8. K3 timings per level at 1×200 and 8×200, as in phase 6;
+  9. the latency path with loop closure (the bench's default
+     ``run_latency``): the revisit scene with a gyro pulse, ``VinsPipeline
+     (loop_closure, fast_relocalization)`` with the pose graph on the
+     ``AsyncLoopStager``'s worker thread; 16 warm-up frames, ``drain``, the
+     stager's warm-up, then 96 timed frames ended by ``drain`` and a device
+     synchronisation; NON_LINEAR after the warm-up, ATE under its bound, at
+     least one loop, the loop-corrected keyframe ATE no worse than the
+     keyframes' VIO ATE, K1 once per frame plus once per keyframe the worker
+     extracts, K3 twice per frame, K2 never, and a profile of a few more
+     frames, the worker busy meanwhile, with no host wait on the frame
+     thread inside ``spin_once`` (the worker's own waits are allowed and
+     counted apart); the worker's seconds by stage, beside
+     phase 7's ms per frame; 9b. the same scene and configuration without
+     the pose graph (the relo block in every solve, never active), and 9c.
+     9b and 9 once more in the reverse order, for what the worker costs the
+     frame thread; 9d. the loop cell with the pose graph inline
+     (``eager_outputs``), with phase 9's checks but the profile.
+Phases 5, 7 and 9 each zero the kernels' launch counters just before their
+path and read them just after; the ``kernels`` line sums the three.
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA it exits
 non-zero before printing any result.
 """
@@ -56,6 +73,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -68,6 +86,7 @@ from vins_rgbd_fast_torch.config import EstimatorConfig, TrackerConfig, VinsConf
 from vins_rgbd_fast_torch.frontend import feature_tracker as ft
 from vins_rgbd_fast_torch.io import synthetic as syn
 from vins_rgbd_fast_torch.io.stream import ate_rmse
+from vins_rgbd_fast_torch.loop.pose_graph import PoseGraphConfig
 from vins_rgbd_fast_torch.models.camera import PinholeCamera
 from vins_rgbd_fast_torch.ops import fast, image, lk
 from vins_rgbd_fast_torch.parallel import batched_pipeline as bp
@@ -329,18 +348,26 @@ def latency_config(rig, seq, max_cnt: int = 130) -> VinsConfig:
 
 
 def run_latency_path(device, n_frames: int = 112, warmup: int = 16, W: int = 640,
-                     H: int = 480, max_cnt: int = 130, profile: int = 0, path=None):
+                     H: int = 480, max_cnt: int = 130, profile: int = 0, path=None,
+                     revisit: bool = False):
     """bench.py run_latency with BENCH_LAT_LOOP=0 on the port: one stream
     (make_trajectory seed 7), frames rendered on the device first, the
     fused steady state with no read-back per frame (eager_outputs off,
     failure check every 10**9 frames) and the envelope (LM 2 iterations,
-    LK 12/6).  ``profile`` more frames run under the profiler afterwards."""
+    LK 12/6).  ``profile`` more frames run under the profiler afterwards.
+    With ``revisit``, the loop cell's scene and configuration but no pose
+    graph: fast relocalization on, its constraint never active."""
     rig, _, _, _ = slice_config(W, H, max_cnt)
-    seq = syn.make_trajectory(n_frames + profile, rig, seed=7, omega_scale=0.15,
-                              acc_scale=0.3)
+    if revisit:
+        seq = revisit_scene(rig, n_frames, profile)
+        cfg = dataclasses.replace(loop_config(rig, seq, max_cnt)[0], loop_closure=False)
+    else:
+        seq = syn.make_trajectory(n_frames + profile, rig, seed=7, omega_scale=0.15,
+                                  acc_scale=0.3)
+        cfg = latency_config(rig, seq, max_cnt)
     ts, imgs, deps = syn.render_sequence(seq, rig, device)
-    pipe = VinsPipeline(latency_config(rig, seq, max_cnt), device, eager_outputs=False,
-                        failure_check_interval=10 ** 9, fused_steady_state=True)
+    pipe = VinsPipeline(cfg, device, eager_outputs=False, failure_check_interval=10 ** 9,
+                        fused_steady_state=True)
     pipe.estimator.cfg = dataclasses.replace(pipe.estimator.cfg, max_iters=2)
     pipe.tcfg = dataclasses.replace(pipe.tcfg, lk_max_iters=12, lk_coarse_iters=6)
     for (t, a, g) in seq.imu:
@@ -390,6 +417,139 @@ def check_latency_path(res, on_gpu: bool = True) -> None:
         require(res["counts"] == {"fast_nms": n, "lk_level": 0, "lk_iterate": 2 * n},
                 ("latency launches", res["counts"]))
         require(res["profile"]["host_syncs"] == 0, "no host wait inside spin_once")
+
+
+def loop_config(rig, seq, max_cnt: int = 130, max_kp: int = 192):
+    """bench.py run_latency's loop-closure configuration (BENCH_LAT_LOOP=1):
+    loop closure and fast relocalization on, and its pose-graph settings."""
+    cfg = dataclasses.replace(latency_config(rig, seq, max_cnt), loop_closure=True,
+                              fast_relocalization=True)
+    pg = PoseGraphConfig(max_kp=max_kp, max_wp=cfg.feature_capacity, recency_exclusion=8,
+                         score_best=0.08, score_second=0.02, pad_nodes_min=128,
+                         pad_edges_min=1024)
+    return cfg, pg
+
+
+def revisit_scene(rig, n_frames: int, extra: int = 0):
+    """The bench's loop scene: ``make_revisit_trajectory(n_frames, seed 207,
+    accel 1.5, sideways, 2 cycles)`` with the gyro pulse of ``corrupt_imu
+    (seed 307)``; ``extra`` frames past it keep the scene of the first
+    ``n_frames`` (the pulse is placed at the same times)."""
+    n = n_frames + extra
+    if n // 8 != n_frames // 8:
+        raise ValueError("extra frames would change the revisit period")
+    seq = syn.make_revisit_trajectory(n, rig, seed=207, accel=1.5, axis=(0.0, 1.0, 0.0),
+                                      cycles=2)
+    s = (n_frames - 1) / (n - 1)  # the pulse fractions of the n_frames scene
+    return syn.corrupt_imu(seq, seed=307, gyr_noise=0.003, gyr_pulse=0.2,
+                           pulse_frac=(0.18 * s, 0.3 * s))
+
+
+def run_loop_path(device, n_frames: int = 112, warmup: int = 16, W: int = 640, H: int = 480,
+                  max_cnt: int = 130, max_kp: int = 192, profile: int = 0, path=None,
+                  eager: bool = False):
+    """bench.py run_latency with BENCH_LAT_LOOP=1 on the port: the revisit
+    scene rendered on the device first, the fused steady state with no
+    read-back per frame, the envelope, and the pose graph on the
+    ``AsyncLoopStager``'s worker (with ``eager``, inline in each frame's
+    ``spin_once``, every frame read back).  The launch counters are zeroed
+    after the warm-up and the stager's warm-up, just before the timed
+    frames; ``profile`` frames (async only) run under the profiler after."""
+    rig, _, _, _ = slice_config(W, H, max_cnt)
+    seq = revisit_scene(rig, n_frames, profile)
+    ts, imgs, deps = syn.render_sequence(seq, rig, device)
+    cfg, pg_cfg = loop_config(rig, seq, max_cnt, max_kp)
+    pipe = VinsPipeline(cfg, device, eager_outputs=eager, failure_check_interval=10 ** 9,
+                        fused_steady_state=True, pose_graph_config=pg_cfg)
+    pipe.estimator.cfg = dataclasses.replace(pipe.estimator.cfg, max_iters=2)
+    pipe.tcfg = dataclasses.replace(pipe.tcfg, lk_max_iters=12, lk_coarse_iters=6)
+    graph = pipe.pose_graph
+    stager = pipe._loop_stager  # None with eager
+    for (t, a, g) in seq.imu:
+        pipe.push_imu(t, a, g)
+
+    def feed(k0, k1):
+        for k in range(k0, k1):
+            pipe.push_image(ts[k], imgs[k])
+            pipe.push_depth(ts[k], deps[k])
+            pipe.spin_once()
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    try:
+        feed(0, warmup)
+        flag = pipe.estimator.solver_flag
+        pipe.drain()
+        if stager is not None:
+            stager.compile_warmup(imgs[0])
+            stager.stage_s = dict.fromkeys(stager.stage_s, 0.0)
+        sync()
+        kf0 = len(graph.keyframes)
+        reset_counts()
+        t0 = time.perf_counter()
+        feed(warmup, n_frames)
+        pipe.drain()
+        sync()
+        elapsed = time.perf_counter() - t0
+        counts = read_counts()
+        kf_timed = len(graph.keyframes) - kf0
+        stages = dict(stager.stage_s) if stager is not None else None
+        prof = None
+        if profile and stager is not None:
+            def busy_feed():
+                # the worker runs a loop check on a clone of the graph meanwhile
+                # (extraction, a query, PnP, a PGO), so its waits overlap the span
+                stager._q.put(lambda: stager._warmup(imgs[0]))
+                feed(n_frames, n_frames + profile)
+
+            prof = profile_span(busy_feed, SPIN_SPAN, profile, path,
+                                1e3 * elapsed / (n_frames - warmup))
+            pipe.drain()
+    finally:
+        pipe.close()
+    t_end = ts[n_frames - 1]
+    traj = [r for r in pipe.estimator.trajectory if r["t"] <= t_end]
+    kfs = [k for k in graph.keyframes if k.t <= t_end]
+    path_c = [p for p in graph.path() if p[0] <= t_end]
+
+    def ate(times, P):
+        return (ate_rmse(times, P, seq.times, seq.P, align=False) if len(times) >= 5
+                else float("nan"))
+
+    travelled = float(np.sum(np.linalg.norm(np.diff(seq.P[:n_frames], axis=0), axis=1)))
+    n_timed = n_frames - warmup
+    return dict(latency_fps=n_timed / elapsed, latency_ms_per_frame=1e3 * elapsed / n_timed,
+                latency_ate_m=ate([r["t"] for r in traj], [r["P"] for r in traj]),
+                latency_loop_ate_m=ate([p[0] for p in path_c], [p[1] for p in path_c]),
+                latency_vio_kf_ate_m=ate([k.t for k in kfs], [k.P_vio for k in kfs]),
+                latency_kf=len(kfs), latency_loops=len([lp for lp in graph.loops
+                                                        if lp["cur"] < len(kfs)]),
+                loops=[(lp["cur"], lp["old"], lp["n_inliers"]) for lp in graph.loops],
+                bound=max(0.05 * travelled, 0.08), frames=n_frames, timed=n_timed,
+                kf_timed=kf_timed, solver_flag_after_warmup=flag, counts=counts,
+                worker_s=stages, profile=prof, timer=pipe.timer.summary())
+
+
+def check_loop_path(res, on_gpu: bool = True) -> None:
+    require(res["solver_flag_after_warmup"] == est.VinsEstimator.NON_LINEAR,
+            "NON_LINEAR after the warm-up")
+    for k in ("latency_ate_m", "latency_loop_ate_m", "latency_vio_kf_ate_m"):
+        require(np.isfinite(res[k]), (k, res[k]))
+    require(res["latency_ate_m"] < res["bound"], ("latency ATE", res["latency_ate_m"],
+                                                  res["bound"]))
+    require(res["latency_loops"] >= 1, ("loops", res["loops"]))
+    require(res["latency_loop_ate_m"] <= res["latency_vio_kf_ate_m"],
+            ("loop-corrected keyframe ATE above the VIO one", res["latency_loop_ate_m"],
+             res["latency_vio_kf_ate_m"]))
+    if on_gpu:  # K1 per frame and per extracted keyframe, K3 per level, never K2
+        n = res["timed"]
+        require(res["counts"] == {"fast_nms": n + res["kf_timed"], "lk_level": 0,
+                                  "lk_iterate": 2 * n}, ("loop-path launches", res["counts"]))
+    if res["profile"] is not None:
+        require(res["profile"]["host_syncs"] == 0,
+                ("no host wait on the frame thread", res["profile"]["host_sync_calls"]))
 
 
 def require(ok, what) -> None:
@@ -644,11 +804,31 @@ def profile_frames(res, path: str, step_ms: float):
                         int(batch.ts.shape[0]), path, step_ms)
 
 
+def host_waits(prof, name: str):
+    """Host waits (``HOST_SYNC_CALLS``) that start and end inside the span
+    ``name``, on the span's own OS thread and on others (a worker thread
+    may wait; the frame thread may not), with the names of the former.
+    Read from the exported trace, whose events carry the OS thread id of
+    their caller (the profiler's event list gives CUDA runtime calls no
+    usable thread)."""
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as d:
+        trace = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+    span = next(e for e in events if e.get("name") == name and e.get("cat") == "user_annotation")
+    t0, t1 = span["ts"], span["ts"] + span["dur"]
+    waits = [e for e in events if e.get("cat") == "cuda_runtime"
+             and e.get("name") in HOST_SYNC_CALLS and t0 <= e["ts"] and e["ts"] + e["dur"] <= t1]
+    own = [e["name"] for e in waits if e.get("tid") == span.get("tid")]
+    return own, len(waits) - len(own)
+
+
 def profile_span(fn, name: str, frames: int, path: str, step_ms: float):
     """torch.profiler over ``fn`` (``frames`` frames) inside a span
-    ``name``: host waits inside the span, kernel launches and device kernel
-    time per frame, the device's busy share against the unprofiled step
-    time, and the heaviest kernels (table in ``path``)."""
+    ``name``: host waits inside the span (``host_waits``), kernel launches
+    and device kernel time per frame, the device's busy share against the
+    unprofiled step time, and the heaviest kernels (table in ``path``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     torch.cuda.synchronize()
@@ -656,12 +836,7 @@ def profile_span(fn, name: str, frames: int, path: str, step_ms: float):
         with record_function(name):
             fn()
         torch.cuda.synchronize()
-    # host waits that start and end inside the span (the profiler's own
-    # device synchronisation and the one above fall outside it)
-    span = next(e.time_range for e in prof.events()
-                if e.name == name and e.device_type == DeviceType.CPU)
-    host_syncs = sum(1 for e in prof.events() if e.name in HOST_SYNC_CALLS
-                     and span.start <= e.time_range.start and e.time_range.end <= span.end)
+    own, other_syncs = host_waits(prof, name)
     events = prof.key_averages()
     # the span also shows as a device-side annotation; it is not a kernel
     kernels = [e for e in events if e.device_type == DeviceType.CUDA and e.key != name]
@@ -679,7 +854,8 @@ def profile_span(fn, name: str, frames: int, path: str, step_ms: float):
         n = sum(e.count for e in hits)
         ours[k] = dict(device_ms_per_frame=us / 1e3 / frames, launches_per_frame=n / frames,
                        device_ms_per_launch=us / 1e3 / n if n else "not launched")
-    return dict(frames=frames, kernels_per_frame=n_kernels / frames, host_syncs=host_syncs,
+    return dict(frames=frames, kernels_per_frame=n_kernels / frames, host_syncs=len(own),
+                host_sync_calls=sorted(set(own)), other_thread_syncs=other_syncs,
                 device_ms_per_frame=round(dev_ms, 3),
                 busy_share=round(dev_ms / step_ms, 4) if dev_ms > 0 else "not measured",
                 top_ms_per_frame=[(e.key[:50], round(e.self_device_time_total / 1e3 / frames, 3))
@@ -834,10 +1010,63 @@ def main() -> int:
                    kernel_bounds(b, 0, 0, N, iters, steps=sum(steps))["lk_iterate"])
             timings[-1]["points_by_step"] = steps
 
+    # 9. the latency path with loop closure (its own launch counts)
+    loop = run_loop_path(dev, profile=6, path=os.path.join(OUT_DIR, "profile_loop.txt"))
+    require(loop["profile"] is not None, "phase 9 profiled")
+    check_loop_path(loop)
+    print(f"[9 loop] 1 stream 640x480 revisit scene, warm 16 + {loop['timed']} timed frames, "
+          f"pose graph on the worker thread: latency_ms_per_frame "
+          f"{loop['latency_ms_per_frame']:.3f} (phase 7 in this run: "
+          f"{lat['latency_ms_per_frame']:.3f}), latency_fps {loop['latency_fps']:.2f}, "
+          f"latency_ate_m {loop['latency_ate_m']:.4f} (bound {loop['bound']:.3f}), "
+          f"latency_loop_ate_m {loop['latency_loop_ate_m']:.4f}, latency_vio_kf_ate_m "
+          f"{loop['latency_vio_kf_ate_m']:.4f}, latency_kf {loop['latency_kf']}, "
+          f"latency_loops {loop['latency_loops']} {loop['loops']}; launches {loop['counts']} "
+          f"({loop['kf_timed']} keyframes extracted in the timed frames); worker seconds by "
+          f"stage {loop['worker_s']}; profile {loop['profile']}", flush=True)
+
+    # 9b. the same scene and configuration with no pose graph (the relo
+    # block in the solve, never active): what the worker costs the frame thread
+    alone = run_latency_path(dev, profile=6, revisit=True,
+                             path=os.path.join(OUT_DIR, "profile_loop_no_graph.txt"))
+    check_latency_path(alone, on_gpu=False)
+    print(f"[9b no graph] the loop cell without the pose graph: latency_ms_per_frame "
+          f"{alone['latency_ms_per_frame']:.3f} (phase 9: {loop['latency_ms_per_frame']:.3f}, "
+          f"phase 7: {lat['latency_ms_per_frame']:.3f}), latency_ate_m "
+          f"{alone['latency_ate_m']:.4f}; launches {alone['counts']}; profile: "
+          f"{alone['profile']['kernels_per_frame']:.1f} launches and "
+          f"{alone['profile']['device_ms_per_frame']} device ms per frame, busy "
+          f"{alone['profile']['busy_share']}, {alone['profile']['host_syncs']} host waits",
+          flush=True)
+
+    # 9c. 9b and 9 again in the reverse order (9, 9b, 9b, 9): the host's
+    # speed drifts within a call, and the pairs' mean cancels a linear drift
+    alone2 = run_latency_path(dev, revisit=True)
+    check_latency_path(alone2, on_gpu=False)
+    loop2 = run_loop_path(dev)
+    check_loop_path(loop2)
+    order = [loop, alone, alone2, loop2]
+    ms = [r["latency_ms_per_frame"] for r in order]
+    worker_cost = (ms[0] + ms[3]) / (ms[1] + ms[2]) - 1.0
+    print(f"[9c 9/9b/9b/9] latency_ms_per_frame {[round(m, 3) for m in ms]}: the pose graph's "
+          f"worker costs the frame thread {100 * worker_cost:.1f} % (pair means); "
+          f"latency_loops of the second 9: {loop2['latency_loops']}", flush=True)
+
+    # 9d. the pose graph inline (eager outputs: every frame read back)
+    eager = run_loop_path(dev, eager=True)
+    check_loop_path(eager)
+    print(f"[9d eager] the loop cell with the pose graph inline: latency_ms_per_frame "
+          f"{eager['latency_ms_per_frame']:.3f}, latency_loop_ate_m "
+          f"{eager['latency_loop_ate_m']:.4f}, latency_vio_kf_ate_m "
+          f"{eager['latency_vio_kf_ate_m']:.4f}, latency_kf {eager['latency_kf']}, "
+          f"latency_loops {eager['latency_loops']} {eager['loops']}; launches {eager['counts']} "
+          f"({eager['kf_timed']} keyframes extracted in the timed frames)", flush=True)
+
     # the kernels line: per launch at the main path's shapes (K1 8x480x640,
     # K2 8x200 averaged over its two levels) and K3 at the latency path's
     # 1x200 (it never runs on the main path)
-    counts = {k: res["counts"][k] + lat["counts"][k] for k in KERNELS}
+    paths = {"batched": res, "latency": lat, "latency_loop": loop}
+    counts = {k: sum(r["counts"][k] for r in paths.values()) for k in KERNELS}
     errs = {"fast_nms": k1_err, "lk_level": k2_err, "lk_iterate": k3_err}
     main_shape = {"fast_nms": f"{B}x480x640 rendered", "lk_level": f"{B}x{N} level",
                   "lk_iterate": f"1x{N} level"}
@@ -857,14 +1086,17 @@ def main() -> int:
             replaces=sources[name][1], launches=counts[name], max_abs_err=errs[name],
             ms=mean("device_ms"), plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
             bound_by=rows[0]["bound_by"], library_ms=None,
-            launches_by_path={"batched": res["counts"][name], "latency": lat["counts"][name]},
+            launches_by_path={p: r["counts"][name] for p, r in paths.items()},
             host_us=mean("host_us"), profile_ms_per_frame={
                 "batched": prof["by_kernel"][name]["device_ms_per_frame"],
-                "latency": lat["profile"]["by_kernel"][name]["device_ms_per_frame"]}))
+                "latency": lat["profile"]["by_kernel"][name]["device_ms_per_frame"],
+                "latency_loop": loop["profile"]["by_kernel"][name]["device_ms_per_frame"]}))
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi, kernels=kernels, timings=timings, k2=rep, k3=rep3, main={
             k: res[k] for k in ("ates", "bounds", "counts", "run_ms", "wall_s", "frames")},
-            stages=stages, profile=prof, latency=lat), f, indent=1, default=float)
+            stages=stages, profile=prof, latency=lat, latency_loop=loop,
+            latency_loop_no_graph=alone, abba_ms=ms, worker_cost=worker_cost,
+            latency_loop_eager=eager), f, indent=1, default=float)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -158,3 +158,31 @@ def test_ptxas_usage_reads_each_kernel():
         "lk_iterate": dict(registers=163, smem_bytes=0, stack_bytes=8, spill_bytes=16),
         "lk_level": dict(registers=128, smem_bytes=0, stack_bytes=0, spill_bytes=0)}
     assert chip_smoke.ptxas_usage("") == {}
+
+
+def test_host_waits_counts_by_os_thread(tmp_path, monkeypatch):
+    """``chip_smoke.host_waits`` reads the exported trace: waits of the
+    span's own OS thread inside the span are named, those of other threads
+    only counted, those outside the span ignored."""
+    import json
+
+    span = dict(name="span", cat="user_annotation", ph="X", ts=100.0, dur=50.0, tid=7)
+    events = [span, dict(name="cudaStreamSynchronize", cat="cuda_runtime", ph="X", ts=110.0,
+                         dur=2.0, tid=7),
+              dict(name="cudaStreamSynchronize", cat="cuda_runtime", ph="X", ts=120.0, dur=3.0,
+                   tid=9),
+              dict(name="cudaEventSynchronize", cat="cuda_runtime", ph="X", ts=140.0, dur=1.0,
+                   tid=9),
+              dict(name="cudaLaunchKernel", cat="cuda_runtime", ph="X", ts=111.0, dur=1.0, tid=7),
+              dict(name="cudaDeviceSynchronize", cat="cuda_runtime", ph="X", ts=151.0, dur=4.0,
+                   tid=7)]
+
+    class Prof:
+        def export_chrome_trace(self, path):
+            with open(path, "w") as f:
+                json.dump({"traceEvents": events}, f)
+
+    monkeypatch.setattr(chip_smoke, "OUT_DIR", str(tmp_path))
+    own, other = chip_smoke.host_waits(Prof(), "span")
+    assert own == ["cudaStreamSynchronize"] and other == 2
+    assert list(tmp_path.iterdir()) == []  # the trace is not kept

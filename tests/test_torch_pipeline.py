@@ -5,10 +5,20 @@ LM 2 iterations, LK 12/6), unfused and with the fused steady state, with
 the JAX RANSAC draws injected; and the port-only behaviour of the host
 shell.
 
+Loop closure (the bench's revisit scene at 320×240, max_cnt 64, 112
+frames): the port's pipeline with ``eager_outputs`` runs the pose graph
+inline, with JAX's PnP draws injected, and its recorded keyframe stream
+(and fast-relocalization feedback) replayed into the JAX package's
+``PoseGraph`` finds the same loops; without ``eager_outputs`` the pose
+graph runs on the ``AsyncLoopStager`` worker (``chip_smoke.run_loop_path``
+on the CPU).  JAX's own pipeline over that stream is too slow for tier-1,
+so the comparison is on the recorded keyframes.
+
 Tolerances: the same solver-flag sequence and output count; per-frame
 newest position within 5 mm of JAX's (the bound of
 ``test_torch_slice.py``: float32 Gauss-Newton from a large initial cost);
-ATE under max(0.05·travelled, 0.08 m)."""
+ATE under max(0.05·travelled, 0.08 m); loops equal (cur, old, inlier
+count), ``rel_t`` within 1e-4 and the corrected path within 1e-3 m."""
 
 import dataclasses
 import os
@@ -28,9 +38,12 @@ from vins_rgbd_fast_torch.backend import estimator as tes
 from vins_rgbd_fast_torch.io import stream as tstream
 from vins_rgbd_fast_torch.io import synthetic as tsyn
 from vins_rgbd_fast_torch.pipeline import VinsPipeline as TPipeline
+from vins_rgbd_fast_torch.loop import pose_graph as tpg
 from vins_rgbd_fast_tpu import config as jconfig
 from vins_rgbd_fast_tpu.backend import estimator as jest
 from vins_rgbd_fast_tpu.io import stream as jstream
+from vins_rgbd_fast_tpu.loop import pose_graph as jpg
+from vins_rgbd_fast_tpu.models import make_camera
 from vins_rgbd_fast_tpu.pipeline import VinsPipeline as JPipeline
 
 W, H, MAX_CNT, FRAMES = 160, 120, 32, 18
@@ -250,13 +263,26 @@ def test_load_config_matches_jax(tmp_path):
 
 def test_unported_options_raise(stream):
     tcfg = stream[4]
-    for change in (dict(loop_closure=True), dict(static_init=False), dict(estimate_td=True),
-                   dict(estimate_extrinsic=2), dict(fast_relocalization=True),
+    for change in (dict(static_init=False), dict(estimate_td=True), dict(estimate_extrinsic=2),
                    dict(imu=False), dict(equalize=True)):
         with pytest.raises(NotImplementedError):
             TPipeline(dataclasses.replace(tcfg, **change), "cpu")
     with pytest.raises(NotImplementedError):
         dataclasses.replace(tcfg, model_type="MEI").camera()
+    pipe = TPipeline(dataclasses.replace(tcfg, loop_closure=True, fast_relocalization=True),
+                     "cpu")
+    with pytest.raises(NotImplementedError):
+        pipe.pose_graph.save(os.devnull)
+    vo = tpg.PoseGraph(dataclasses.replace(pipe.pose_graph.cfg, use_6dof=True), pipe.cam,
+                       np.eye(3), np.zeros(3), "cpu")
+    vo.keyframes = [tpg.KeyFrameData(index=i, t=float(i), sequence=1, P_vio=np.full(3, 0.1 * i),
+                                     Q_vio=np.array([1.0, 0, 0, 0]), kp_uv=None, kp_norm=None,
+                                     kp_valid=None, kp_desc=None, wp_world=None, wp_norm=None,
+                                     wp_valid=None, wp_desc=None) for i in range(2)]
+    vo.loops = [dict(cur=1, old=0, rel_t=np.zeros(3), rel_yaw=0.0)]
+    vo.earliest_loop_index = 0
+    with pytest.raises(NotImplementedError):
+        vo.optimize()
 
 
 def test_stream_pairer_matches_jax():
@@ -285,6 +311,100 @@ def test_port_imports_nothing_of_jax():
     be imported, and load no module of the JAX package."""
     code = ("import sys; sys.modules['jax'] = None; "
             "import vins_rgbd_fast_torch.pipeline, chip_smoke; "
+            "import vins_rgbd_fast_torch.loop.pose_graph, "
+            "vins_rgbd_fast_torch.parallel.loop_closer; "
             "bad = [m for m in sys.modules if m.startswith('vins_rgbd_fast_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+# ---------------------------------------------------------------------------
+# loop closure
+# ---------------------------------------------------------------------------
+
+LW, LH, LMAX_CNT, LFRAMES = 320, 240, 64, 112
+
+
+def _pnp_draws(index, n):  # the draws JAX's PoseGraph makes for keyframe ``index``
+    return jax_ransac_uniforms(jax.random.PRNGKey(index), 32, n)
+
+
+def test_loop_pipeline_eager_matches_jax_pose_graph():
+    """The inline pose graph: the port's keyframe stream and relocalization
+    feedback, replayed into JAX's ``PoseGraph``, give the same loops."""
+    rig, _, _, _ = chip_smoke.slice_config(LW, LH, LMAX_CNT)
+    seq = chip_smoke.revisit_scene(rig, LFRAMES)
+    ts, imgs, deps = tsyn.render_sequence(seq, rig, "cpu")
+    cfg, pg_cfg = chip_smoke.loop_config(rig, seq, LMAX_CNT, max_kp=128)
+    # the LM's padding floors only fix compiled shapes in JAX: the least ones here
+    pg_cfg = dataclasses.replace(pg_cfg, pad_nodes_min=8, pad_edges_min=8)
+    pipe = _envelope(TPipeline(cfg, "cpu", fused_steady_state=True, pose_graph_config=pg_cfg,
+                               pnp_uniforms=_pnp_draws))
+    g = pipe.pose_graph
+    calls = []
+    add, update = g.add_keyframe, g.update_keyframe_loop
+
+    def rec_add(img, t, P, Q, wp_world, wp_uv, wp_norm, wp_valid, depth=None):
+        calls.append(("add", (tn(img), t, np.array(P), np.array(Q), np.array(wp_world),
+                              np.array(wp_uv), np.array(wp_norm), np.array(wp_valid)),
+                      tn(depth)))
+        return add(img, t, P, Q, wp_world, wp_uv, wp_norm, wp_valid, depth=depth)
+
+    def rec_update(*args):
+        calls.append(("update", args, None))
+        return update(*args)
+
+    g.add_keyframe, g.update_keyframe_loop = rec_add, rec_update
+    flags, _ = _drive(pipe, seq, ts, tn(imgs), tn(deps), 0, LFRAMES)
+    assert flags[16] == tes.VinsEstimator.NON_LINEAR
+    assert len(g.loops) >= 1 and any(c[0] == "update" for c in calls)
+    jg = jpg.PoseGraph(jpg.PoseGraphConfig(**dataclasses.asdict(pg_cfg)),
+                       make_camera("PINHOLE", fx=rig.fx, fy=rig.fy, cx=rig.cx, cy=rig.cy,
+                                   k1=rig.k1, k2=rig.k2, p1=rig.p1, p2=rig.p2, width=LW,
+                                   height=LH), seq.ric, seq.tic)
+    for kind, args, depth in calls:
+        if kind == "add":
+            jg.add_keyframe(np.asarray(args[0], np.float32), *args[1:],
+                            depth=jnp.asarray(depth, jnp.float32))
+        else:
+            jg.update_keyframe_loop(*args)
+    assert ([(lp["cur"], lp["old"], lp["n_inliers"]) for lp in g.loops]
+            == [(lp["cur"], lp["old"], lp["n_inliers"]) for lp in jg.loops])
+    for a, b in zip(g.loops, jg.loops):
+        np.testing.assert_allclose(a["rel_t"], b["rel_t"], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(np.stack([p[1] for p in g.path()]),
+                               np.stack([p[1] for p in jg.path()]), rtol=0, atol=1e-3)
+    assert len(pipe.corrected_trajectory()) == len(g.keyframes)
+    pipe.close()
+
+
+def test_loop_pipeline_async_on_the_worker():
+    """Phase 9 of ``chip_smoke.py`` on the CPU at 320×240: the pose graph on
+    the stager's worker finds loops, and the corrected keyframes beat the
+    drifted ones."""
+    res = chip_smoke.run_loop_path("cpu", LFRAMES, W=LW, H=LH, max_cnt=LMAX_CNT, max_kp=128)
+    chip_smoke.check_loop_path(res, on_gpu=False)
+    assert res["kf_timed"] >= 10 and sum(res["worker_s"].values()) > 0
+
+
+def test_stager_failure_surfaces_at_drain(stream):
+    seq, ts, imgs, deps, tcfg = stream
+    pipe = _envelope(TPipeline(dataclasses.replace(tcfg, loop_closure=True), "cpu",
+                               eager_outputs=False, fused_steady_state=True))
+
+    def boom(*args):
+        raise RuntimeError("worker failed")
+
+    pipe._loop_stager._process = boom
+    for (t, a, g) in seq.imu:
+        pipe.push_imu(t, a, g)
+    for k in range(14):
+        pipe.push_image(ts[k], imgs[k])
+        pipe.push_depth(ts[k], deps[k])
+        pipe.spin_once()
+    assert pipe._fused_step > 0
+    with pytest.raises(RuntimeError, match="worker failed"):
+        pipe.drain()
+    pipe.drain()  # reported once
+    pipe.close()
+    assert not pipe._loop_stager._worker.is_alive()

@@ -11,7 +11,8 @@ per-sequence ``torch.where`` picks — no host synchronisation.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+import threading
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,6 +57,11 @@ class StepOutput(NamedTuple):
     n_features: torch.Tensor
     n_dynamic: torch.Tensor
     last_track_num: torch.Tensor
+    relo_P: torch.Tensor  # (B, 3) optimized relocalization pose (zeros if unused)
+    relo_Q: torch.Tensor
+    relo_used: torch.Tensor  # (B,) bool
+    relo_cur_P: torch.Tensor  # (B, 3) slot W-1 after the solve (the relocalized keyframe)
+    relo_cur_Q: torch.Tensor
     wp_world: torch.Tensor  # (B, MAXF, 3) newest frame's landmarks, pre-slide
     wp_uv: torch.Tensor
     wp_norm: torch.Tensor
@@ -250,16 +256,20 @@ def fill_step(cfg: EstimatorConfig, st: EstimatorState, frame_idx: int,
     return st._replace(table=table), is_kf
 
 
-def _solve_and_slide(cfg: EstimatorConfig, st: EstimatorState, is_kf, last_track_num
-                     ) -> Tuple[EstimatorState, StepOutput]:
-    """Triangulate → solve → write back → checks → marginalize → slide."""
+def _solve_and_slide(cfg: EstimatorConfig, st: EstimatorState, is_kf, last_track_num,
+                     relo: Optional[slv.ReloData] = None) -> Tuple[EstimatorState, StepOutput]:
+    """Triangulate → solve → write back → checks → marginalize → slide.
+    ``relo`` is bound to the current table rows by feature id first."""
     g = _gravity(cfg, st.x.P)
     st = st._replace(table=ftab.triangulate_with_depth(
         st.table, st.x.P, st.x.Q, st.x.tic, st.x.qic, cfg.depth_min_dist, cfg.depth_max_dist))
     vis = _visual_data(cfg, st.table)
     imu_data = _make_preints(cfg, st)
     sqrt_infos = imupre.sqrt_information(imu_data.pre)
-    res = slv.solve(cfg.solver, st.x, vis, imu_data, st.prior, g, sqrt_infos=sqrt_infos)
+    if relo is not None:
+        relo = slv.remap_relo_by_id(relo, st.table.ids)
+    res = slv.solve(cfg.solver, st.x, vis, imu_data, st.prior, g, sqrt_infos=sqrt_infos,
+                    relo=relo)
     x_new = res.x
     table = ftab.update_depths_from_solver(st.table, res.inv_depth, vis.depth_free)
     table = _moving_consistency(cfg, x_new, table)
@@ -276,12 +286,19 @@ def _solve_and_slide(cfg: EstimatorConfig, st: EstimatorState, is_kf, last_track
 
     wp_world, wp_uv, wp_norm, wp_valid, wp_ids = _window_points(st.x, st.table)
     W = WINDOW_SIZE
+    B = x_new.P.shape[0]
     out = StepOutput(
         P=x_new.P[:, W], Q=x_new.Q[:, W], V=x_new.V[:, W], Ba=x_new.Ba[:, W],
         Bg=x_new.Bg[:, W], is_keyframe=is_kf, failure=failure, cost=res.cost,
         n_features=torch.sum(vis.valid, dim=1), n_dynamic=torch.sum(st.table.is_dynamic, dim=1),
-        last_track_num=last_track_num, wp_world=wp_world, wp_uv=wp_uv, wp_norm=wp_norm,
-        wp_valid=wp_valid, wp_ids=wp_ids)
+        last_track_num=last_track_num,
+        relo_P=res.relo_P if res.relo_P is not None else torch.zeros_like(x_new.P[:, W]),
+        relo_Q=(res.relo_Q if res.relo_Q is not None
+                else quat.q_identity(x_new.Q.dtype, x_new.Q.device).expand(B, 4)),
+        relo_used=(relo.active if (cfg.fast_relo and relo is not None)
+                   else torch.zeros_like(is_kf, dtype=torch.bool)),
+        relo_cur_P=x_new.P[:, W - 1], relo_cur_Q=x_new.Q[:, W - 1],
+        wp_world=wp_world, wp_uv=wp_uv, wp_norm=wp_norm, wp_valid=wp_valid, wp_ids=wp_ids)
     st = st._replace(last_P=x_new.P[:, W], last_Q=x_new.Q[:, W])
     return _slide(cfg, st, is_kf), out
 
@@ -302,14 +319,28 @@ def init_full(cfg: EstimatorConfig, st: EstimatorState) -> Tuple[EstimatorState,
 
 
 def vio_step(cfg: EstimatorConfig, st: EstimatorState, feats: FrameFeatures,
-             imu: ImuInterval) -> Tuple[EstimatorState, StepOutput]:
-    """Steady-state per-frame program (the newest slot is WINDOW_SIZE)."""
+             imu: ImuInterval, relo: Optional[slv.ReloData] = None
+             ) -> Tuple[EstimatorState, StepOutput]:
+    """Steady-state per-frame program (the newest slot is WINDOW_SIZE);
+    ``relo`` is the relocalization constraint (``fast_relo``)."""
     j = WINDOW_SIZE
     st = _store_interval(st, j, imu)
     st = st._replace(x=_propagate_newest(cfg, st, j))
     table, is_kf, ltn = ftab.ingest_frame(st.table, j, feats, st.x.td,
                                           cfg.depth_min_dist, cfg.min_parallax)
-    return _solve_and_slide(cfg, st._replace(table=table), is_kf, ltn)
+    return _solve_and_slide(cfg, st._replace(table=table), is_kf, ltn, relo)
+
+
+def relo_to_device(relo: dict, device, dtype=torch.float32) -> slv.ReloData:
+    """An active (B = 1) ``ReloData`` from the host arrays of
+    ``VinsEstimator.set_relo_frame`` (a synchronous upload)."""
+    def put(a, dt):
+        return torch.as_tensor(a, dtype=dt).to(device)[None]
+    return slv.ReloData(active=torch.ones((1,), dtype=torch.bool, device=device),
+                        match_pts=put(relo["match_pts"], dtype),
+                        match_valid=put(relo["match_valid"], torch.bool),
+                        match_ids=put(relo["match_ids"], torch.int32),
+                        P=put(relo["P"], dtype), Q=put(relo["Q"], dtype))
 
 
 class ImuIntervalBuffer:
@@ -367,11 +398,12 @@ class VinsEstimator:
     the batched state at B = 1.
 
     Only static initialization is ported: a config that asks for dynamic
-    or monocular initialization, td or extrinsic estimation or
-    relocalization raises ``NotImplementedError`` here, at construction
-    (``EstimatorConfig.from_vins``).  With ``eager_outputs=False`` nothing
-    is read back on a steady frame except the failure check, every
-    ``failure_check_interval`` frames."""
+    or monocular initialization or td or extrinsic estimation raises
+    ``NotImplementedError`` here, at construction (``EstimatorConfig.
+    from_vins``).  With ``eager_outputs=False`` nothing is read back on a
+    steady frame except the failure check, every ``failure_check_interval``
+    frames.  ``set_relo_frame`` (from any thread) queues a relocalization
+    constraint as host arrays; the next steady step takes it."""
 
     INITIAL = 0
     NON_LINEAR = 1
@@ -388,6 +420,8 @@ class VinsEstimator:
         self.prev_time = None
         self._pending: list = []  # (t, StepOutput on the device)
         self._latest_base = None
+        self._relo_lock = threading.Lock()
+        self._pending_relo: Optional[dict] = None  # host arrays of set_relo_frame
         self.reset()
 
     def reset(self):
@@ -438,7 +472,12 @@ class VinsEstimator:
             else:
                 self.frame_count += 1
         else:
-            self.state, step_out = vio_step(cfg, self.state, feats, imu)
+            relo = None
+            if cfg.fast_relo:
+                pend = self.take_relo()
+                relo = (slv.empty_relo(1, cfg.maxf, self.device, self.dtype) if pend is None
+                        else relo_to_device(pend, self.device, self.dtype))
+            self.state, step_out = vio_step(cfg, self.state, feats, imu, relo)
             self.headers = self.headers[1:] + [t]
             if self._step % self.failure_check_interval == 0 and bool(step_out.failure[0]):
                 self.reset()
@@ -500,6 +539,24 @@ class VinsEstimator:
             t_prev = ts
         return dict(t=t_prev, P=P, Q=Q, V=V)
 
+    def set_relo_frame(self, match_pts, match_valid, match_ids, P_old, Q_old):
+        """Queue a relocalization constraint for the next solve: the matched
+        old-keyframe observations (MAXF, 2), their mask, the FEATURE IDS of
+        the window points they match (``StepOutput.wp_ids`` of the keyframe)
+        and the old keyframe's pose."""
+        relo = dict(match_pts=np.asarray(match_pts, np.float32),
+                    match_valid=np.asarray(match_valid, bool),
+                    match_ids=np.asarray(match_ids, np.int32),
+                    P=np.asarray(P_old, np.float32), Q=np.asarray(Q_old, np.float32))
+        with self._relo_lock:
+            self._pending_relo = relo
+
+    def take_relo(self) -> Optional[dict]:
+        """The queued constraint (host arrays), or None; clears the queue."""
+        with self._relo_lock:
+            relo, self._pending_relo = self._pending_relo, None
+        return relo
+
     def _emit(self, step_out: StepOutput, t: float):
         self._pending.append((t, step_out))
         if self.eager_outputs:
@@ -511,7 +568,9 @@ class VinsEstimator:
         h = StepOutput(*[f[0].detach().cpu().numpy() for f in step_out])
         return dict(t=t, P=h.P, Q=h.Q, V=h.V, Ba=h.Ba, Bg=h.Bg,
                     is_keyframe=bool(h.is_keyframe), cost=float(h.cost),
-                    n_features=int(h.n_features), wp_world=h.wp_world, wp_uv=h.wp_uv,
+                    n_features=int(h.n_features), relo_P=h.relo_P, relo_Q=h.relo_Q,
+                    relo_used=bool(h.relo_used), relo_cur_P=h.relo_cur_P,
+                    relo_cur_Q=h.relo_cur_Q, wp_world=h.wp_world, wp_uv=h.wp_uv,
                     wp_norm=h.wp_norm, wp_valid=h.wp_valid, wp_ids=h.wp_ids)
 
     @property

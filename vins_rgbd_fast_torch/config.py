@@ -69,6 +69,7 @@ class TrackerConfig:
 class SolverConfig:
     maxf: int
     max_iters: int = 8
+    with_relo: bool = False  # append the relocalization pose block
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,16 +87,16 @@ class EstimatorConfig:
     gyr_w: float = 0.0001
     tr_over_row: float = 0.0
     max_iters: int = 8
+    fast_relo: bool = False  # relocalization factors in the window solve
 
     @classmethod
     def from_vins(cls, vcfg) -> "EstimatorConfig":
         """Mirror of the JAX ``EstimatorConfig.from_vins`` for the ported
-        slice (IMU on, static init, no td/extrinsic estimation, no relo)."""
+        slices (IMU on, static init, no td/extrinsic estimation)."""
         if not (vcfg.imu and vcfg.static_init) or vcfg.estimate_td \
-                or vcfg.estimate_extrinsic or vcfg.fast_relocalization:
+                or vcfg.estimate_extrinsic:
             raise NotImplementedError(
-                "the port runs IMU + static init without td/extrinsic "
-                "estimation or relocalization")
+                "the port runs IMU + static init without td/extrinsic estimation")
         return cls(
             maxf=vcfg.feature_capacity, max_imu=vcfg.max_imu_per_frame,
             fix_depth=vcfg.fix_depth, depth_min_dist=vcfg.depth_min_dist,
@@ -106,11 +107,12 @@ class EstimatorConfig:
             tr_over_row=(vcfg.rolling_shutter_tr / vcfg.image_height
                          if vcfg.rolling_shutter else 0.0),
             max_iters=vcfg.max_num_iterations,
+            fast_relo=vcfg.fast_relocalization,
         )
 
     @property
     def solver(self) -> SolverConfig:
-        return SolverConfig(maxf=self.maxf, max_iters=self.max_iters)
+        return SolverConfig(maxf=self.maxf, max_iters=self.max_iters, with_relo=self.fast_relo)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,6 +157,8 @@ class VinsConfig:
     rolling_shutter_tr: float = 0.0
     loop_closure: bool = False
     fast_relocalization: bool = False
+    skip_dis: float = 0.0  # pose graph: min travel between admitted keyframes
+    skip_cnt: int = 0      # pose graph: admit every skip_cnt-th keyframe
     focal_length: float = 460.0
     max_features: int = 0  # 0 -> derived from max_cnt
     max_imu_per_frame: int = 32
@@ -282,6 +286,8 @@ def load_config(path: str) -> VinsConfig:
         fast_threshold=int(get("fast_threshold", 20)),
         loop_closure=bool(get("loop_closure", 0)),
         fast_relocalization=bool(get("fast_relocalization", 0)),
+        skip_dis=float(get("skip_dis", 0.0)),
+        skip_cnt=int(get("skip_cnt", 0)),
     )
     for keys in (("fx", "fy", "cx", "cy"), ("mu", "mv", "u0", "v0"),
                  ("gamma1", "gamma2", "u0", "v0")):

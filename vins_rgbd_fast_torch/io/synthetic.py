@@ -1,6 +1,6 @@
 """Synthetic RGB-D + IMU sequences (twin of ``make_trajectory``,
-``camera_pose`` and the renderer ``_render_core`` in
-``vins_rgbd_fast_tpu/io/synthetic.py``).
+``make_revisit_trajectory``, ``corrupt_imu``, ``camera_pose`` and the
+renderer ``_render_core`` in ``vins_rgbd_fast_tpu/io/synthetic.py``).
 
 Trajectories and IMU samples are closed forms in float64 numpy; frames are
 rendered on the device in batches (rays × the six textured planes of the
@@ -125,6 +125,68 @@ def make_trajectory(n_frames: int, rig: SyntheticRig = SyntheticRig(), seed: int
     tic = np.array([0.05, 0.02, 0.01])
     return SyntheticSequence(times=np.asarray(times), P=np.stack(P), Q=np.stack(Q),
                              V=np.stack(V), imu=imu, ric=ric, tic=tic)
+
+
+def make_revisit_trajectory(n_frames: int, rig: SyntheticRig = SyntheticRig(), seed: int = 0,
+                            accel: float = 1.6, axis=(1.0, 0.0, 0.0), cycles: int = 1,
+                            tic=(0.0, 0.0, 0.0)) -> SyntheticSequence:
+    """Oscillating out-and-back path that re-observes earlier regions (the
+    loop-closure scene): bang-bang world acceleration along ``axis``, four
+    equal quarters (+A, −A, −A, +A) per cycle, zero body rotation."""
+    rng = np.random.default_rng(seed)
+    T_per = 1.0 / rig.frame_rate
+    n_sub = max(int(round(rig.imu_rate / rig.frame_rate)), 1)
+    ax = np.asarray(axis, np.float64)
+    ax = ax / max(np.linalg.norm(ax), 1e-9)
+    A = accel * (0.85 + 0.3 * rng.random())  # per-seed amplitude variation
+    q = max(n_frames // (4 * cycles), 1)
+    P = [np.zeros(3)]
+    Q = [np.array([1.0, 0, 0, 0])]
+    V = [np.zeros(3)]
+    times = [0.0]
+    imu = [(0.0, G.copy(), np.zeros(3))]
+    for k in range(n_frames - 1):
+        a_w = (1.0, -1.0, -1.0, 1.0)[(k // q) % 4] * A * ax
+        P0, V0, t0 = P[-1], V[-1], times[-1]
+        for s in range(1, n_sub + 1):
+            imu.append((t0 + T_per * s / n_sub, a_w + G, np.zeros(3)))
+        P.append(P0 + V0 * T_per + 0.5 * a_w * T_per ** 2)
+        V.append(V0 + a_w * T_per)
+        Q.append(Q[-1].copy())
+        times.append(t0 + T_per)
+    return SyntheticSequence(times=np.asarray(times), P=np.stack(P), Q=np.stack(Q),
+                             V=np.stack(V), imu=imu,
+                             ric=np.array([[0.0, 0, 1], [-1, 0, 0], [0, -1, 0]]),
+                             tic=np.asarray(tic, np.float64))
+
+
+def corrupt_imu(seq: SyntheticSequence, seed: int = 0, gyr_noise: float = 0.0,
+                acc_noise: float = 0.0, gyr_bias_ramp: float = 0.0, acc_bias: float = 0.0,
+                gyr_pulse: float = 0.0, pulse_frac=(0.25, 0.4),
+                pulse_axis=(0.0, 0.0, 1.0)) -> SyntheticSequence:
+    """``seq`` with corrupted IMU samples (poses unchanged): white noise, a
+    ramping gyro bias, a constant accelerometer bias, and a gyro pulse about
+    ``pulse_axis`` during the ``pulse_frac`` part of the sequence (the yaw
+    drift that loop closure removes)."""
+    rng = np.random.default_rng((seed, 77))
+    t_end = max(float(seq.imu[-1][0]), 1e-9)
+    gdir = rng.normal(size=3)
+    gdir /= np.linalg.norm(gdir)
+    adir = rng.normal(size=3)
+    adir /= np.linalg.norm(adir)
+    ab = acc_bias * adir
+    pdir = np.asarray(pulse_axis, np.float64)
+    pdir /= max(np.linalg.norm(pdir), 1e-9)
+    p0, p1 = pulse_frac[0] * t_end, pulse_frac[1] * t_end
+    out = []
+    for (t, acc, gyr) in seq.imu:
+        gn = gyr_noise * rng.normal(size=3) if gyr_noise else 0.0
+        an = acc_noise * rng.normal(size=3) if acc_noise else 0.0
+        gb = (gyr_bias_ramp * (t / t_end)) * gdir
+        if gyr_pulse and p0 <= t < p1:
+            gb = gb + gyr_pulse * pdir
+        out.append((t, np.asarray(acc) + an + ab, np.asarray(gyr) + gn + gb))
+    return seq._replace(imu=out)
 
 
 def camera_pose(seq: SyntheticSequence, k: int):

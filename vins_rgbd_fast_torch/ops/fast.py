@@ -13,6 +13,7 @@ to ``ring_differences`` and ``arc_terms`` here.
 
 from __future__ import annotations
 
+import threading
 from typing import Tuple
 
 import torch
@@ -28,6 +29,7 @@ FAST_OFFSETS = (
 ARC_LEN = 9
 
 launches = 0  # K1 launches (the CUDA path only)
+_count_lock = threading.Lock()  # the tracker and the loop-closure worker both launch K1
 
 
 def ring_differences(f: torch.Tensor) -> torch.Tensor:
@@ -93,7 +95,8 @@ def fast_nms(img: torch.Tensor, threshold: float = 10.0) -> torch.Tensor:
     native.check(native.lib().fast_nms_launch(
         img.data_ptr(), out.data_ptr(), B, H, W, float(threshold), stream),
         "fast_nms")
-    launches += 1
+    with _count_lock:
+        launches += 1
     return out
 
 

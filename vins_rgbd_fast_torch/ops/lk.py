@@ -34,6 +34,7 @@ Level semantics (shared by every version):
 
 from __future__ import annotations
 
+import threading
 from typing import List, NamedTuple
 
 import torch
@@ -42,6 +43,7 @@ from .. import native
 
 level_launches = 0    # K2 launches (the CUDA path only)
 iterate_launches = 0  # K3 launches (the CUDA path only)
+_count_lock = threading.Lock()  # launches may come from more than one thread
 K2_WIN = 21           # K2's and K3's compile-time patch side (both pipelines run 21)
 MAX_WIN = 48          # the largest search window K2 and K3 take
 K3_WARPS = 4          # K3's warps per point (``K3_WARPS`` of csrc/lk_level.cu)
@@ -93,6 +95,26 @@ def _gather_tiles(img, y0, x0, rows: int, cols: int, pad: int):
     c = torch.clamp(x0[..., None] + torch.arange(cols, device=img.device) - pad, 0, W - 1)
     flat = (r[..., :, None] * W + c[..., None, :]).reshape(B, -1).to(torch.int64)
     return img.reshape(B, H * W).gather(1, flat).reshape(*y0.shape, rows, cols)
+
+
+def batched_subpix_patches(img_padded: torch.Tensor, pts: torch.Tensor, size: int,
+                           pad: int) -> torch.Tensor:
+    """(N, size, size) bilinear patches centred at ``pts`` (N, 2) of an
+    image already padded by ``pad`` (twin of ``_batched_subpix_patches``):
+    the patch origin is clamped into the padded image, then the rows and
+    the columns are blended in that order, as the JAX row-strip and
+    column-selector formulation does (a selector column holds two weights)."""
+    Hp, Wp = img_padded.shape
+    half = (size - 1) // 2
+    base = torch.floor(pts)
+    fx = (pts[:, 0] - base[:, 0])[:, None, None]
+    fy = (pts[:, 1] - base[:, 1])[:, None, None]
+    x0 = torch.clamp(base[:, 0].to(torch.int64) + (pad - half), 0, Wp - size - 1)
+    y0 = torch.clamp(base[:, 1].to(torch.int64) + (pad - half), 0, Hp - size - 1)
+    offs = torch.arange(size + 1, device=pts.device)
+    E = img_padded[(y0[:, None] + offs)[:, :, None], (x0[:, None] + offs)[:, None, :]]
+    Ey = E[:, :-1, :] * (1.0 - fy) + E[:, 1:, :] * fy
+    return Ey[:, :, :-1] * (1.0 - fx) + Ey[:, :, 1:] * fx
 
 
 def level_patches(prev, cur, pts_l, ax, ay, win: int, search_margin: int,
@@ -233,7 +255,8 @@ def _lk_level_cuda(prev, cur, pts_l, flow, active, ax, ay, win, search_margin,
         active.data_ptr(), ax.data_ptr(), ay.data_ptr(), u.data_ptr(),
         ok.data_ptr(), err.data_ptr(), B, N, H, W, win, search_margin, iters,
         float(eps) * float(eps), float(min_eig), stream), "lk_level")
-    level_launches += 1
+    with _count_lock:
+        level_launches += 1
     return u, ok, err
 
 
@@ -261,7 +284,8 @@ def _lk_iterate_cuda(tmpl, Ix, Iy, win_img, px, py, u0, done0, inv_det, Gxx, Gxy
         py.data_ptr(), u0.data_ptr(), done0.data_ptr(), inv_det.data_ptr(), Gxx.data_ptr(),
         Gxy.data_ptr(), Gyy.data_ptr(), u.data_ptr(), err.data_ptr(), B, N, win, WIN,
         iters, float(eps) * float(eps), stream), "lk_iterate")
-    iterate_launches += 1
+    with _count_lock:
+        iterate_launches += 1
     return u, err
 
 

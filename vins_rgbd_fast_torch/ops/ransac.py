@@ -1,5 +1,7 @@
-"""Fixed-trial fundamental-matrix RANSAC over a batch of sequences (twin of
-``fundamental_ransac`` in ``vins_rgbd_fast_tpu/ops/ransac.py``).
+"""Fixed-trial RANSAC: the fundamental matrix over a batch of sequences and
+PnP from a pose guess over a batch of loop candidates (twins of
+``fundamental_ransac`` and ``pnp_ransac_guess`` in
+``vins_rgbd_fast_tpu/ops/ransac.py``).
 
 The random numbers are an input: ``u`` holds one uniform per (trial,
 point); trial k takes the 8 points of smallest ``u + 10·~valid``.  The JAX
@@ -15,6 +17,8 @@ import math
 from typing import NamedTuple
 
 import torch
+
+from ..utils import quaternion as quat
 
 
 class RansacResult(NamedTuple):
@@ -136,3 +140,120 @@ def draw_uniforms(generators, n_trials: int, n: int, device,
     """(B, n_trials, n) uniforms, one ``torch.Generator`` per sequence."""
     return torch.stack([torch.rand((n_trials, n), generator=g, device=device, dtype=dtype)
                         for g in generators])
+
+
+# ---------------------------------------------------------------------------
+# PnP from an initial guess (twin of ``_pnp_gn``/``pnp_ransac_guess``), the
+# geometric verification of loop closure
+# ---------------------------------------------------------------------------
+
+class PnPResult(NamedTuple):
+    inliers: torch.Tensor    # (C, N) bool
+    model: torch.Tensor      # (C, 3, 4) [R | t], world -> camera
+    n_inliers: torch.Tensor  # (C,)
+    ok: torch.Tensor         # (C,) bool
+
+
+def random_subsets(u: torch.Tensor, valid: torch.Tensor, k: int) -> torch.Tensor:
+    """(..., T, k) indices: trial t takes the k points of smallest
+    ``u + 10·~valid`` (``u`` (..., T, N) uniforms, ``valid`` (..., N))."""
+    score = u + (~valid).to(u.dtype)[..., None, :] * 10.0
+    return torch.topk(score, k, dim=-1, largest=False, sorted=True).indices
+
+
+def reproj_err_norm(R, t, Pw, uv):
+    """Normalized-plane reprojection error (..., N); 1e6 behind the camera."""
+    pc = Pw @ R.transpose(-1, -2) + t[..., None, :]
+    z = pc[..., 2]
+    z = torch.where(torch.abs(z) > 1e-9, z, torch.full_like(z, 1e-9))
+    e = torch.linalg.norm(pc[..., :2] / z[..., None] - uv, dim=-1)
+    return torch.where(pc[..., 2] <= 0, torch.full_like(e, 1e6), e)
+
+
+def _solve6_nan(H, b):
+    """H⁻¹ b for batched 6×6 systems; NaN where the factorization fails."""
+    x, info = torch.linalg.solve_ex(H, b[..., None])
+    return torch.where((info == 0)[..., None], x[..., 0], torch.nan)
+
+
+PNP_DEPTH_WEIGHT = 0.5  # weight of the relative-depth rows against reprojection
+PNP_REFINE_ITERS = 8    # Gauss-Newton steps per trial and per refit
+
+
+def pnp_gn(Pw, uv, w, R0, t0, iters: int = 10, z_meas=None):
+    """Weighted Gauss-Newton pose refinement (R ← exp(δθ)·R, t ← t + δt),
+    batched over leading axes: Pw (..., N, 3), uv (..., N, 2), w (..., N),
+    R0 (..., 3, 3), t0 (..., 3).  ``z_meas`` (..., N), the measured depths,
+    adds the relative-depth rows ``PNP_DEPTH_WEIGHT·(z − z_m)/z_m``.  The
+    Jacobian is the closed form of JAX's ``jacfwd`` at δ = 0; a non-finite
+    or runaway (‖δ‖ > 1e3) update is dropped."""
+    dtype = Pw.dtype
+    eye6 = torch.eye(6, dtype=dtype, device=Pw.device)
+    eye3 = torch.eye(3, dtype=dtype, device=Pw.device)
+    if z_meas is not None:
+        wz = w * torch.where((z_meas > 0.1) & (z_meas < 100.0),
+                             torch.full_like(z_meas, PNP_DEPTH_WEIGHT), torch.zeros_like(z_meas))
+        z_safe = torch.clamp(z_meas, min=0.1)
+    R, t = R0, t0
+    for _ in range(iters):
+        q = Pw @ R.transpose(-1, -2)                     # (..., N, 3) rotated points
+        pc = q + t[..., None, :]
+        front = torch.abs(pc[..., 2]) > 1e-6
+        z = torch.where(front, pc[..., 2], torch.full_like(pc[..., 2], 1e-6))
+        r = (pc[..., :2] / z[..., None] - uv) * w[..., None]  # (..., N, 2)
+        dz = torch.where(front, 1.0 / (z * z), torch.zeros_like(z))
+        zero = torch.zeros_like(z)
+        dproj = torch.stack([torch.stack([1.0 / z, zero, -pc[..., 0] * dz], -1),
+                             torch.stack([zero, 1.0 / z, -pc[..., 1] * dz], -1)], -2)
+        dpc = torch.cat([-quat.skew(q), eye3.expand(q.shape[:-1] + (3, 3))], -1)  # (..., N, 3, 6)
+        J = (dproj @ dpc) * w[..., None, None]                               # (..., N, 2, 6)
+        H = torch.einsum("...npa,...npb->...ab", J, J)
+        g = torch.einsum("...npa,...np->...a", J, r)
+        if z_meas is not None:
+            rz = (pc[..., 2] - z_meas) / z_safe * wz
+            Jz = dpc[..., 2, :] * (wz / z_safe)[..., None]
+            H = H + torch.einsum("...na,...nb->...ab", Jz, Jz)
+            g = g + torch.einsum("...na,...n->...a", Jz, rz)
+        d = -_solve6_nan(H + 1e-8 * eye6, g)
+        bad = ~torch.isfinite(d).all(-1) | (torch.linalg.norm(d, dim=-1) > 1e3)
+        d = torch.where(bad[..., None], torch.zeros_like(d), d)
+        R = quat.q2R(quat.so3_exp(d[..., 0:3])) @ R
+        t = t + d[..., 3:6]
+    return R, t
+
+
+def pnp_ransac_guess(u: torch.Tensor, Pw, uv, valid, R_init, t_init,
+                     threshold: float = 10.0 / 460.0, min_inliers: int = 10) -> PnPResult:
+    """PnP RANSAC around Gauss-Newton from a pose guess for C problems:
+    ``u`` (C, T, N) uniforms (T trials, each refines on an 8-subset), Pw
+    (C, N, 3) world points, ``uv`` (C, N, 2|3) normalized observations (a
+    third column: measured depths), valid (C, N), R_init (C, 3, 3), t_init
+    (C, 3).  The best trial is re-refined on its inliers, then on its tight
+    (3 px) inliers when there are enough of them; inliers count at
+    ``threshold``."""
+    dtype = Pw.dtype
+    z_meas = uv[..., 2] if uv.shape[-1] == 3 else None
+    uv = uv[..., :2]
+    T = u.shape[-2]
+    idx = random_subsets(u, valid, 8)                                     # (C, T, 8)
+    w = torch.zeros(idx.shape[:-1] + (Pw.shape[-2],), dtype=dtype, device=Pw.device)
+    w = w.scatter(-1, idx, 1.0) * valid[:, None].to(dtype)
+    ex = (lambda a: a[:, None].expand((a.shape[0], T) + a.shape[1:]))
+    R, t = pnp_gn(ex(Pw), ex(uv), w, ex(R_init), ex(t_init), iters=PNP_REFINE_ITERS,
+                  z_meas=None if z_meas is None else ex(z_meas))
+    counts = torch.sum((reproj_err_norm(R, t, ex(Pw), ex(uv)) < threshold) & valid[:, None], -1)
+    best = torch.argmax(counts, dim=-1)
+    ar = torch.arange(Pw.shape[0], device=Pw.device)
+    R, t = R[ar, best], t[ar, best]
+    inl0 = (reproj_err_norm(R, t, Pw, uv) < threshold) & valid
+    R, t = pnp_gn(Pw, uv, inl0.to(dtype), R, t, iters=PNP_REFINE_ITERS, z_meas=z_meas)
+    e = reproj_err_norm(R, t, Pw, uv)
+    inliers = (e < threshold) & valid
+    n_in = torch.sum(inliers, -1)
+    tight = ((e < 3.0 / 460.0) & valid).to(dtype)
+    R2, t2 = pnp_gn(Pw, uv, tight, R, t, iters=4, z_meas=z_meas)
+    use2 = torch.sum(tight, -1) >= min(min_inliers, 12)
+    R = torch.where(use2[:, None, None], R2, R)
+    t = torch.where(use2[:, None], t2, t)
+    return PnPResult(inliers=inliers, model=torch.cat([R, t[..., None]], -1),
+                     n_inliers=n_in, ok=n_in >= min_inliers)

@@ -2,8 +2,10 @@
 the diagonal landmark block (twin of ``solve``/``normal_equations_
 structured`` in ``vins_rgbd_fast_tpu/ops/solver.py``), over B sequences.
 
-Without relocalization factors (the slice runs with ``fast_relo`` off).
-Factorizations that fail give NaN, as ``jnp.linalg.cholesky`` does, so the
+With ``SolverConfig.with_relo`` a relocalization pose block (6 tangent
+dims after the NX window dims, free only while the constraint is active)
+joins the solve, tied to window landmarks by the relo factors of
+``ReloData``.  Factorizations that fail give NaN, as ``jnp.linalg.cholesky`` does, so the
 LM step rejects the non-finite cost instead of raising and synchronising.
 """
 
@@ -18,6 +20,7 @@ from ..backend.state import (EX_OFF, FRAMES, NP, NX, POSE_DIM, SB_DIM, TD_OFF,
                              yaw_gauge_fix)
 from ..backend.feature_table import take_frame
 from ..config import SolverConfig
+from ..utils import quaternion as quat
 from . import factors
 from . import imu_preintegration as imupre
 
@@ -61,11 +64,46 @@ class ImuData(NamedTuple):
     valid: torch.Tensor        # (B, WINDOW_SIZE) bool
 
 
+class ReloData(NamedTuple):
+    """Fast-relocalization constraint: matched old-keyframe observations
+    tie an extra pose (initialised at the old keyframe's) to window
+    landmarks.  Entries are keyed by feature id; ``remap_relo_by_id`` binds
+    them to the rows of the current table."""
+    active: torch.Tensor       # (B,) bool
+    match_pts: torch.Tensor    # (B, MAXF, 2) old-frame normalized observation per entry
+    match_valid: torch.Tensor  # (B, MAXF) bool
+    match_ids: torch.Tensor    # (B, MAXF) int32 feature id, -1 = unused
+    P: torch.Tensor            # (B, 3)
+    Q: torch.Tensor            # (B, 4)
+
+
+def empty_relo(B: int, maxf: int, device, dtype=torch.float32) -> ReloData:
+    """An inactive constraint (what the solve takes when none is pending)."""
+    return ReloData(active=torch.zeros((B,), dtype=torch.bool, device=device),
+                    match_pts=torch.zeros((B, maxf, 2), dtype=dtype, device=device),
+                    match_valid=torch.zeros((B, maxf), dtype=torch.bool, device=device),
+                    match_ids=torch.full((B, maxf), -1, dtype=torch.int32, device=device),
+                    P=torch.zeros((B, 3), dtype=dtype, device=device),
+                    Q=quat.q_identity(dtype, device).expand(B, 4).clone())
+
+
+def remap_relo_by_id(relo: ReloData, table_ids: torch.Tensor) -> ReloData:
+    """Re-key the constraint onto the current table rows (B, MAXF) by
+    feature id, by one equality one-hot; entries whose feature left the
+    table drop out."""
+    E = ((table_ids[:, :, None] == relo.match_ids[:, None, :])
+         & (table_ids >= 0)[:, :, None] & relo.match_valid[:, None, :])
+    valid = torch.any(E, dim=2)
+    return relo._replace(match_pts=E.to(relo.match_pts.dtype) @ relo.match_pts,
+                         match_valid=valid,
+                         match_ids=torch.where(valid, table_ids, torch.full_like(table_ids, -1)))
+
+
 class StructuredSystem(NamedTuple):
-    Hpp: torch.Tensor  # (B, NX, NX)
-    Hpl: torch.Tensor  # (B, NX, MAXF)
+    Hpp: torch.Tensor  # (B, NXP, NXP): NX window dims [+ 6 relo]
+    Hpl: torch.Tensor  # (B, NXP, MAXF)
     dl: torch.Tensor   # (B, MAXF) diagonal of the landmark block
-    gp: torch.Tensor   # (B, NX)
+    gp: torch.Tensor   # (B, NXP)
     gl: torch.Tensor   # (B, MAXF)
 
 
@@ -75,6 +113,8 @@ class SolveResult(NamedTuple):
     cost0: torch.Tensor
     cost: torch.Tensor
     iters_accepted: torch.Tensor
+    relo_P: Optional[torch.Tensor] = None  # the optimized relo pose (with_relo)
+    relo_Q: Optional[torch.Tensor] = None
 
 
 def _proj_grid(x: WindowState, vis: VisualData):
@@ -174,6 +214,85 @@ def _accumulate_proj_s(vis: VisualData, r, Jl, s: StructuredSystem) -> Structure
     return StructuredSystem(Hpp=H, Hpl=Hpl, dl=dl, gp=g, gl=gl)
 
 
+def _relo_grid(x: WindowState, vis: VisualData, relo: ReloData):
+    """One factor per matched feature: its start-frame landmark reprojected
+    into the relo pose (the projection factor with pose j := relo pose, no
+    velocity or row terms).  r (B, M, 2), Jl (B, M, 2, 20)."""
+    B, M = vis.start.shape
+    s = vis.start.to(torch.int64)
+    bidx = torch.arange(B, device=s.device)[:, None]
+    dtype = x.P.dtype
+    one = torch.ones((B, M, 1), dtype=dtype, device=s.device)
+    zero3 = torch.zeros((B, M, 3), dtype=dtype, device=s.device)
+    zero = torch.zeros((B, M), dtype=dtype, device=s.device)
+    td = x.td[:, None].expand(B, M)
+    meas = factors.ProjMeas(pts_i=torch.cat([take_frame(vis.pts, s), one], -1),
+                            pts_j=torch.cat([relo.match_pts, one], -1), vel_i=zero3,
+                            vel_j=zero3, td_i=td, td_j=td, row_i=zero, row_j=zero)
+    r, Jl = factors.projection_factor(
+        x.P[bidx, s], x.Q[bidx, s], relo.P[:, None].expand(B, M, 3),
+        relo.Q[:, None].expand(B, M, 4), x.tic[:, None].expand(B, M, 3),
+        x.qic[:, None].expand(B, M, 4), vis.inv_depth, td, meas)
+    ok = (relo.active[:, None] & vis.valid & take_frame(vis.obs_mask, s)
+          & relo.match_valid)
+    r = torch.where(ok[..., None], r, torch.zeros_like(r))
+    Jl = torch.where(ok[..., None, None], Jl, torch.zeros_like(Jl))
+    w = factors.cauchy_weight(r, CAUCHY_C)
+    return r * w, Jl * w[..., None]
+
+
+def _accumulate_relo_s(vis: VisualData, r, Jl, s: StructuredSystem) -> StructuredSystem:
+    """Normal equations of the relo factors; the relo block sits at NX."""
+    B, M = vis.start.shape
+    dtype = s.Hpp.dtype
+    RO = NX
+    frames = torch.arange(FRAMES, device=vis.start.device)
+    Oi = (vis.start[..., None] == frames).to(dtype)  # (B, M, F)
+    Ji, Jr, Je = Jl[..., 0:6], Jl[..., 6:12], Jl[..., 12:18]
+    Jlam, Jt = Jl[..., 18], Jl[..., 19]
+
+    def blk(A, Bm):
+        return torch.einsum("bfpa,bfpc->bfac", A, Bm)
+
+    eyeF = torch.eye(FRAMES, dtype=dtype, device=Oi.device)
+    H = s.Hpp.clone()
+    diag = torch.einsum("bfa,bfxy->baxy", Oi, blk(Ji, Ji))
+    H[:, :NP, :NP] += torch.einsum("ac,baxy->baxcy", eyeF, diag).reshape(B, NP, NP)
+    Hpr = torch.einsum("bfa,bfxy->baxy", Oi, blk(Ji, Jr)).reshape(B, NP, 6)
+    H[:, :NP, RO:RO + 6] += Hpr
+    H[:, RO:RO + 6, :NP] += Hpr.transpose(1, 2)
+    H[:, RO:RO + 6, RO:RO + 6] += blk(Jr, Jr).sum(dim=1)
+    Hpe = torch.einsum("bfa,bfxy->baxy", Oi, blk(Ji, Je)).reshape(B, NP, 6)
+    H[:, :NP, EX_OFF:EX_OFF + 6] += Hpe
+    H[:, EX_OFF:EX_OFF + 6, :NP] += Hpe.transpose(1, 2)
+    Hre = blk(Jr, Je).sum(dim=1)
+    H[:, RO:RO + 6, EX_OFF:EX_OFF + 6] += Hre
+    H[:, EX_OFF:EX_OFF + 6, RO:RO + 6] += Hre.transpose(1, 2)
+    H[:, EX_OFF:EX_OFF + 6, EX_OFF:EX_OFF + 6] += blk(Je, Je).sum(dim=1)
+    dl = s.dl + torch.einsum("bfp,bfp->bf", Jlam, Jlam)
+    Hpl = s.Hpl.clone()
+    A_i = torch.einsum("bfpx,bfp->bfx", Ji, Jlam)
+    Hpl[:, :NP] += torch.einsum("bfa,bfx->baxf", Oi, A_i).reshape(B, NP, M)
+    Hpl[:, RO:RO + 6] += torch.einsum("bfpx,bfp->bxf", Jr, Jlam)
+    Hpl[:, EX_OFF:EX_OFF + 6] += torch.einsum("bfpx,bfp->bxf", Je, Jlam)
+    Hpl[:, TD_OFF] += torch.einsum("bfp,bfp->bf", Jlam, Jt)
+    H[:, TD_OFF, TD_OFF] += torch.einsum("bfp,bfp->b", Jt, Jt)
+    t_pose = torch.einsum("bfa,bfpx,bfp->bax", Oi, Ji, Jt).reshape(B, NP)
+    H[:, TD_OFF, :NP] += t_pose
+    H[:, :NP, TD_OFF] += t_pose
+    t_relo = torch.einsum("bfpx,bfp->bx", Jr, Jt)
+    H[:, TD_OFF, RO:RO + 6] += t_relo
+    H[:, RO:RO + 6, TD_OFF] += t_relo
+    g = s.gp.clone()
+    g[:, :NP] += torch.einsum("bfa,bfx->bax", Oi,
+                              torch.einsum("bfpx,bfp->bfx", Ji, r)).reshape(B, NP)
+    g[:, RO:RO + 6] += torch.einsum("bfpx,bfp->bx", Jr, r)
+    g[:, EX_OFF:EX_OFF + 6] += torch.einsum("bfpx,bfp->bx", Je, r)
+    g[:, TD_OFF] += torch.einsum("bfp,bfp->b", Jt, r)
+    gl = s.gl + torch.einsum("bfp,bfp->bf", Jlam, r)
+    return StructuredSystem(Hpp=H, Hpl=Hpl, dl=dl, gp=g, gl=gl)
+
+
 def _imu_batch(x: WindowState, imu: ImuData, gravity, sqrt_infos):
     """The WINDOW_SIZE IMU factors: r (B, W, 15), Jl (B, W, 15, 30)."""
     def sl(a, lo):
@@ -216,17 +335,23 @@ def free_mask(vis: VisualData, dtype) -> torch.Tensor:
 
 def normal_equations_structured(x: WindowState, vis: VisualData,
                                 imu: Optional[ImuData], prior: PriorFactor, gravity,
-                                sqrt_infos=None) -> Tuple[StructuredSystem, torch.Tensor]:
-    """Assemble the Schur-form normal equations; returns (system, cost)."""
+                                sqrt_infos=None, relo: Optional[ReloData] = None
+                                ) -> Tuple[StructuredSystem, torch.Tensor]:
+    """Assemble the Schur-form normal equations (with the relo block when
+    ``relo`` is given); returns (system, cost)."""
     B, M = vis.start.shape
     dtype = x.P.dtype
     dev = x.P.device
+    nxp = NX + (6 if relo is not None else 0)
     rp = _prior_residual(x, prior)
     Jp = prior.J * prior.valid.to(dtype)[:, None, None]
+    Hpp = torch.zeros((B, nxp, nxp), dtype=dtype, device=dev)
+    Hpp[:, :NX, :NX] = Jp.transpose(1, 2) @ Jp
+    gp = torch.zeros((B, nxp), dtype=dtype, device=dev)
+    gp[:, :NX] = (Jp.transpose(1, 2) @ rp[..., None])[..., 0]
     s = StructuredSystem(
-        Hpp=Jp.transpose(1, 2) @ Jp, Hpl=torch.zeros((B, NX, M), dtype=dtype, device=dev),
-        dl=torch.zeros((B, M), dtype=dtype, device=dev),
-        gp=(Jp.transpose(1, 2) @ rp[..., None])[..., 0],
+        Hpp=Hpp, Hpl=torch.zeros((B, nxp, M), dtype=dtype, device=dev),
+        dl=torch.zeros((B, M), dtype=dtype, device=dev), gp=gp,
         gl=torch.zeros((B, M), dtype=dtype, device=dev))
     cost = torch.sum(rp * rp, dim=1)
 
@@ -234,13 +359,21 @@ def normal_equations_structured(x: WindowState, vis: VisualData,
     s = _accumulate_proj_s(vis, r_proj, Jl_proj, s)
     cost = cost + torch.sum(r_proj * r_proj, dim=(1, 2, 3))
 
+    if relo is not None:
+        r_rl, Jl_rl = _relo_grid(x, vis, relo)
+        s = _accumulate_relo_s(vis, r_rl, Jl_rl, s)
+        cost = cost + torch.sum(r_rl * r_rl, dim=(1, 2))
+
     if imu is not None:
         if sqrt_infos is None:
             sqrt_infos = imupre.sqrt_information(imu.pre)
         r_imu, Jl_imu = _imu_batch(x, imu, gravity, sqrt_infos)
         R = _imu_rows(Jl_imu)
-        s = s._replace(Hpp=s.Hpp + R.transpose(1, 2) @ R,
-                       gp=s.gp + (R.transpose(1, 2) @ r_imu.reshape(B, -1, 1))[..., 0])
+        Hpp = s.Hpp.clone()
+        Hpp[:, :NX, :NX] += R.transpose(1, 2) @ R
+        gp = s.gp.clone()
+        gp[:, :NX] += (R.transpose(1, 2) @ r_imu.reshape(B, -1, 1))[..., 0]
+        s = s._replace(Hpp=Hpp, gp=gp)
         cost = cost + torch.sum(r_imu * r_imu, dim=(1, 2))
     return s, 0.5 * cost
 
@@ -259,16 +392,27 @@ def cho_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def solve(cfg: SolverConfig, x0: WindowState, vis: VisualData, imu: Optional[ImuData],
-          prior: PriorFactor, gravity, sqrt_infos=None) -> SolveResult:
+          prior: PriorFactor, gravity, sqrt_infos=None,
+          relo: Optional[ReloData] = None) -> SolveResult:
     """Damped Gauss-Newton with delayed accept/reject, ``max_iters`` scored
-    candidates (one assembly per iteration), dense Schur, yaw re-anchoring."""
+    candidates (one assembly per iteration), dense Schur, yaw re-anchoring.
+    With ``cfg.with_relo`` the relo pose is optimized alongside (an
+    inactive ``relo`` when none is given), free only where it is active."""
     dtype = x0.P.dtype
     B, M = vis.start.shape
+    dev = x0.P.device
     fm = free_mask(vis, dtype)
     fmp, fml = fm[:, :NX], fm[:, NX:]
+    if cfg.with_relo:
+        if relo is None:
+            relo = empty_relo(B, M, dev, dtype)
+        fmp = torch.cat([fmp, relo.active.to(dtype)[:, None].expand(B, 6)], dim=1)
+    else:
+        relo = None
+    nxp = fmp.shape[1]
     if imu is not None and sqrt_infos is None:
         sqrt_infos = imupre.sqrt_information(imu.pre)
-    eye = torch.eye(NX, dtype=dtype, device=x0.P.device)
+    eye = torch.eye(nxp, dtype=dtype, device=dev)
 
     def damped_step(s: StructuredSystem, lm):
         Hpp = s.Hpp * fmp[:, None, :] * fmp[:, :, None]
@@ -287,26 +431,29 @@ def solve(cfg: SolverConfig, x0: WindowState, vis: VisualData, imu: Optional[Imu
         dxl = -Dinv * (gl + (Hpl.transpose(1, 2) @ dxp[..., None])[..., 0])
         return dxp * fmp, dxl * fml
 
-    best = (x0, vis.inv_depth)
+    rP0, rQ0 = (relo.P, relo.Q) if relo is not None else (None, None)
+    best = (x0, vis.inv_depth, rP0, rQ0)
     cand = best
-    cost_b = torch.full((B,), torch.inf, dtype=dtype, device=x0.P.device)
-    z = torch.zeros((B, M), dtype=dtype, device=x0.P.device)
-    sys_b = StructuredSystem(Hpp=torch.zeros((B, NX, NX), dtype=dtype, device=z.device),
-                             Hpl=torch.zeros((B, NX, M), dtype=dtype, device=z.device),
-                             dl=z, gp=torch.zeros((B, NX), dtype=dtype, device=z.device),
-                             gl=z)
-    lm = torch.full((B,), LM_LAMBDA0, dtype=dtype, device=x0.P.device)
-    n_acc = torch.zeros((B,), dtype=torch.int64, device=x0.P.device)
+    cost_b = torch.full((B,), torch.inf, dtype=dtype, device=dev)
+    z = torch.zeros((B, M), dtype=dtype, device=dev)
+    sys_b = StructuredSystem(Hpp=torch.zeros((B, nxp, nxp), dtype=dtype, device=dev),
+                             Hpl=torch.zeros((B, nxp, M), dtype=dtype, device=dev),
+                             dl=z, gp=torch.zeros((B, nxp), dtype=dtype, device=dev), gl=z)
+    lm = torch.full((B,), LM_LAMBDA0, dtype=dtype, device=dev)
+    n_acc = torch.zeros((B,), dtype=torch.int64, device=dev)
     cost0 = None
     for it in range(cfg.max_iters + 1):
-        xc, lamc = cand
+        xc, lamc, rPc, rQc = cand
         s_c, cost_c = normal_equations_structured(
-            xc, vis._replace(inv_depth=lamc), imu, prior, gravity, sqrt_infos)
+            xc, vis._replace(inv_depth=lamc), imu, prior, gravity, sqrt_infos,
+            None if relo is None else relo._replace(P=rPc, Q=rQc))
         if cost0 is None:
             cost0 = cost_c
         accept = (cost_c < cost_b) & torch.isfinite(cost_c)
         best = (where_state(accept, xc, best[0]),
-                torch.where(accept[:, None], lamc, best[1]))
+                torch.where(accept[:, None], lamc, best[1]),
+                None if relo is None else torch.where(accept[:, None], rPc, best[2]),
+                None if relo is None else torch.where(accept[:, None], rQc, best[3]))
         sys_b = where_state(accept, s_c, sys_b)
         bootstrap = ~torch.isfinite(cost_b)
         cost_b = torch.where(accept, cost_c, cost_b)
@@ -315,8 +462,10 @@ def solve(cfg: SolverConfig, x0: WindowState, vis: VisualData, imu: Optional[Imu
         if it == cfg.max_iters:
             break  # the last candidate would never be scored
         dxp, dxl = damped_step(sys_b, lm)
-        cand = (boxplus(best[0], dxp), best[1] + dxl)
-    x, lam_vec = best
+        cand = (boxplus(best[0], dxp[:, :NX]), best[1] + dxl,
+                None if relo is None else best[2] + dxp[:, NX:NX + 3],
+                None if relo is None else quat.qboxplus(best[3], dxp[:, NX + 3:NX + 6]))
+    x, lam_vec, rP, rQ = best
     x = yaw_gauge_fix(x, x0)
     return SolveResult(x=x, inv_depth=lam_vec, cost0=cost0, cost=cost_b,
-                       iters_accepted=torch.clamp(n_acc - 1, min=0))
+                       iters_accepted=torch.clamp(n_acc - 1, min=0), relo_P=rP, relo_Q=rQ)

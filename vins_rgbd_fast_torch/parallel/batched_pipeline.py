@@ -69,14 +69,15 @@ def gyro_relative_R(dts, gyr, bg, qic) -> torch.Tensor:
 
 def fused_frame_step(tcfg: TrackerConfig, cam: PinholeCamera, ecfg: EstimatorConfig,
                      trk: ft.TrackerState, st: est.EstimatorState, img, depth, t,
-                     imu: est.ImuInterval, ransac_u):
+                     imu: est.ImuInterval, ransac_u, relo=None):
     """One steady-state frame of B sequences: gyro prediction → tracker →
-    depth lookup → ``vio_step``."""
+    depth lookup → ``vio_step`` (with the relocalization constraint
+    ``relo`` when ``ecfg.fast_relo``)."""
     relR = gyro_relative_R(imu.dts, imu.gyr, st.x.Bg[:, WINDOW_SIZE], st.x.qic)
     trk, tout = ft.track_frame(tcfg, cam, trk, img, t, relR, ransac_u)
     feats = tout.features
     feats = feats._replace(depth=ft.lookup_depth(depth, feats.uv, feats.ids >= 0))
-    st, sout = est.vio_step(ecfg, st, feats, imu)
+    st, sout = est.vio_step(ecfg, st, feats, imu, relo)
     return trk, st, sout
 
 

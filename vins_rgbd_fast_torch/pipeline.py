@@ -9,13 +9,22 @@ the depth lookup and ``VinsEstimator.process_features``.  With
 B = 1 (on-device gyro prediction → tracker → depth lookup → ``vio_step``)
 with one small upload: the timestamp and IMU interval packed into one
 buffer, staged through a ring of pinned host buffers so the copy does not
-wait on the host.  Loop closure is not ported: ``loop_closure=True``
-raises ``NotImplementedError``.
+wait on the host; with fast relocalization the buffer also carries the
+pending relocalization constraint (inactive when none is pending).
+
+With ``loop_closure`` the pipeline owns a ``PoseGraph``.  With
+``eager_outputs`` every keyframe goes to it inline, in the frame's
+``spin_once``; without, steady frames go to an ``AsyncLoopStager``, whose
+worker thread runs the pose graph on a stream of its own (``run`` and
+``drain`` wait for it).  A loop's relocalization constraint comes back
+through ``VinsEstimator.set_relo_frame`` and the solve's refined relo pose
+goes back to the graph (``PoseGraph.update_keyframe_loop``).
 
 RANSAC draws come from one ``torch.Generator`` per pipeline, or from a
 ``ransac_uniforms(fused, index)`` callable (tests inject the JAX draws:
 ``index`` is the frame counter on the unfused path and the fused-step
-counter on the fused one, as JAX keys them).
+counter on the fused one, as JAX keys them); PnP draws likewise from the
+pose graph's generator or ``pnp_uniforms(keyframe index, n)``.
 """
 
 from __future__ import annotations
@@ -29,7 +38,10 @@ from .backend import estimator as est
 from .config import TrackerConfig, VinsConfig
 from .frontend import feature_tracker as ft
 from .io import stream as io_stream
+from .loop.pose_graph import KeyframeGate, PoseGraph, PoseGraphConfig, relo_relative_pose
+from .ops import solver as slv
 from .parallel.batched_pipeline import fused_frame_step
+from .parallel.loop_closer import AsyncLoopStager
 from .utils.timing import StageTimer
 
 _RING = 4  # pinned upload buffers in flight
@@ -41,9 +53,9 @@ class VinsPipeline:
     def __init__(self, vcfg: VinsConfig, device, dtype=torch.float32,
                  eager_outputs: bool = True, failure_check_interval: int = 1,
                  fused_steady_state: bool = False,
-                 ransac_uniforms: Optional[Callable] = None):
-        if vcfg.loop_closure:
-            raise NotImplementedError("loop closure is not ported yet")
+                 ransac_uniforms: Optional[Callable] = None,
+                 pose_graph_config: Optional[PoseGraphConfig] = None,
+                 pnp_uniforms: Optional[Callable] = None):
         if vcfg.equalize or vcfg.fisheye:
             raise NotImplementedError("the port's tracker has no CLAHE and no fisheye mask")
         self.vcfg = vcfg
@@ -74,6 +86,21 @@ class VinsPipeline:
         self._ransac_uniforms = ransac_uniforms
         self._ring: list = []  # (pinned packed buffer, copy-done event)
         self._ring_pos = 0
+
+        # loop closure (the reference's pose-graph nodelet)
+        self.pose_graph: Optional[PoseGraph] = None
+        self._loop_stager: Optional[AsyncLoopStager] = None
+        if vcfg.loop_closure:
+            pg_cfg = pose_graph_config or PoseGraphConfig(max_wp=vcfg.feature_capacity,
+                                                          use_6dof=not vcfg.imu)
+            self.pose_graph = PoseGraph(pg_cfg, self.cam, vcfg.ric_matrix(), vcfg.tic_vector(),
+                                        self.device, dtype, pnp_uniforms=pnp_uniforms)
+            self._kf_gate = KeyframeGate(vcfg.skip_cnt, vcfg.skip_dis)
+            self._relo_sent_kf: Optional[int] = None  # keyframe awaiting its relo result
+            if not eager_outputs:
+                self._loop_stager = AsyncLoopStager(
+                    self.pose_graph, self.estimator, skip_cnt=vcfg.skip_cnt,
+                    skip_dis=vcfg.skip_dis, fast_relocalization=vcfg.fast_relocalization)
 
     # ------------------------------------------------------------------
     def push_imu(self, t: float, acc, gyr):
@@ -139,6 +166,8 @@ class VinsPipeline:
             self._reset_tracker()
             self.estimator.reset()
             self.estimator.prev_time = None
+            if self.pose_graph is not None:
+                self.pose_graph.new_sequence()  # a discontinuity starts a new sequence
 
         t = frame.t
         # the backend needs IMU coverage up to t + td: hold the frame (it is
@@ -151,12 +180,21 @@ class VinsPipeline:
 
         if (self._fused_enabled and frame.publish
                 and self.estimator.solver_flag == est.VinsEstimator.NON_LINEAR):
-            return self._spin_fused(frame)  # gyro prediction on the device
+            img, depth = self._on_device(frame.image), self._on_device(frame.depth)
+            out = self._spin_fused(img, depth, t)  # gyro prediction on the device
+            if self.pose_graph is not None and out is not None:
+                if isinstance(out, dict):
+                    self._consume_relo_result(out)
+                    self._maybe_add_keyframe(out, img[0], depth[0], t)
+                elif self._loop_stager is not None:
+                    self._loop_stager.on_frame(out, img[0], t, depth=depth[0])
+            return out
 
         rel_R = self._predict_relative_R(t_last if t_last else t - 1e-3, t)
         with self.timer.stage("frontend"):
+            img = self._on_device(frame.image)
             self.tracker_state, tout = ft.track_frame(
-                self.tcfg, self.cam, self.tracker_state, self._on_device(frame.image),
+                self.tcfg, self.cam, self.tracker_state, img,
                 self._on_device(t), self._on_device(rel_R),
                 self._uniforms(False, self._frame_idx))
         self._frame_idx += 1
@@ -164,12 +202,16 @@ class VinsPipeline:
             return None
 
         with self.timer.stage("depth_lookup"):
+            depth = self._on_device(frame.depth)
             feats = tout.features
-            feats = feats._replace(depth=ft.lookup_depth(
-                self._on_device(frame.depth), feats.uv, feats.ids >= 0))
+            feats = feats._replace(depth=ft.lookup_depth(depth, feats.uv, feats.ids >= 0))
 
         with self.timer.stage("backend"):
-            return self.estimator.process_features(feats, t)
+            out = self.estimator.process_features(feats, t)
+        if self.pose_graph is not None and isinstance(out, dict):
+            self._consume_relo_result(out)
+            self._maybe_add_keyframe(out, img[0], depth[0], t)
+        return out
 
     # ------------------------------------------------------------------
     def _packed_upload(self, packed: np.ndarray) -> torch.Tensor:
@@ -190,27 +232,54 @@ class VinsPipeline:
         done.record()
         return dev
 
-    def _spin_fused(self, frame):
+    @staticmethod
+    def _pack_relo(relo: Optional[dict], maxf: int) -> np.ndarray:
+        """The relo block of the packed upload: active, P (3), Q (4), the
+        matched points (2·maxf), their mask (maxf) and the feature ids
+        (maxf int32, bit-cast); an inactive constraint when ``relo`` is None."""
+        out = np.zeros(8 + 4 * maxf, np.float32)
+        out[4] = 1.0
+        ids = np.full(maxf, -1, np.int32)
+        if relo is not None:
+            out[0] = 1.0
+            out[1:4], out[4:8] = relo["P"], relo["Q"]
+            out[8:8 + 2 * maxf] = relo["match_pts"].ravel()
+            out[8 + 2 * maxf:8 + 3 * maxf] = relo["match_valid"]
+            ids = relo["match_ids"]
+        out[8 + 3 * maxf:] = ids.view(np.float32)
+        return out
+
+    @staticmethod
+    def _unpack_relo(dev: torch.Tensor, maxf: int) -> slv.ReloData:
+        return slv.ReloData(active=dev[0:1] > 0.5, P=dev[None, 1:4], Q=dev[None, 4:8],
+                            match_pts=dev[8:8 + 2 * maxf].reshape(1, maxf, 2),
+                            match_valid=dev[None, 8 + 2 * maxf:8 + 3 * maxf] > 0.5,
+                            match_ids=dev[8 + 3 * maxf:].view(torch.int32)[None])
+
+    def _spin_fused(self, img: torch.Tensor, depth: torch.Tensor, t: float):
         """A steady frame as ``fused_frame_step`` at B = 1; the bookkeeping
         of ``VinsEstimator.process_features`` (NON_LINEAR arm)."""
         est_ = self.estimator
         maxi = est_.cfg.max_imu
-        t = frame.t
         cur_time = t + est_._td_cache
         dts, acc, gyr = est_._collect_interval_np(
             est_.prev_time if est_.prev_time is not None else cur_time - 1e-3, cur_time)
         est_.prev_time = cur_time
-        packed = np.concatenate([[t], dts, acc.ravel(), gyr.ravel()]).astype(np.float32)
-        dev = self._packed_upload(packed)
+        n_imu = 1 + maxi + 6 * (maxi + 1)
+        parts = [[t], dts, acc.ravel(), gyr.ravel()]
+        if est_.cfg.fast_relo:
+            parts.append(self._pack_relo(est_.take_relo(), est_.cfg.maxf))
+        dev = self._packed_upload(np.concatenate(parts).astype(np.float32))
         imu = est.ImuInterval(dts=dev[None, 1:1 + maxi],
                               acc=dev[1 + maxi:1 + maxi + 3 * (maxi + 1)].reshape(1, maxi + 1, 3),
-                              gyr=dev[1 + maxi + 3 * (maxi + 1):].reshape(1, maxi + 1, 3))
+                              gyr=dev[1 + maxi + 3 * (maxi + 1):n_imu].reshape(1, maxi + 1, 3))
+        relo = self._unpack_relo(dev[n_imu:], est_.cfg.maxf) if est_.cfg.fast_relo else None
         u = self._uniforms(True, self._fused_step)
         self._fused_step += 1
         with self.timer.stage("fused"):
             self.tracker_state, est_.state, step_out = fused_frame_step(
                 self.tcfg, self.cam, est_.cfg, self.tracker_state, est_.state,
-                self._on_device(frame.image), self._on_device(frame.depth), dev[0:1], imu, u)
+                img, depth, dev[0:1], imu, u, relo)
         self._frame_idx += 1
         est_.headers = est_.headers[1:] + [t]
         if est_._step % est_.failure_check_interval == 0 and bool(step_out.failure[0]):
@@ -224,9 +293,46 @@ class VinsPipeline:
         return out
 
     # ------------------------------------------------------------------
+    def _consume_relo_result(self, out: dict):
+        """The solve optimized the relo pose alongside the window: the
+        refined loop-relative pose goes back to the pose graph's drift."""
+        if not out.get("relo_used") or self._relo_sent_kf is None:
+            return
+        kf_index, self._relo_sent_kf = self._relo_sent_kf, None
+        self.pose_graph.update_keyframe_loop(kf_index, *relo_relative_pose(
+            out["relo_P"], out["relo_Q"], out["relo_cur_P"], out["relo_cur_Q"]))
+
+    def _maybe_add_keyframe(self, out: dict, img: torch.Tensor, depth: torch.Tensor, t: float):
+        """Feed a keyframe to the pose graph, gated by ``skip_cnt`` and
+        ``skip_dis``; a loop sends its relocalization constraint."""
+        P = np.asarray(out["P"])
+        if not self._kf_gate.admit(bool(out.get("is_keyframe")), P):
+            return
+        with self.timer.stage("pose_graph"):
+            info = self.pose_graph.add_keyframe(img, t, P, np.asarray(out["Q"]), out["wp_world"],
+                                                out["wp_uv"], out["wp_norm"], out["wp_valid"],
+                                                depth=depth)
+        if info is not None and self.vcfg.fast_relocalization:
+            old = self.pose_graph.keyframes[info["old"]]
+            self.estimator.set_relo_frame(info["matched_old_norm"], info["inlier_mask"],
+                                          np.asarray(out["wp_ids"]), old.P_vio, old.Q_vio)
+            self._relo_sent_kf = info["cur"]
+
     def corrected_trajectory(self) -> list:
-        """Loop-corrected keyframe path; empty (loop closure is not ported)."""
-        return []
+        """Loop-corrected keyframe path (empty without loop closure)."""
+        if self.pose_graph is None:
+            return []
+        return [dict(t=t, P=P, Q=Q, V=np.zeros(3)) for (t, P, Q) in self.pose_graph.path()]
+
+    def drain(self):
+        """Wait for the pose graph's worker (if any); raises its exception."""
+        if self._loop_stager is not None:
+            self._loop_stager.drain()
+
+    def close(self):
+        """Drain and stop the pose graph's worker thread."""
+        if self._loop_stager is not None:
+            self._loop_stager.close()
 
     def run(self, max_frames: int = 10 ** 9) -> list:
         """Drain the stream; returns the trajectory list."""
@@ -237,4 +343,5 @@ class VinsPipeline:
                 break
             if out is not None:
                 n += 1
+        self.drain()
         return self.estimator.trajectory
