@@ -10,7 +10,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
      and spills of each kernel (none may spill), K3's warps per point and
      its dynamic shared memory at WIN = 38;
   3. K1 (FAST + NMS) against its plain PyTorch version: bit-exact on 8
-     and on 1 rendered 640×480 frames and uniform-noise images, and on one
+     and on 1 rendered 640×480 frames and uniform-noise images, on 32
+     rendered frames (the batched closer's extraction chunk), and on one
      frame 638 wide and one whose rows do not start on 16 bytes (the
      kernel's scalar loads and stores);
   4. K2 (one LK level) against its plain version at the slice's shapes
@@ -26,7 +27,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
      the path, distinct sequences, per-sequence ATE under
      max(0.05·travelled, 0.08 m); prints frames per second (CUDA events);
   6. kernel timings at the path shapes (K1 at 8×480×640 on the rendered
-     frames and on noise, and at 1×480×640; K2 per level at 8×200): device
+     frames and on noise, at 1×480×640 and at 32×480×640, the extraction
+     chunk; K2 per level at 8×200): device
      ms per launch over R launches between one pair of CUDA events, the
      wrapper's host µs per call, the bound from the work these inputs need
      (K1's pre-test survivors, K2's covered pixels, the GN steps taken) and
@@ -57,9 +59,27 @@ Phases (each prints one line; any failure raises and exits non-zero):
      the pose graph (the relo block in every solve, never active), and 9c.
      9b and 9 once more in the reverse order, for what the worker costs the
      frame thread; 9d. the loop cell with the pose graph inline
-     (``eager_outputs``), with phase 9's checks but the profile.
-Phases 5, 7 and 9 each zero the kernels' launch counters just before their
-path and read them just after; the ``kernels`` line sums the three.
+     (``eager_outputs``), with phase 9's checks but the profile.  Phase 9
+     counts the relocalizations the worker consumes (the solver's relo pose
+     fed back into the graph) and needs one when a loop was accepted in the
+     timed frames;
+ 10. the batched path with loop closure (the bench's default ``run_batched``,
+     ``BENCH_LOOP=1``): B = 8 at 640×480, four revisit sequences with a gyro
+     pulse and four clean ones, ``BatchedVioRunner`` warmed on frames 0-10,
+     frames 11-13 run unrecorded, then 11 segments of 18 frames: the first
+     the warm one (``consume`` and the closer's warm-up), the other ten
+     timed through ``ThreadedLoopCloser`` (``submit`` after each ``run``)
+     to the end of ``drain()`` and a device synchronisation; finite costs,
+     the clean sequences' ATE under its bound, at least one loop, the
+     loop-corrected keyframe ATE no worse than the keyframes' VIO ATE, K1
+     once per frame and once per extraction chunk, K2 twice per frame, K3
+     never; drain-inclusive seq-frames/s and ms per lock-step frame beside
+     phase 5's step; and a profile of one real segment (the last one again,
+     ``run`` then ``submit``) while a threaded closer advances the earlier
+     segments submitted to it, with no host wait on the frame thread inside
+     the span (the worker's waits are counted apart).
+Phases 5, 7, 9 and 10 each zero the kernels' launch counters just before
+their path and read them just after; the ``kernels`` line sums the four.
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA it exits
 non-zero before printing any result.
 """
@@ -86,10 +106,12 @@ from vins_rgbd_fast_torch.config import EstimatorConfig, TrackerConfig, VinsConf
 from vins_rgbd_fast_torch.frontend import feature_tracker as ft
 from vins_rgbd_fast_torch.io import synthetic as syn
 from vins_rgbd_fast_torch.io.stream import ate_rmse
-from vins_rgbd_fast_torch.loop.pose_graph import PoseGraphConfig
+from vins_rgbd_fast_torch.loop.pose_graph import (KeyframeGate, PoseGraphConfig,
+                                                  extract_kf_device)
 from vins_rgbd_fast_torch.models.camera import PinholeCamera
 from vins_rgbd_fast_torch.ops import fast, image, lk
 from vins_rgbd_fast_torch.parallel import batched_pipeline as bp
+from vins_rgbd_fast_torch.parallel.loop_closer import BatchedLoopCloser, ThreadedLoopCloser
 from vins_rgbd_fast_torch.pipeline import VinsPipeline
 
 # radtan coefficients of the bench rig (reference realsense vio.yaml)
@@ -430,18 +452,18 @@ def loop_config(rig, seq, max_cnt: int = 130, max_kp: int = 192):
     return cfg, pg
 
 
-def revisit_scene(rig, n_frames: int, extra: int = 0):
-    """The bench's loop scene: ``make_revisit_trajectory(n_frames, seed 207,
+def revisit_scene(rig, n_frames: int, extra: int = 0, seed: int = 207, imu_seed: int = 307):
+    """The bench's loop scene: ``make_revisit_trajectory(n_frames, seed,
     accel 1.5, sideways, 2 cycles)`` with the gyro pulse of ``corrupt_imu
-    (seed 307)``; ``extra`` frames past it keep the scene of the first
+    (imu_seed)``; ``extra`` frames past it keep the scene of the first
     ``n_frames`` (the pulse is placed at the same times)."""
     n = n_frames + extra
     if n // 8 != n_frames // 8:
         raise ValueError("extra frames would change the revisit period")
-    seq = syn.make_revisit_trajectory(n, rig, seed=207, accel=1.5, axis=(0.0, 1.0, 0.0),
+    seq = syn.make_revisit_trajectory(n, rig, seed=seed, accel=1.5, axis=(0.0, 1.0, 0.0),
                                       cycles=2)
     s = (n_frames - 1) / (n - 1)  # the pulse fractions of the n_frames scene
-    return syn.corrupt_imu(seq, seed=307, gyr_noise=0.003, gyr_pulse=0.2,
+    return syn.corrupt_imu(seq, seed=imu_seed, gyr_noise=0.003, gyr_pulse=0.2,
                            pulse_frac=(0.18 * s, 0.3 * s))
 
 
@@ -465,6 +487,15 @@ def run_loop_path(device, n_frames: int = 112, warmup: int = 16, W: int = 640, H
     pipe.tcfg = dataclasses.replace(pipe.tcfg, lk_max_iters=12, lk_coarse_iters=6)
     graph = pipe.pose_graph
     stager = pipe._loop_stager  # None with eager
+    consumed = []  # relocalizations the worker fed back to the graph
+    if stager is not None:
+        consume_relo = stager._consume_relo
+
+        def counted(p):
+            consumed.append(stager._relo_sent_kf)
+            consume_relo(p)
+
+        stager._consume_relo = counted
     for (t, a, g) in seq.imu:
         pipe.push_imu(t, a, g)
 
@@ -486,7 +517,8 @@ def run_loop_path(device, n_frames: int = 112, warmup: int = 16, W: int = 640, H
             stager.compile_warmup(imgs[0])
             stager.stage_s = dict.fromkeys(stager.stage_s, 0.0)
         sync()
-        kf0 = len(graph.keyframes)
+        kf0, relo0 = len(graph.keyframes), len(consumed)
+        loops0 = stager.n_loops if stager is not None else None
         reset_counts()
         t0 = time.perf_counter()
         feed(warmup, n_frames)
@@ -495,13 +527,15 @@ def run_loop_path(device, n_frames: int = 112, warmup: int = 16, W: int = 640, H
         elapsed = time.perf_counter() - t0
         counts = read_counts()
         kf_timed = len(graph.keyframes) - kf0
+        relo_timed = len(consumed) - relo0 if stager is not None else None
+        loops_timed = stager.n_loops - loops0 if stager is not None else None
         stages = dict(stager.stage_s) if stager is not None else None
         prof = None
         if profile and stager is not None:
             def busy_feed():
                 # the worker runs a loop check on a clone of the graph meanwhile
                 # (extraction, a query, PnP, a PGO), so its waits overlap the span
-                stager._q.put(lambda: stager._warmup(imgs[0]))
+                stager._worker.put(lambda: stager._warmup(imgs[0]))
                 feed(n_frames, n_frames + profile)
 
             prof = profile_span(busy_feed, SPIN_SPAN, profile, path,
@@ -529,6 +563,7 @@ def run_loop_path(device, n_frames: int = 112, warmup: int = 16, W: int = 640, H
                 loops=[(lp["cur"], lp["old"], lp["n_inliers"]) for lp in graph.loops],
                 bound=max(0.05 * travelled, 0.08), frames=n_frames, timed=n_timed,
                 kf_timed=kf_timed, solver_flag_after_warmup=flag, counts=counts,
+                loops_timed=loops_timed, relo_consumed=relo_timed, relo_keyframes=consumed,
                 worker_s=stages, profile=prof, timer=pipe.timer.summary())
 
 
@@ -543,10 +578,188 @@ def check_loop_path(res, on_gpu: bool = True) -> None:
     require(res["latency_loop_ate_m"] <= res["latency_vio_kf_ate_m"],
             ("loop-corrected keyframe ATE above the VIO one", res["latency_loop_ate_m"],
              res["latency_vio_kf_ate_m"]))
+    if on_gpu and res["loops_timed"]:  # the loops come back from the solver as relocalizations
+        require(res["relo_consumed"] >= 1, ("no relocalization consumed", res["loops_timed"],
+                                            res["relo_consumed"]))
     if on_gpu:  # K1 per frame and per extracted keyframe, K3 per level, never K2
         n = res["timed"]
         require(res["counts"] == {"fast_nms": n + res["kf_timed"], "lk_level": 0,
                                   "lk_iterate": 2 * n}, ("loop-path launches", res["counts"]))
+    if res["profile"] is not None:
+        require(res["profile"]["host_syncs"] == 0,
+                ("no host wait on the frame thread", res["profile"]["host_sync_calls"]))
+
+
+def batched_loop_scene(rig, B: int, n_frames: int, n_revisit: int):
+    """bench.py run_batched's scene with BENCH_LOOP=1: sequences b <
+    ``n_revisit`` are ``make_revisit_trajectory(seed 200+b, accel 1.5,
+    sideways, 2 cycles)`` with ``corrupt_imu(seed 300+b, gyr_noise 0.003,
+    gyr_pulse 0.2, pulse over 18-30 %)``, the others ``make_trajectory(seed
+    100+b, ω 0.15, a 0.3)``."""
+    return [revisit_scene(rig, n_frames, seed=200 + b, imu_seed=300 + b)
+            if b < n_revisit else
+            syn.make_trajectory(n_frames, rig, seed=100 + b, omega_scale=0.15, acc_scale=0.3)
+            for b in range(B)]
+
+
+def run_batched_loop_path(device, B: int = 8, n_frames: int = 212, seg_len: int = 18,
+                          W: int = 640, H: int = 480, max_cnt: int = 130, max_kp: int = 192,
+                          k_pad: int = 32, profile: bool = False, path=None,
+                          mode: str = "threaded"):
+    """bench.py run_batched with BENCH_LOOP=1 on the port: B sequences (half
+    of them revisits with a gyro pulse) rendered on the device, the runner's
+    warm-up on frames 0-10, an unrecorded run of frames 11-13, then segments
+    of ``seg_len`` frames from frame 14; the first is the warm segment
+    (``consume`` and the closer's warm-up), the others are timed through
+    ``ThreadedLoopCloser`` (``submit`` after each ``run``) up to the end of
+    ``drain()`` and a device synchronisation.  The launch counters are
+    zeroed just before the timed segments.  With ``profile``, the last
+    segment runs again under the profiler after (from the runner state it
+    started from), ``run`` then ``submit``, while a second threaded closer
+    (a clone of the first, fresh gates) advances the earlier segments
+    submitted to it just before.  ``mode`` exists for the reproducibility
+    probe (``batched_loop_repro.py``): "inline" runs the closer's serial
+    ``consume`` after each ``run`` on the frame thread, "none" runs no
+    closer (no loop metrics)."""
+    rig, tcfg, ecfg, cam = slice_config(W, H, max_cnt)
+    n_revisit = B // 2
+    seqs = batched_loop_scene(rig, B, n_frames, n_revisit)
+    rendered = [syn.render_sequence(s, rig, device) for s in seqs]
+    ts = [r[0] for r in rendered]
+    imgs = [r[1] for r in rendered]
+    deps = [r[2] for r in rendered]
+    bufs = []
+    for s in seqs:
+        buf = ImuIntervalBuffer(32)
+        for (t, a, g) in s.imu:
+            buf.push(t, a, g)
+        bufs.append(buf)
+    warmup, k_w = 14, bp.WINDOW_SIZE + 1
+    n_seg = (n_frames - warmup) // seg_len
+
+    def stage(k0, k1):
+        return bp.stage_frames(imgs, deps, ts, bufs, k0, k1, device)
+
+    warm_batch, pre_batch = stage(0, k_w), stage(k_w, warmup)
+    batches = [stage(warmup + i * seg_len, warmup + (i + 1) * seg_len) for i in range(n_seg)]
+    t_end = warmup + n_seg * seg_len
+    del rendered, imgs, deps  # the staged batches hold the frames
+    runner = bp.BatchedVioRunner(tcfg, cam, ecfg, device, B)
+    trk, st = runner.init_states(np.stack([s.ric for s in seqs]), np.stack([s.tic for s in seqs]))
+    pg_cfg = PoseGraphConfig(max_kp=max_kp, max_wp=ecfg.maxf, recency_exclusion=8,
+                             score_best=0.08, score_second=0.02, pad_nodes_min=128,
+                             pad_edges_min=1024)
+    closer = BatchedLoopCloser(cam, seqs[0].ric, seqs[0].tic, B, device, pg_cfg, skip_dis=0.0,
+                               k_pad=k_pad, seq_pad=32, db_capacity=128, pgo_period=2.0)
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    trk, st, _ = runner.warm(trk, st, warm_batch)
+    trk, st, _ = runner.run(trk, st, pre_batch)
+    trk, st, outs_w = runner.run(trk, st, batches[0])
+    if mode != "none":
+        closer.consume(batches[0], outs_w)
+    tc = ThreadedLoopCloser(closer) if mode == "threaded" else None
+    try:
+        if tc is not None:
+            tc.compile_warmup(batches[0], outs_w)
+        elif mode == "inline":
+            closer.compile_warmup(batches[0], outs_w)
+        sync()
+        kf0, loops0, chunks0 = closer.n_keyframes, closer.n_loops, closer.n_chunks
+        reset_counts()
+        t0 = time.perf_counter()
+        outs_all, stats = [outs_w], []
+        for k in range(1, n_seg):
+            last_state = (trk, st)  # run returns new states: the profile reruns the last segment
+            trk, st, outs = runner.run(trk, st, batches[k])
+            if tc is not None:
+                tc.submit(batches[k], outs)
+            elif mode == "inline":
+                stats.append(closer.consume(batches[k], outs))
+            outs_all.append(outs)
+        sync()  # every segment's frames done
+        t_drain = time.perf_counter()
+        if tc is not None:
+            stats = tc.drain()
+        elif mode == "inline":
+            closer.pipeline_drain()  # the deferred appends, the last PGO wake-up
+            stats = [s for s in stats if s["n_keyframes"]]
+        sync()
+        t1 = time.perf_counter()
+        counts = read_counts()
+        chunks = closer.n_chunks - chunks0
+    finally:
+        if tc is not None:
+            tc.close()
+    n_timed = (n_seg - 1) * seg_len
+    elapsed = t1 - t0
+    prof = None
+    if profile and tc is not None:
+        ghost = closer.clone()
+        ghost.gates = [KeyframeGate(closer.skip_cnt, closer.skip_dis) for _ in range(B)]
+        busy = ThreadedLoopCloser(ghost)
+        try:
+            for k in range(1, n_seg - 1):
+                busy.submit(batches[k], outs_all[k])
+
+            def segment():
+                busy.submit(batches[-1], runner.run(*last_state, batches[-1])[2])
+
+            prof = profile_span(segment, RUN_SPAN, seg_len, path, 1e3 * elapsed / n_timed)
+        finally:
+            busy.close()
+    cost = torch.stack([o.cost for o in outs_all]).cpu().numpy()
+    P_last = outs_all[-1].P.cpu().numpy()
+    ates, bounds = [], []
+    for b in range(n_revisit, B):
+        k0 = warmup + (n_seg - 1) * seg_len
+        ates.append(ate_rmse(ts[b][k0:k0 + seg_len], P_last[:, b], seqs[b].times, seqs[b].P,
+                             align=False))
+        travelled = float(np.sum(np.linalg.norm(np.diff(seqs[b].P[:n_frames], axis=0), axis=1)))
+        bounds.append(max(0.05 * travelled, 0.08))
+    lates, vlates = [], []
+    for b in range(n_revisit):
+        g = closer.graphs[b]
+        path_c = [p for p in g.path() if p[0] <= ts[b][t_end - 1]]
+        kfs = [k for k in g.keyframes if k.t <= ts[b][t_end - 1]]
+        if len(path_c) >= 5:
+            lates.append(ate_rmse([p[0] for p in path_c], [p[1] for p in path_c],
+                                  seqs[b].times, seqs[b].P, align=False))
+            vlates.append(ate_rmse([k.t for k in kfs], [k.P_vio for k in kfs], seqs[b].times,
+                                   seqs[b].P, align=False))
+    stage_ms = {k: sum(s[k] for s in stats) for k in
+                ("ms_sync1", "ms_dispatch", "ms_sync2", "ms_vdisp", "ms_accept", "ms_pgo")}
+    return dict(B=B, n_timed=n_timed, n_revisit=n_revisit, seq_frames_per_s=B * n_timed / elapsed,
+                ms_per_frame=1e3 * elapsed / n_timed, drain_tail_ms=1e3 * (t1 - t_drain),
+                loop_kf=closer.n_keyframes - kf0, loops_found=closer.n_loops - loops0,
+                loop_ate_m=float(np.mean(lates)) if lates else float("nan"),
+                loop_vio_ate_m=float(np.mean(vlates)) if vlates else float("nan"),
+                ates=ates, bounds=bounds, ate_m=float(np.mean(ates)), ate_max_m=float(np.max(ates)),
+                cost=cost, counts=counts, chunks=chunks, stage_ms=stage_ms,
+                segments_with_keyframes=len(stats),
+                loops=[[(lp["cur"], lp["old"], lp["n_inliers"]) for lp in g.loops]
+                       for g in closer.graphs],
+                keyframes=[len(g.keyframes) for g in closer.graphs], profile=prof)
+
+
+def check_batched_loop_path(res, on_gpu: bool = True) -> None:
+    require(np.all(np.isfinite(res["cost"])), "non-finite cost")
+    for b, (ate, bound) in enumerate(zip(res["ates"], res["bounds"])):
+        require(np.isfinite(ate) and ate < bound, ("clean-sequence ATE", b, ate, bound))
+    require(res["loops_found"] >= 1, ("loops found in the timed segments", res["loops"]))
+    for k in ("loop_ate_m", "loop_vio_ate_m"):
+        require(np.isfinite(res[k]), (k, res[k]))
+    require(res["loop_ate_m"] <= res["loop_vio_ate_m"],
+            ("loop-corrected keyframe ATE above the VIO one", res["loop_ate_m"],
+             res["loop_vio_ate_m"]))
+    if on_gpu:  # K1 per frame and per extraction chunk, K2 per level, never K3
+        n = res["n_timed"]
+        require(res["counts"] == {"fast_nms": n + res["chunks"], "lk_level": 2 * n,
+                                  "lk_iterate": 0}, ("batched-loop launches", res["counts"],
+                                                     res["chunks"]))
     if res["profile"] is not None:
         require(res["profile"]["host_syncs"] == 0,
                 ("no host wait on the frame thread", res["profile"]["host_sync_calls"]))
@@ -892,17 +1105,19 @@ def main() -> int:
     B, N, T, EXTRA = 8, 200, 40, 10
     rig, tcfg, ecfg, cam = slice_config()
     tcfg_run = bp.BatchedVioRunner(tcfg, cam, ecfg, dev, 1).tcfg  # LK 12/6 envelope
-    seqs, rendered, _ = make_sequences(rig, B, 2, dev)
+    seqs, rendered, _ = make_sequences(rig, B, 4, dev)
     frame0 = torch.stack([r[1][0] for r in rendered]).contiguous()
     frame1 = torch.stack([r[1][1] for r in rendered]).contiguous()
+    KP = 32  # the batched closer's extraction chunk (k_pad)
+    chunk32 = torch.stack([r[1][k] for k in range(4) for r in rendered]).contiguous()
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
 
     # 3. K1 bit-exactness at both path shapes (noise defeats the pre-test)
     noise = torch.rand((B, 480, 640), generator=gen, device=dev) * 255.0
     k1_err, corners = 0.0, {}
-    for name, imgs in (("rendered", frame0), ("noise", noise)):
-        for b in (B, 1):
+    for name, imgs in (("rendered", frame0), ("noise", noise), ("rendered", chunk32)):
+        for b in ((B, 1) if imgs.shape[0] == B else (KP,)):
             x = imgs[:b].contiguous()
             out_k = fast.fast_nms(x, tcfg.fast_threshold)
             out_p = fast.nms3(fast.fast_score(x, tcfg.fast_threshold))
@@ -921,8 +1136,9 @@ def main() -> int:
         k1_err = max(k1_err, float((out_k - out_p).abs().max()))
         require(torch.equal(out_k, out_p), f"K1 bit-exact on {name}")
         corners[name] = int((out_k > 0).sum())
-    print(f"[3 K1] bit-exact on {B} and 1 rendered and noise images of 480x640, and on "
-          f"1x480x638 and an unaligned 1x480x640 (scalar path); corners {corners}",
+    print(f"[3 K1] bit-exact on {B} and 1 rendered and noise images of 480x640, on {KP} "
+          f"rendered (the extraction chunk), and on 1x480x638 and an unaligned 1x480x640 "
+          f"(scalar path); corners {corners}",
           flush=True)
 
     # 4. K2 vs plain at the slice's shapes
@@ -967,10 +1183,28 @@ def main() -> int:
 
     thr = tcfg.fast_threshold
     for b, name, imgs in ((B, "rendered", frame0), (B, "noise", noise),
-                          (1, "rendered", frame0[:1].contiguous())):
+                          (1, "rendered", frame0[:1].contiguous()), (KP, "rendered", chunk32)):
         timing("fast_nms", f"{b}x480x640 {name}", lambda: fast.fast_nms(imgs, thr),
                lambda: fast.nms3(fast.fast_score(imgs, thr)),
                kernel_bounds(b, 480, 640, N, 0, pairs=fast_pairs(imgs, thr))["fast_nms"])
+    # the batched closer's extraction of one 32-image chunk (K1 once, the
+    # stable top-k, BRIEF per real keyframe): its launches, with 1 and with
+    # 32 real keyframes
+    deps32 = torch.stack([r[2][k] for k in range(4) for r in rendered]).contiguous()
+    pg = PoseGraphConfig(max_kp=192, max_wp=ecfg.maxf)
+    uv32 = (torch.rand((KP, ecfg.maxf, 2), generator=gen, device=dev)
+            * torch.tensor([639.0, 479.0], device=dev))
+    ok32 = torch.ones((KP, ecfg.maxf), dtype=torch.bool, device=dev)
+    ext = {n: profile_span(lambda: extract_kf_device(pg, cam, chunk32, uv32, ok32, deps32,
+                                                     n_real=n),
+                           "chip_smoke::extract", 1,
+                           os.path.join(OUT_DIR, f"profile_extract_{n}.txt"), 1.0)
+           for n in (1, KP)}
+    brief_per_kf = (ext[KP]["kernels_per_frame"] - ext[1]["kernels_per_frame"]) / (KP - 1)
+    print(f"[6 extraction] one chunk of {KP} images: {ext[1]['kernels_per_frame']:.0f} "
+          f"launches with 1 real keyframe, {ext[KP]['kernels_per_frame']:.0f} with {KP} "
+          f"({brief_per_kf:.1f} per keyframe for BRIEF); device ms "
+          f"{ext[1]['device_ms_per_frame']} / {ext[KP]['device_ms_per_frame']}", flush=True)
     prev_pyr, cur_pyr, pts, init, active = k2_in
     for l in (1, 0):
         iters = tcfg_run.lk_max_iters if l == 0 else tcfg_run.lk_coarse_iters
@@ -1022,8 +1256,10 @@ def main() -> int:
           f"latency_loop_ate_m {loop['latency_loop_ate_m']:.4f}, latency_vio_kf_ate_m "
           f"{loop['latency_vio_kf_ate_m']:.4f}, latency_kf {loop['latency_kf']}, "
           f"latency_loops {loop['latency_loops']} {loop['loops']}; launches {loop['counts']} "
-          f"({loop['kf_timed']} keyframes extracted in the timed frames); worker seconds by "
-          f"stage {loop['worker_s']}; profile {loop['profile']}", flush=True)
+          f"({loop['kf_timed']} keyframes extracted in the timed frames); "
+          f"{loop['loops_timed']} loops accepted and {loop['relo_consumed']} relocalizations "
+          f"consumed by the worker in the timed frames (keyframes {loop['relo_keyframes']}); "
+          f"worker seconds by stage {loop['worker_s']}; profile {loop['profile']}", flush=True)
 
     # 9b. the same scene and configuration with no pose graph (the relo
     # block in the solve, never active): what the worker costs the frame thread
@@ -1062,10 +1298,30 @@ def main() -> int:
           f"latency_loops {eager['latency_loops']} {eager['loops']}; launches {eager['counts']} "
           f"({eager['kf_timed']} keyframes extracted in the timed frames)", flush=True)
 
+    # 10. the batched path with loop closure (its own launch counts)
+    bl = run_batched_loop_path(dev, profile=True,
+                               path=os.path.join(OUT_DIR, "profile_batched_loop.txt"))
+    require(bl["profile"] is not None, "phase 10 profiled")
+    check_batched_loop_path(bl)
+    step5 = res["run_ms"] / T
+    print(f"[10 batched loop] B={bl['B']} 640x480, {bl['n_revisit']} revisit sequences, "
+          f"{bl['n_timed']} timed lock-step frames through the threaded closer: "
+          f"{bl['seq_frames_per_s']:.2f} seq-frames/s drain-inclusive, "
+          f"{bl['ms_per_frame']:.3f} ms per lock-step frame (phase 5 in this run: {step5:.3f} "
+          f"ms per step, ratio {bl['ms_per_frame'] / step5:.3f}); drain tail "
+          f"{bl['drain_tail_ms']:.1f} ms; loop_kf {bl['loop_kf']}, loops_found "
+          f"{bl['loops_found']}; loop_ate_m {bl['loop_ate_m']:.4f}, loop_vio_ate_m "
+          f"{bl['loop_vio_ate_m']:.4f}; ate_m {bl['ate_m']:.4f}, ate_max_m {bl['ate_max_m']:.4f} "
+          f"(bounds {[round(b, 3) for b in bl['bounds']]}); closer stage ms summed over the "
+          f"segments and the drain {bl['stage_ms']} ({bl['segments_with_keyframes']} segments "
+          f"with keyframes, {bl['chunks']} extraction chunks); launches {bl['counts']}; "
+          f"keyframes per graph {bl['keyframes']}; loops per graph "
+          f"{[len(x) for x in bl['loops']]}; profile {bl['profile']}", flush=True)
+
     # the kernels line: per launch at the main path's shapes (K1 8x480x640,
     # K2 8x200 averaged over its two levels) and K3 at the latency path's
     # 1x200 (it never runs on the main path)
-    paths = {"batched": res, "latency": lat, "latency_loop": loop}
+    paths = {"batched": res, "latency": lat, "latency_loop": loop, "batched_loop": bl}
     counts = {k: sum(r["counts"][k] for r in paths.values()) for k in KERNELS}
     errs = {"fast_nms": k1_err, "lk_level": k2_err, "lk_iterate": k3_err}
     main_shape = {"fast_nms": f"{B}x480x640 rendered", "lk_level": f"{B}x{N} level",
@@ -1090,13 +1346,16 @@ def main() -> int:
             host_us=mean("host_us"), profile_ms_per_frame={
                 "batched": prof["by_kernel"][name]["device_ms_per_frame"],
                 "latency": lat["profile"]["by_kernel"][name]["device_ms_per_frame"],
-                "latency_loop": loop["profile"]["by_kernel"][name]["device_ms_per_frame"]}))
+                "latency_loop": loop["profile"]["by_kernel"][name]["device_ms_per_frame"],
+                "batched_loop": bl["profile"]["by_kernel"][name]["device_ms_per_frame"]}))
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi, kernels=kernels, timings=timings, k2=rep, k3=rep3, main={
             k: res[k] for k in ("ates", "bounds", "counts", "run_ms", "wall_s", "frames")},
-            stages=stages, profile=prof, latency=lat, latency_loop=loop,
+            stages=stages, profile=prof, extraction=ext, latency=lat, latency_loop=loop,
             latency_loop_no_graph=alone, abba_ms=ms, worker_cost=worker_cost,
-            latency_loop_eager=eager), f, indent=1, default=float)
+            latency_loop_eager=eager,
+            batched_loop={k: v for k, v in bl.items() if k != "cost"}), f,
+            indent=1, default=float)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -457,9 +457,44 @@ def test_pose_graph_unported_parts_raise():
     g.earliest_loop_index = 0
     with pytest.raises(NotImplementedError):
         g.optimize()
-    full = tpg.PoseGraph(tpg.PoseGraphConfig(max_kp=32, max_wp=16, max_keyframes=2), tcam,
-                         np.eye(3), np.zeros(3), "cpu")
-    for _ in range(2):
-        full._db_append(np.ones((32, 256), np.int8))
-    with pytest.raises(NotImplementedError):
-        full._db_append(np.ones((32, 256), np.int8))
+    # the retrieval DB at max_keyframes compacts as JAX's (keyframe 1 is in a
+    # loop: kept), through both appends, a padded block included ...
+    _, jcam = _cams()
+    rng = np.random.default_rng(8)
+    rows = rng.choice(np.asarray([-1, 1], np.int8), (16, 48, 256))
+    valid = rng.random((16, 48)) < 0.9
+    norm = rng.normal(size=(16, 48, 3)).astype(np.float32)
+    graphs = []
+    for mod, cam, dev in ((tpg, tcam, ("cpu",)), (jpg, jcam, ())):
+        cg = mod.PoseGraph(mod.PoseGraphConfig(max_kp=32, max_wp=16, max_keyframes=8), cam,
+                           np.eye(3), np.zeros(3), *dev)
+        cg.loops.append(dict(cur=6, old=1, rel_t=np.zeros(3), rel_yaw=0.0,
+                             rel_q=np.array([1.0, 0, 0, 0])))
+        steps = []
+        for i in range(10):
+            cg._db_append(rows[i], valid[i], norm[i], kf_index=i)
+            steps.append((cg.desc_db, cg._db_index.copy(), cg.db_evicted))
+        cg._db_append_block(rows[10:14], valid[10:14], count=3, norms=norm[10:14],
+                            kf_indices=[10, 11, 12])
+        steps.append((cg.desc_db, cg._db_index.copy(), cg.db_evicted))
+        cg._db_append_block(rows[13:16], valid[13:16], norms=norm[13:16], kf_indices=[13, 14, 15])
+        steps.append((cg.desc_db, cg._db_index.copy(), cg.db_evicted))
+        graphs.append(steps)
+    for (dt, it, et), (dj, ij, ej) in zip(*graphs):
+        np.testing.assert_array_equal(dt, dj)
+        np.testing.assert_array_equal(it, ij)
+        assert et == ej
+    assert graphs[0][-1][2] == 3 and 1 in graphs[0][-1][1] and len(graphs[0][-1][1]) == 8
+    # ... and a full DB that nothing can leave refuses appends without raising
+    full = [tpg.PoseGraph(tpg.PoseGraphConfig(max_kp=32, max_wp=16, max_keyframes=2), tcam,
+                          np.eye(3), np.zeros(3), "cpu"),
+            jpg.PoseGraph(jpg.PoseGraphConfig(max_kp=32, max_wp=16, max_keyframes=2), jcam,
+                          np.eye(3), np.zeros(3))]
+    for fg in full:
+        for i in range(3):
+            fg._db_append(rows[i], valid[i], norm[i], kf_index=i)
+        fg._db_append_block(rows[3:5], valid[3:5], norms=norm[3:5], kf_indices=[3, 4])
+    np.testing.assert_array_equal(full[0].desc_db, full[1].desc_db)
+    np.testing.assert_array_equal(full[0]._db_index, [0, 1])
+    np.testing.assert_array_equal(full[1]._db_index, [0, 1])
+    assert full[0].db_evicted == full[1].db_evicted == 0

@@ -7,27 +7,31 @@
     equal scores the lower flat index first), BRIEF on them and on the VIO
     window points, the measured depth at each keypoint;
   * retrieval: a device tensor DB of int8 ±1 descriptor rows (keypoints and
-    window points of each keyframe) that doubles its capacity, scored by one
-    Hamming matmul per query; recency exclusion and the two-peak acceptance
-    on the host;
+    window points of each keyframe) that doubles its capacity up to
+    ``max_keyframes`` and is compacted there (``_db_compact``), scored by
+    one Hamming matmul per query (``db_query_all``: B stacked DBs, one query
+    step at a time); recency exclusion and the two-peak acceptance on the
+    host;
   * verification: Hamming matching and PnP RANSAC from the old keyframe's
-    pose (``verify_loops_batch``), the reference's gates on the host;
+    pose (``verify_loops_batch``; ``verify_loops_device`` gathers both sides
+    on the device), the reference's gates on the host;
   * ``optimize_4dof``: dense Levenberg-Marquardt over (yaw, t) per node with
-    closed-form edge Jacobians, every step on the device;
+    closed-form edge Jacobians, every step on the device, for one problem or
+    a batch of them;
   * ``PoseGraph``: the host bookkeeping (drift, sequence alignment, fast
     relocalization feedback), numpy as in JAX.
 
 PnP's random draws are an input: ``PoseGraph(pnp_uniforms=...)`` maps a
 keyframe index and a point count to (32, N) uniforms (the tests inject the
 JAX package's ``PRNGKey(index)`` draws); by default one ``torch.Generator``
-on the graph's device draws them.  VO mode (``use_6dof``), ``save``,
-``load`` and the DB compaction at ``max_keyframes`` are not ported and raise
-``NotImplementedError``.
+on the graph's device draws them.  VO mode (``use_6dof``), ``save`` and
+``load`` are not ported and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -40,6 +44,8 @@ from ..ops.solver import cho_solve, cholesky_nan
 from ..utils import quaternion as quat
 from ..utils import quaternion_np as nq
 from . import brief
+
+log = logging.getLogger(__name__)
 
 MIN_LOOP_NUM = 25  # keyframe.h:16
 LOOP_YAW_MAX = 30.0
@@ -102,12 +108,15 @@ def _on(a, dtype, device) -> torch.Tensor:
 
 def extract_kf_device(cfg: PoseGraphConfig, cam: PinholeCamera, imgs: torch.Tensor,
                       wp_uv: torch.Tensor, wp_valid: torch.Tensor,
-                      depths: Optional[torch.Tensor] = None):
+                      depths: Optional[torch.Tensor] = None, n_real: Optional[int] = None):
     """Features of K keyframes (``_extract_kf_device`` under the vmap of
     JAX's ``make_batch_extractor``):
     imgs (K, H, W) float32, wp_uv (K, max_wp, 2), wp_valid (K, max_wp),
     depths (K, H, W) or None.  Returns kp_uv (K, max_kp, 2), kp_norm
-    (K, max_kp, 3), kp_valid, kp_desc (K, max_kp, 256) int8 and wp_desc."""
+    (K, max_kp, 3), kp_valid, kp_desc (K, max_kp, 256) int8 and wp_desc.
+    One K1 launch covers all K images; BRIEF runs per keyframe, over the
+    first ``n_real`` only when the rest are padding (their descriptors are
+    zero)."""
     K, H, W = imgs.shape
     score = fast_ops.fast_nms(imgs.contiguous(), cfg.fast_threshold)  # K1 on the card
     vals, idx = torch.sort(score.reshape(K, H * W), dim=1, descending=True, stable=True)
@@ -116,8 +125,12 @@ def extract_kf_device(cfg: PoseGraphConfig, cam: PinholeCamera, imgs: torch.Tens
     ys = (idx // W).to(imgs.dtype)
     kp_uv = torch.stack([xs, ys], dim=-1)
     kp_valid = vals > 0
+    n = K if n_real is None else int(n_real)
     pairs = [brief.compute_descriptors_pair(imgs[k], kp_uv[k], kp_valid[k], wp_uv[k],
-                                            wp_valid[k]) for k in range(K)]
+                                            wp_valid[k]) for k in range(n)]
+    if n < K:
+        pad = tuple(torch.zeros_like(d) for d in pairs[0])
+        pairs += [pad] * (K - n)
     kp_desc = torch.stack([p[0] for p in pairs])
     wp_desc = torch.stack([p[1] for p in pairs])
     rays = cam.lift(kp_uv)
@@ -172,6 +185,25 @@ def db_query_multi(db, dbv, qs, qvs, score_dist: float) -> torch.Tensor:
                         for k in range(qs.shape[0])])
 
 
+def db_query_all(dbs, dbvs, qs, qvs, score_dist: float) -> torch.Tensor:
+    """Cross-sequence retrieval (JAX's ``_db_query_all``): B stacked DBs
+    (B, cap, width, 256) int8 against (B, qp, Nq, 256) queries, (B, qp, cap)
+    raw scores.  One query step at a time (a step's Hamming intermediate is
+    B × Nq × cap·width floats), each a batched matmul over the B DBs."""
+    B, cap, width, _ = dbs.shape
+    dbf = dbs.reshape(B, cap * width, brief.N_BITS).to(torch.float32).transpose(1, 2)
+    qvs = qvs.to(torch.bool)
+    n = torch.clamp(torch.sum(qvs, dim=-1), min=1).to(torch.float64)  # (B, qp)
+    out = []
+    for j in range(qs.shape[1]):
+        D = ((brief.N_BITS - qs[:, j].to(torch.float32) @ dbf) * 0.5).reshape(
+            B, -1, cap, width)
+        D = torch.where(dbvs[:, None], D, torch.full_like(D, torch.inf))
+        hits = (torch.amin(D, dim=3) < score_dist) & qvs[:, j, :, None]
+        out.append((torch.sum(hits, dim=1).to(torch.float64) / n[:, j, None]).to(torch.float32))
+    return torch.stack(out, dim=1)
+
+
 def combine_db_rows(kp_desc, kp_valid, kp_norm, wp_desc, wp_valid, wp_norm):
     """A keyframe's DB row: its retrieval keypoints and its window points
     concatenated (descriptors, valid, normalized xy + depth; a 2-column
@@ -213,6 +245,25 @@ def verify_loops_batch(u, wp_world, wp_desc, wp_valid, kp_desc, kp_valid, kp_nor
     return idx_b, res.ok & enough, res.model, res.n_inliers, res.inliers
 
 
+def verify_loops_device(u, ints, flts, wld_chunk, wd_chunk, wv_chunk, dbs, dbvs, dbns,
+                        match_thresh: float, min_loop_num: int):
+    """``verify_loops_batch`` with both sides gathered on the device: the
+    current keyframes' window points from an extraction chunk's tensors by
+    row, the old keyframes' rows from the stacked DBs by (sequence, slot).
+    ``ints`` (C, 4): [keyframe index, sequence b, DB slot, chunk row];
+    ``flts`` (C, 24): [R_init (9), t_init (3), w_r (9), w_t (3)], w_r/w_t
+    mapping the chunk's landmarks into the graph's map frame; ``u``
+    (C, 32, max_wp) PnP uniforms (the keyframe index column is JAX's PRNG
+    seed and unused here)."""
+    b, s, row = ints[:, 1].long(), ints[:, 2].long(), ints[:, 3].long()
+    C = ints.shape[0]
+    w_r = flts[:, 12:21].reshape(C, 3, 3)
+    wl = wld_chunk[row] @ w_r.transpose(-1, -2) + flts[:, None, 21:24]
+    return verify_loops_batch(u, wl, wd_chunk[row], wv_chunk[row], dbs[b, s], dbvs[b, s],
+                              dbns[b, s], flts[:, 0:9].reshape(C, 3, 3), flts[:, 9:12],
+                              match_thresh, min_loop_num)
+
+
 # ---------------------------------------------------------------------------
 # 4-DoF pose graph optimization
 # ---------------------------------------------------------------------------
@@ -222,27 +273,32 @@ def normalize_angle_deg(a):
 
 
 def _edge_terms(yaw, t, pitch, roll, ei, ej, rel_t, rel_yaw, with_jac: bool):
-    """Residuals (E, 4) of the FourDOF edges (translation of j in frame i
-    by yaw_i and i's fixed pitch/roll; the wrapped yaw difference over 10)
-    and, with ``with_jac``, their Jacobians (E, 4, 8) over [yaw_i, t_i,
-    yaw_j, t_j] (yaw in degrees)."""
-    R = quat.ypr2R(torch.stack([yaw[ei], pitch[ei], roll[ei]], dim=-1))
-    dt = t[ej] - t[ei]
+    """Residuals (..., E, 4) of the FourDOF edges (translation of j in frame
+    i by yaw_i and i's fixed pitch/roll; the wrapped yaw difference over 10)
+    and, with ``with_jac``, their Jacobians (..., E, 4, 8) over [yaw_i, t_i,
+    yaw_j, t_j] (yaw in degrees).  Leading axes are a batch of problems."""
+    def at(a, idx):  # a (..., K[, 3]) gathered at idx (..., E)
+        if a.dim() == idx.dim():
+            return torch.gather(a, -1, idx)
+        return torch.gather(a, -2, idx[..., None].expand(idx.shape + a.shape[-1:]))
+
+    R = quat.ypr2R(torch.stack([at(yaw, ei), at(pitch, ei), at(roll, ei)], dim=-1))
+    dt = at(t, ej) - at(t, ei)
     RT = R.transpose(-1, -2)
     r_t = (RT @ dt[..., None])[..., 0] - rel_t
-    r_y = normalize_angle_deg(yaw[ej] - yaw[ei] - rel_yaw) * 0.1
-    r = torch.cat([r_t, r_y[:, None]], dim=-1)
+    r_y = normalize_angle_deg(at(yaw, ej) - at(yaw, ei) - rel_yaw) * 0.1
+    r = torch.cat([r_t, r_y[..., None]], dim=-1)
     if not with_jac:
         return r, None
     # d R / d yaw (degrees): rows 0 and 1 of Rz'(y) Ry Rx, row 2 constant
-    dR = torch.stack([-R[:, 1], R[:, 0], torch.zeros_like(R[:, 0])], dim=1) * (np.pi / 180.0)
-    E = ei.shape[0]
-    J = torch.zeros((E, 4, 8), dtype=t.dtype, device=t.device)
-    J[:, :3, 0] = (dR.transpose(-1, -2) @ dt[..., None])[..., 0]
-    J[:, :3, 1:4] = -RT
-    J[:, :3, 5:8] = RT
-    J[:, 3, 0] = -0.1
-    J[:, 3, 4] = 0.1
+    dR = torch.stack([-R[..., 1, :], R[..., 0, :], torch.zeros_like(R[..., 0, :])],
+                     dim=-2) * (np.pi / 180.0)
+    J = torch.zeros(ei.shape + (4, 8), dtype=t.dtype, device=t.device)
+    J[..., :3, 0] = (dR.transpose(-1, -2) @ dt[..., None])[..., 0]
+    J[..., :3, 1:4] = -RT
+    J[..., :3, 5:8] = RT
+    J[..., 3, 0] = -0.1
+    J[..., 3, 4] = 0.1
     return r, J
 
 
@@ -251,13 +307,23 @@ def optimize_4dof(yaw0, t0, pitch, roll, node_valid, node_fixed, edge_i, edge_j,
                   iters: int = 5, huber: float = 0.1):
     """Dense LM over (yaw, t) of K nodes (node k's parameters at [4k, 4k+4)),
     Huber on loop edges, fixed nodes frozen; ``iters`` damped steps with
-    accept/reject on the device.  Returns (yaw, t, cost0, cost).  (JAX's
+    accept/reject on the device.  Returns (yaw, t, cost0, cost).  Every
+    argument may carry one leading batch axis: N problems of the same
+    (K, E) solve together (batched Cholesky), each with its own damping and
+    accept/reject (JAX's ``jax.vmap`` of the solve).  (JAX's
     ``edge_weight`` argument is unused there and left out here.)"""
-    K = yaw0.shape[0]
+    if yaw0.dim() == 1:
+        out = optimize_4dof(*(a[None] for a in (yaw0, t0, pitch, roll, node_valid, node_fixed,
+                                                edge_i, edge_j, edge_rel_t, edge_rel_yaw,
+                                                edge_is_loop, edge_valid)),
+                            iters=iters, huber=huber)
+        return tuple(o[0] for o in out)
+    N, K = yaw0.shape
     dtype = t0.dtype
     ei, ej = edge_i.to(torch.int64), edge_j.to(torch.int64)
-    Pi = (ei[:, None] == torch.arange(K, device=ei.device)).to(dtype)
-    Pj = (ej[:, None] == torch.arange(K, device=ej.device)).to(dtype)
+    nodes = torch.arange(K, device=ei.device)
+    Pi = (ei[..., None] == nodes).to(dtype)  # (N, E, K)
+    Pj = (ej[..., None] == nodes).to(dtype)
 
     def robust(r):
         s = torch.sum(r * r, dim=-1)
@@ -268,37 +334,39 @@ def optimize_4dof(yaw0, t0, pitch, roll, node_valid, node_fixed, edge_i, edge_j,
 
     def cost_at(yaw, t):
         r, _ = _edge_terms(yaw, t, pitch, roll, ei, ej, edge_rel_t, edge_rel_yaw, False)
-        r = r * robust(r)[:, None]
-        return 0.5 * torch.sum(r * r)
+        r = r * robust(r)[..., None]
+        return 0.5 * torch.sum(r * r, dim=(-2, -1))
 
     def system(yaw, t):
         r, Jl = _edge_terms(yaw, t, pitch, roll, ei, ej, edge_rel_t, edge_rel_yaw, True)
         hw = robust(r)
-        r = r * hw[:, None]
-        Jl = Jl * hw[:, None, None]
-        rows = (Jl[:, :, None, 0:4] * Pi[:, None, :, None]
-                + Jl[:, :, None, 4:8] * Pj[:, None, :, None])
-        return r.reshape(-1), rows.reshape(-1, 4 * K)
+        r = r * hw[..., None]
+        Jl = Jl * hw[..., None, None]
+        rows = (Jl[..., :, None, 0:4] * Pi[..., None, :, None]
+                + Jl[..., :, None, 4:8] * Pj[..., None, :, None])
+        return r.reshape(N, -1), rows.reshape(N, -1, 4 * K)
 
-    fm = torch.repeat_interleave((node_valid & ~node_fixed).to(dtype), 4)
+    fm = torch.repeat_interleave((node_valid & ~node_fixed).to(dtype), 4, dim=-1)  # (N, 4K)
     eye = torch.eye(4 * K, dtype=dtype, device=t0.device)
     yaw, t = yaw0, t0
-    lm = torch.full((), 1e-4, dtype=dtype, device=t0.device)
+    lm = torch.full((N,), 1e-4, dtype=dtype, device=t0.device)
     cost0 = cost = cost_at(yaw, t)
     for _ in range(iters):
         r, J = system(yaw, t)
-        J = J * fm[None, :]
-        H = J.T @ J
-        g = J.T @ r
-        damp = lm * torch.clamp(torch.diagonal(H), min=1e-6) + (1.0 - fm)
-        L = cholesky_nan(H + damp[:, None] * eye)
-        d = (-cho_solve(L, g[:, None])[:, 0] * fm).reshape(K, 4)
-        yaw_n = normalize_angle_deg(yaw + d[:, 0])
-        t_n = t + d[:, 1:4]
+        J = J * fm[:, None, :]
+        JT = J.transpose(-1, -2)
+        H = JT @ J
+        g = JT @ r[..., None]
+        damp = lm[:, None] * torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1), min=1e-6) \
+            + (1.0 - fm)
+        L = cholesky_nan(H + damp[..., None] * eye)
+        d = (-cho_solve(L, g)[..., 0] * fm).reshape(N, K, 4)
+        yaw_n = normalize_angle_deg(yaw + d[..., 0])
+        t_n = t + d[..., 1:4]
         new_cost = cost_at(yaw_n, t_n)
         accept = (new_cost < cost) & torch.isfinite(new_cost)
-        yaw = torch.where(accept, yaw_n, yaw)
-        t = torch.where(accept, t_n, t)
+        yaw = torch.where(accept[:, None], yaw_n, yaw)
+        t = torch.where(accept[:, None, None], t_n, t)
         lm = torch.where(accept, lm * 0.3, lm * 5.0)
         cost = torch.where(accept, new_cost, cost)
     return yaw, t, cost0, cost
@@ -470,6 +538,12 @@ class PoseGraph:
     def _db_append(self, desc, valid=None, norm=None, kf_index: Optional[int] = None):
         if self._db_size >= self.cfg.max_keyframes:
             self._db_compact()
+        if self._db_size >= self.cfg.max_keyframes:
+            # nothing could be evicted (loop-protected rows cover the older
+            # half): refuse rather than overwrite a slot
+            log.warning("pose-graph retrieval DB full (max_keyframes=%d) and uncompactable: "
+                        "keyframe %s not added to retrieval", self.cfg.max_keyframes, kf_index)
+            return
         desc = self._tensor(desc, torch.int8)
         valid = (torch.any(desc != 0, dim=-1) if valid is None
                  else self._tensor(valid, torch.bool))
@@ -488,22 +562,63 @@ class PoseGraph:
         return int(self._db_index[-1]) + 1 if len(self._db_index) else 0
 
     def _db_compact(self):
-        raise NotImplementedError(
-            f"the retrieval DB is full (max_keyframes={self.cfg.max_keyframes}); "
-            "its compaction is not ported")
+        """At the storage cap: keep the loop-involved keyframes and the newest
+        half, every second of the older half (one device gather; the slot ->
+        keyframe index map follows).  The keyframes themselves stay; only
+        their retrieval candidacy thins."""
+        n = self._db_size
+        if n < 4:
+            return
+        half = n // 2
+        keep = np.zeros(n, bool)
+        keep[half:] = True
+        keep[:half:2] = True
+        looped = {lp["old"] for lp in self.loops} | {lp["cur"] for lp in self.loops}
+        if looped:
+            keep |= np.isin(self._db_index[:n], np.fromiter(looped, np.int64))
+        slots = np.nonzero(keep)[0]
+        k = len(slots)
+        if k >= n:  # nothing evictable
+            return
+        sl = torch.as_tensor(slots, device=self.device)
+
+        def gathered(a):
+            out = torch.zeros_like(a)
+            out[:k] = a[sl]
+            return out
+
+        self._dev_db, self._dev_valid, self._dev_norm = (
+            gathered(self._dev_db), gathered(self._dev_valid), gathered(self._dev_norm))
+        self._db_index = self._db_index[slots]
+        self.db_evicted += n - k
+        self._db_size = k
+        log.warning("pose-graph retrieval DB hit max_keyframes=%d: compacted to %d slots (%d "
+                    "evicted in all); raise PoseGraphConfig.max_keyframes to keep every "
+                    "keyframe a candidate", self.cfg.max_keyframes, k, self.db_evicted)
 
     def _db_append_block(self, descs, valids, count: Optional[int] = None, norms=None,
                          kf_indices=None):
         """Append K rows at once (``count`` of them real; padding rows are
-        written and then overwritten by the next append)."""
+        written and then overwritten by the next append).  At the cap the DB
+        is compacted first; rows that still do not fit are dropped from
+        retrieval with a warning, the kept ones mapped to their own
+        keyframes (``kf_indices``)."""
         descs = self._tensor(descs, torch.int8)
         valids = self._tensor(valids, torch.bool)
         norms = self._norm3(norms, tuple(descs.shape[:2]))
         n = int(descs.shape[0]) if count is None else int(count)
         if self._db_size + n > self.cfg.max_keyframes:
             self._db_compact()
+        k = min(n, self.cfg.max_keyframes - self._db_size)
+        if k <= 0:
+            log.warning("pose-graph retrieval DB full (max_keyframes=%d) and uncompactable: "
+                        "%d keyframes not added to retrieval", self.cfg.max_keyframes, n)
+            return
+        if k < n:
+            log.warning("pose-graph retrieval DB near its cap: dropping %d of %d keyframes "
+                        "from retrieval candidacy", n - k, n)
         if self._db_size + int(descs.shape[0]) > self.cfg.max_keyframes:
-            descs, valids, norms = descs[:n], valids[:n], norms[:n]
+            descs, valids, norms = descs[:k], valids[:k], norms[:k]
         self._ensure_capacity(self._db_size + int(descs.shape[0]), tuple(descs.shape[1:]))
         descs, valids, norms = self._pad_row_width(descs, valids, norms)
         s, m = self._db_size, int(descs.shape[0])
@@ -511,12 +626,12 @@ class PoseGraph:
         self._dev_valid[s:s + m] = valids
         self._dev_norm[s:s + m] = norms
         if kf_indices is not None:
-            new_idx = np.asarray(kf_indices, np.int64)[:n]
+            new_idx = np.asarray(kf_indices, np.int64)[:k]
         else:
             start = self._next_db_index()
-            new_idx = np.arange(start, start + n)
+            new_idx = np.arange(start, start + k)
         self._db_index = np.append(self._db_index, new_idx)
-        self._db_size += n
+        self._db_size += k
 
     def detect_scores_batch(self, descs, valids) -> Optional[np.ndarray]:
         """(K, cap) raw scores of K queries against the DB; None if empty."""
@@ -562,17 +677,25 @@ class PoseGraph:
 
     def add_keyframe_extracted(self, t: float, P_vio, Q_vio, wp_world, wp_norm, wp_valid,
                                kp_uv, kp_norm, kp_valid, kp_desc, wp_desc,
-                               detect_loop: bool = True) -> Optional[dict]:
+                               detect_loop: bool = True, scores=None, append_db: bool = True,
+                               optimize_now: bool = True) -> Optional[dict]:
+        """``add_keyframe`` with the features extracted.  ``scores``: raw
+        retrieval scores over the DB already computed (``detect_scores_batch``);
+        ``append_db=False`` leaves the DB append to the caller
+        (``_db_append_block``); ``optimize_now=False`` leaves the PGO to the
+        caller (the reference's optimize4DoF thread wakes every 2 s,
+        ``pose_graph.cpp:410-581``)."""
         kf, cand = self.insert_keyframe(t, P_vio, Q_vio, wp_world, wp_norm, wp_valid,
                                         kp_uv, kp_norm, kp_valid, kp_desc, wp_desc,
-                                        detect_loop=detect_loop)
+                                        detect_loop=detect_loop, scores=scores)
         loop_info = None
         if cand is not None:
             loop_info = self._find_connection(kf, self.keyframes[cand])
             if loop_info is not None:
                 self.accept_loop(kf, cand, loop_info)
-        self._db_append(*combined_old_rows(kf, self.device), kf_index=kf.index)
-        if loop_info is not None:
+        if append_db:
+            self._db_append(*combined_old_rows(kf, self.device), kf_index=kf.index)
+        if loop_info is not None and optimize_now:
             self.optimize()
         return loop_info
 

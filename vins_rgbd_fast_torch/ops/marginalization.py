@@ -2,9 +2,13 @@
 ``marginalize_new`` and ``_schur_sqrt_prior(method="chol")`` in
 ``vins_rgbd_fast_tpu/ops/marginalization.py``), over B sequences.
 
-The drop/keep sets are static index lists, applied here by plain indexing
+The drop/keep sets are static index lists, gathered here by plain indexing
 where the JAX package contracts constant one-hot matrices (same values:
-each selector row has a single 1).  Failed Cholesky factors become NaN.
+each selector row has a single 1).  The placement of the new prior at its
+post-slide positions stays a one-hot product, as in JAX: marginalize-new
+maps the speed-biases of slots W-1 and W to one position, and the product
+adds their columns (an indexed store would keep one of them, on CUDA an
+unspecified one per element).  Failed Cholesky factors become NaN.
 """
 
 from __future__ import annotations
@@ -100,7 +104,9 @@ def _schur_sqrt_prior(H, b, drop, keep, new_pos):
     rp = torch.linalg.solve_triangular(Lk, g[..., None], upper=False)[..., 0]
     B = H.shape[0]
     J_new = torch.zeros((B, NX, NX), dtype=H.dtype, device=dev)
-    J_new[:, :nk, quat.const(tuple(new_pos), torch.int64, dev)] = Lk.transpose(1, 2)
+    place = (quat.const(tuple(new_pos), torch.int64, dev)[:, None]
+             == quat.const(tuple(range(NX)), torch.int64, dev)).to(H.dtype)  # (nk, NX)
+    J_new[:, :nk] = Lk.transpose(1, 2) @ place
     r_new = torch.zeros((B, NX), dtype=H.dtype, device=dev)
     r_new[:, :nk] = rp
     return J_new, r_new

@@ -7,7 +7,8 @@ Unlike the JAX runner, which is handed a state warmed by the host
 pipeline, this runner warms itself (``warm``: 11 window-filling frames and
 the static initialization).  ``run`` processes T staged frames with no
 host synchronisation per frame; outputs stay on the device and are
-stacked at the end.
+stacked at the end.  Loop closure rides on the outputs between segments
+(``parallel/loop_closer.BatchedLoopCloser``, ``ThreadedLoopCloser``).
 """
 
 from __future__ import annotations
@@ -38,13 +39,20 @@ class FrameBatch(NamedTuple):
 
 
 class ScanOutputs(NamedTuple):
-    """Per-frame per-sequence outputs, stacked (T, B, ...)."""
+    """Per-frame per-sequence outputs, stacked (T, B, ...).  The ``wp_*``
+    fields are the newest frame's depth-anchored landmarks (pre-slide):
+    what the pose graph needs to build a keyframe (``BatchedLoopCloser``)."""
     P: torch.Tensor
     Q: torch.Tensor
     V: torch.Tensor
     cost: torch.Tensor
     is_keyframe: torch.Tensor
     n_features: torch.Tensor
+    wp_world: torch.Tensor  # (T, B, MAXF, 3)
+    wp_uv: torch.Tensor     # (T, B, MAXF, 2)
+    wp_norm: torch.Tensor   # (T, B, MAXF, 2)
+    wp_valid: torch.Tensor  # (T, B, MAXF)
+    wp_ids: torch.Tensor    # (T, B, MAXF) feature ids
 
 
 def gyro_relative_R(dts, gyr, bg, qic) -> torch.Tensor:
@@ -170,5 +178,8 @@ class BatchedVioRunner:
                                              batch.imgs[k], batch.depths[k], batch.ts[k],
                                              imu, self.ransac_uniforms())
             outs.append(ScanOutputs(P=sout.P, Q=sout.Q, V=sout.V, cost=sout.cost,
-                                    is_keyframe=sout.is_keyframe, n_features=sout.n_features))
+                                    is_keyframe=sout.is_keyframe, n_features=sout.n_features,
+                                    wp_world=sout.wp_world, wp_uv=sout.wp_uv,
+                                    wp_norm=sout.wp_norm, wp_valid=sout.wp_valid,
+                                    wp_ids=sout.wp_ids))
         return trk, st, ScanOutputs(*[torch.stack(f) for f in zip(*outs)])
