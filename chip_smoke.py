@@ -20,7 +20,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      where both versions say ok;
   4b. K3 (the LK iteration loop) against its plain version on the same
      tracks at B = 1 and B = 8, N = 200, both levels (the K2 bounds), and
-     ``pyramidal_lk``'s K3 route against its K2 route;
+     at the VO path's shapes: 1 × 376 cold tracks (the 376 strongest
+     corners, started at their own positions) on 4 levels down to 80×60;
+     and ``pyramidal_lk``'s K3 route against its K2 route on each;
   5. the main path: B = 8 sequences at 640×480 rendered on the device,
      ``BatchedVioRunner.warm`` (11 window-filling frames + static init) and
      ``run`` over T steady frames; finite costs, every kernel launched by
@@ -38,11 +40,12 @@ Phases (each prints one line; any failure raises and exits non-zero):
      kernel's device ms per frame by name;
   7. the latency path: ``VinsPipeline`` over one 640×480 stream (the bench's
      ``run_latency`` with ``BENCH_LAT_LOOP=0``): 16 warm-up frames through
-     ``spin_once``, then 96 timed frames (CUDA-synchronised wall time);
+     ``spin_once``, then 48 timed frames (CUDA-synchronised wall time);
      NON_LINEAR after the warm-up, ATE under max(0.05·travelled, 0.08 m),
      K1 once and K3 twice per frame and K2 never, and a profile of a few
      more frames that must show no host wait inside ``spin_once``;
-  8. K3 timings per level at 1×200 and 8×200, as in phase 6;
+  8. K3 timings per level at 1×200 and 8×200, as in phase 6, and at the
+     VO shape 1×376 on levels 3..0;
   9. the latency path with loop closure (the bench's default
      ``run_latency``): the revisit scene with a gyro pulse, ``VinsPipeline
      (loop_closure, fast_relocalization)`` with the pose graph on the
@@ -77,9 +80,25 @@ Phases (each prints one line; any failure raises and exits non-zero):
      phase 5's step; and a profile of one real segment (the last one again,
      ``run`` then ``submit``) while a threaded closer advances the earlier
      segments submitted to it, with no host wait on the frame thread inside
-     the span (the worker's waits are counted apart).
-Phases 5, 7, 9 and 10 each zero the kernels' launch counters just before
-their path and read them just after; the ``kernels`` line sums the four.
+     the span (the worker's waits are counted apart);
+ 11. VO mode on the latency path (the TUM RGB-D rig's knobs: no IMU,
+     ``max_cnt`` 250 = 376 slots): phase 9's scene and configuration with
+     no IMU pushed, cold LK on 4 levels, the PnP pose init and the 6-DoF
+     pose graph on the worker; 16 warm-up frames, then 96 timed frames;
+     NON_LINEAR after the warm-up, ATE under its bound, at least one loop
+     and one 6-DoF solve, the loop-corrected keyframe ATE at most 5 mm
+     above the VO keyframes', K1 once per frame plus once per extracted
+     keyframe, K3 four times per frame, K2 never, and a profile with no
+     host wait on the frame thread; 11b. that run's map saved
+     (``PoseGraph.save``) and loaded into a fresh VO pipeline that replays
+     the last 48 frames from its own origin: at least one loop onto a
+     loaded keyframe, and the map through the reference's directory format
+     and back; 11c. a VO pipeline with the pose graph inline checkpointed
+     mid-stream (``io/checkpoint.py``) and resumed in a fresh one: the
+     resumed positions within 1e-4 m of the uninterrupted run's.
+Phases 5, 7, 9, 10 and 11 each zero the kernels' launch counters just
+before their path and read them just after; the ``kernels`` line sums the
+five.  A line before the card's lists each phase's wall seconds.
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA it exits
 non-zero before printing any result.
 """
@@ -369,6 +388,14 @@ def latency_config(rig, seq, max_cnt: int = 130) -> VinsConfig:
         keyframe_parallax=10.0)
 
 
+def envelope(pipe: VinsPipeline) -> VinsPipeline:
+    """The bench's latency envelope on a pipeline: LM 2 iterations, LK 12
+    fine / 6 coarse."""
+    pipe.estimator.cfg = dataclasses.replace(pipe.estimator.cfg, max_iters=2)
+    pipe.tcfg = dataclasses.replace(pipe.tcfg, lk_max_iters=12, lk_coarse_iters=6)
+    return pipe
+
+
 def run_latency_path(device, n_frames: int = 112, warmup: int = 16, W: int = 640,
                      H: int = 480, max_cnt: int = 130, profile: int = 0, path=None,
                      revisit: bool = False):
@@ -388,10 +415,8 @@ def run_latency_path(device, n_frames: int = 112, warmup: int = 16, W: int = 640
                                   acc_scale=0.3)
         cfg = latency_config(rig, seq, max_cnt)
     ts, imgs, deps = syn.render_sequence(seq, rig, device)
-    pipe = VinsPipeline(cfg, device, eager_outputs=False, failure_check_interval=10 ** 9,
-                        fused_steady_state=True)
-    pipe.estimator.cfg = dataclasses.replace(pipe.estimator.cfg, max_iters=2)
-    pipe.tcfg = dataclasses.replace(pipe.tcfg, lk_max_iters=12, lk_coarse_iters=6)
+    pipe = envelope(VinsPipeline(cfg, device, eager_outputs=False,
+                                 failure_check_interval=10 ** 9, fused_steady_state=True))
     for (t, a, g) in seq.imu:
         pipe.push_imu(t, a, g)
 
@@ -452,6 +477,14 @@ def loop_config(rig, seq, max_cnt: int = 130, max_kp: int = 192):
     return cfg, pg
 
 
+def vo_config(rig, seq, max_cnt: int = 250, max_kp: int = 192):
+    """The loop cell with the TUM RGB-D rig's VO knobs (``imu`` 0,
+    ``max_cnt`` 250: 376 feature slots) and the 6-DoF pose graph; the rest
+    as ``loop_config``."""
+    cfg, pg = loop_config(rig, seq, max_cnt, max_kp)
+    return dataclasses.replace(cfg, imu=False), dataclasses.replace(pg, use_6dof=True)
+
+
 def revisit_scene(rig, n_frames: int, extra: int = 0, seed: int = 207, imu_seed: int = 307):
     """The bench's loop scene: ``make_revisit_trajectory(n_frames, seed,
     accel 1.5, sideways, 2 cycles)`` with the gyro pulse of ``corrupt_imu
@@ -469,22 +502,24 @@ def revisit_scene(rig, n_frames: int, extra: int = 0, seed: int = 207, imu_seed:
 
 def run_loop_path(device, n_frames: int = 112, warmup: int = 16, W: int = 640, H: int = 480,
                   max_cnt: int = 130, max_kp: int = 192, profile: int = 0, path=None,
-                  eager: bool = False):
+                  eager: bool = False, vo: bool = False):
     """bench.py run_latency with BENCH_LAT_LOOP=1 on the port: the revisit
     scene rendered on the device first, the fused steady state with no
     read-back per frame, the envelope, and the pose graph on the
     ``AsyncLoopStager``'s worker (with ``eager``, inline in each frame's
     ``spin_once``, every frame read back).  The launch counters are zeroed
     after the warm-up and the stager's warm-up, just before the timed
-    frames; ``profile`` frames (async only) run under the profiler after."""
+    frames; ``profile`` frames (async only) run under the profiler after.
+    With ``vo``, VO mode (``vo_config``: no IMU pushed, cold LK on 4
+    levels, PnP pose init, the 6-DoF graph).  The result keeps the pose
+    graph (``graph``) and the scene (``scene``)."""
     rig, _, _, _ = slice_config(W, H, max_cnt)
     seq = revisit_scene(rig, n_frames, profile)
     ts, imgs, deps = syn.render_sequence(seq, rig, device)
-    cfg, pg_cfg = loop_config(rig, seq, max_cnt, max_kp)
-    pipe = VinsPipeline(cfg, device, eager_outputs=eager, failure_check_interval=10 ** 9,
-                        fused_steady_state=True, pose_graph_config=pg_cfg)
-    pipe.estimator.cfg = dataclasses.replace(pipe.estimator.cfg, max_iters=2)
-    pipe.tcfg = dataclasses.replace(pipe.tcfg, lk_max_iters=12, lk_coarse_iters=6)
+    cfg, pg_cfg = (vo_config if vo else loop_config)(rig, seq, max_cnt, max_kp)
+    pipe = envelope(VinsPipeline(cfg, device, eager_outputs=eager,
+                                 failure_check_interval=10 ** 9, fused_steady_state=True,
+                                 pose_graph_config=pg_cfg))
     graph = pipe.pose_graph
     stager = pipe._loop_stager  # None with eager
     consumed = []  # relocalizations the worker fed back to the graph
@@ -496,7 +531,7 @@ def run_loop_path(device, n_frames: int = 112, warmup: int = 16, W: int = 640, H
             consume_relo(p)
 
         stager._consume_relo = counted
-    for (t, a, g) in seq.imu:
+    for (t, a, g) in ([] if vo else seq.imu):
         pipe.push_imu(t, a, g)
 
     def feed(k0, k1):
@@ -564,10 +599,16 @@ def run_loop_path(device, n_frames: int = 112, warmup: int = 16, W: int = 640, H
                 bound=max(0.05 * travelled, 0.08), frames=n_frames, timed=n_timed,
                 kf_timed=kf_timed, solver_flag_after_warmup=flag, counts=counts,
                 loops_timed=loops_timed, relo_consumed=relo_timed, relo_keyframes=consumed,
-                worker_s=stages, profile=prof, timer=pipe.timer.summary())
+                worker_s=stages, profile=prof, timer=pipe.timer.summary(), vo=vo,
+                lk_levels=pipe.tcfg.pyr_levels_cold if vo else pipe.tcfg.pyr_levels_predicted,
+                solves_6dof=graph.n_solves_6dof, graph=graph,
+                scene=(seq, ts, imgs, deps, cfg, pg_cfg))
 
 
 def check_loop_path(res, on_gpu: bool = True) -> None:
+    """Phase 9's checks, and phase 11's in VO mode: there at least one
+    6-DoF solve, K3 on 4 levels, and the loop-corrected keyframe ATE within
+    5 mm above the VO keyframes' (VO on clean frames may barely drift)."""
     require(res["solver_flag_after_warmup"] == est.VinsEstimator.NON_LINEAR,
             "NON_LINEAR after the warm-up")
     for k in ("latency_ate_m", "latency_loop_ate_m", "latency_vio_kf_ate_m"):
@@ -575,19 +616,131 @@ def check_loop_path(res, on_gpu: bool = True) -> None:
     require(res["latency_ate_m"] < res["bound"], ("latency ATE", res["latency_ate_m"],
                                                   res["bound"]))
     require(res["latency_loops"] >= 1, ("loops", res["loops"]))
-    require(res["latency_loop_ate_m"] <= res["latency_vio_kf_ate_m"],
+    slack = 0.005 if res["vo"] else 0.0
+    require(res["latency_loop_ate_m"] <= res["latency_vio_kf_ate_m"] + slack,
             ("loop-corrected keyframe ATE above the VIO one", res["latency_loop_ate_m"],
              res["latency_vio_kf_ate_m"]))
+    if res["vo"]:
+        require(res["solves_6dof"] >= 1, ("6-DoF solves", res["solves_6dof"]))
     if on_gpu and res["loops_timed"]:  # the loops come back from the solver as relocalizations
         require(res["relo_consumed"] >= 1, ("no relocalization consumed", res["loops_timed"],
                                             res["relo_consumed"]))
     if on_gpu:  # K1 per frame and per extracted keyframe, K3 per level, never K2
         n = res["timed"]
         require(res["counts"] == {"fast_nms": n + res["kf_timed"], "lk_level": 0,
-                                  "lk_iterate": 2 * n}, ("loop-path launches", res["counts"]))
+                                  "lk_iterate": res["lk_levels"] * n},
+                ("loop-path launches", res["counts"]))
     if res["profile"] is not None:
         require(res["profile"]["host_syncs"] == 0,
                 ("no host wait on the frame thread", res["profile"]["host_sync_calls"]))
+
+
+def run_map_roundtrip(device, vo_res, tail: int = 48, workdir: str = OUT_DIR):
+    """Phase 11b: the pose graph of a VO loop run (``run_loop_path(vo=True)``)
+    saved with ``PoseGraph.save``, loaded into a fresh VO pipeline (the pose
+    graph inline), which replays the last ``tail`` frames of the scene from
+    its own origin; then the graph, loaded map and new keyframes, through the
+    reference's map directory (``save_reference_pose_graph`` into
+    ``load_reference_pose_graph``)."""
+    from vins_rgbd_fast_torch.loop.interop import (load_reference_pose_graph,
+                                                   save_reference_pose_graph)
+    from vins_rgbd_fast_torch.loop.pose_graph import PoseGraph
+
+    seq, ts, imgs, deps, cfg, pg_cfg = vo_res["scene"]
+    n = vo_res["frames"]
+    with tempfile.TemporaryDirectory(dir=workdir) as d:
+        path = os.path.join(d, "map.npz")
+        vo_res["graph"].save(path)
+        pipe = envelope(VinsPipeline(cfg, device, eager_outputs=True,
+                                     failure_check_interval=10 ** 9, fused_steady_state=True,
+                                     pose_graph_config=pg_cfg))
+        g = pipe.pose_graph
+        g.load(path)
+        n_map = len(g.keyframes)
+        for k in range(n - tail, n):
+            pipe.push_image(ts[k], imgs[k])
+            pipe.push_depth(ts[k], deps[k])
+            pipe.spin_once()
+        pipe.close()
+        on_map = [(lp["cur"], lp["old"], lp["n_inliers"]) for lp in g.loops
+                  if lp["cur"] >= n_map and g.keyframes[lp["old"]].sequence == 0]
+        ref_dir = os.path.join(d, "reference_map")
+        save_reference_pose_graph(ref_dir, g)
+        back = PoseGraph(g.cfg, g.cam, g.ric, g.tic, device)
+        n_back = load_reference_pose_graph(ref_dir, back)
+    kp_equal = all(  # the valid keypoints' descriptors, front-packed on the way back
+        np.array_equal(b.kp_desc[:int(np.sum(b.kp_valid))],
+                       torch.as_tensor(a.kp_desc).cpu().numpy()[np.asarray(a.kp_valid, bool)])
+        for a, b in zip(g.keyframes, back.keyframes))
+    corr = max(float(np.abs(np.asarray(back.corrected[b.index][0], np.float64)
+                            - np.asarray(g.corrected.get(a.index, (a.P_vio, a.Q_vio))[0])).max())
+               for a, b in zip(g.keyframes, back.keyframes))
+    latest = {int(lp["cur"]): lp for lp in g.loops}
+    return dict(map_keyframes=n_map, keyframes=len(g.keyframes), new_keyframes=len(g.keyframes)
+                - n_map, loops_on_map=on_map, aligned=bool(g.sequence_aligned.get(g.sequence)),
+                solves_6dof=g.n_solves_6dof, interop_keyframes=n_back,
+                interop_desc_equal=kp_equal, interop_corrected_err=corr,
+                interop_loops=[(lp["cur"], lp["old"]) for lp in back.loops],
+                loops_by_cur=[(c, int(lp["old"])) for c, lp in sorted(latest.items())])
+
+
+def check_map_roundtrip(res) -> None:
+    require(res["new_keyframes"] >= 1, ("keyframes after the load", res))
+    require(len(res["loops_on_map"]) >= 1, ("no loop against the loaded map", res))
+    require(res["interop_keyframes"] == res["keyframes"], ("reference map keyframes", res))
+    require(res["interop_desc_equal"], "reference map descriptors")
+    require(res["interop_corrected_err"] < 1e-6, ("reference map poses", res))
+    require(res["interop_loops"] == res["loops_by_cur"], ("reference map loops", res))
+
+
+def run_checkpoint_resume(device, n_frames: int = 96, cut: int = 64, W: int = 640,
+                          H: int = 480, max_cnt: int = 250, max_kp: int = 192,
+                          workdir: str = OUT_DIR):
+    """Phase 11c: a VO pipeline with the pose graph inline over the revisit
+    scene, checkpointed (``io/checkpoint.save_pipeline``) after frame
+    ``cut``, runs on to ``n_frames``; a fresh pipeline resumed from the
+    checkpoint (``load_pipeline``) replays frames ``cut`` .. ``n_frames``.
+    Returns the largest difference of the two runs' newest positions."""
+    from vins_rgbd_fast_torch.io import checkpoint as ckpt
+
+    rig, _, _, _ = slice_config(W, H, max_cnt)
+    seq = revisit_scene(rig, n_frames)
+    ts, imgs, deps = syn.render_sequence(seq, rig, device)
+    cfg, pg_cfg = vo_config(rig, seq, max_cnt, max_kp)
+    kw = dict(eager_outputs=True, failure_check_interval=10 ** 9, fused_steady_state=True,
+              pose_graph_config=pg_cfg)
+
+    def feed(pipe, k0, k1):
+        out = []
+        for k in range(k0, k1):
+            pipe.push_image(ts[k], imgs[k])
+            pipe.push_depth(ts[k], deps[k])
+            o = pipe.spin_once()
+            out.append(None if o is None else np.asarray(o["P"], np.float64))
+        return out
+
+    with tempfile.TemporaryDirectory(dir=workdir) as d:
+        path = os.path.join(d, "pipeline.npz")
+        ref = envelope(VinsPipeline(cfg, device, **kw))
+        feed(ref, 0, cut)
+        ckpt.save_pipeline(ref, path)
+        tail_ref = feed(ref, cut, n_frames)
+        ref.close()
+        res = envelope(ckpt.load_pipeline(cfg, path, device, **kw))
+        tail_res = feed(res, cut, n_frames)
+        res.close()
+    both = [(a, b) for a, b in zip(tail_ref, tail_res) if a is not None and b is not None]
+    same_outputs = [a is None for a in tail_ref] == [b is None for b in tail_res]
+    return dict(frames=n_frames, cut=cut, outputs=len(both), same_outputs=same_outputs,
+                max_dP=max(float(np.abs(a - b).max()) for a, b in both) if both else float("nan"),
+                keyframes=(len(ref.pose_graph.keyframes), len(res.pose_graph.keyframes)),
+                loops=(len(ref.pose_graph.loops), len(res.pose_graph.loops)))
+
+
+def check_checkpoint_resume(res) -> None:
+    require(res["same_outputs"] and res["outputs"] == res["frames"] - res["cut"],
+            ("resumed outputs", res))
+    require(res["max_dP"] <= 1e-4, ("resumed trajectory", res))
 
 
 def batched_loop_scene(rig, B: int, n_frames: int, n_revisit: int):
@@ -765,6 +918,11 @@ def check_batched_loop_path(res, on_gpu: bool = True) -> None:
                 ("no host wait on the frame thread", res["profile"]["host_sync_calls"]))
 
 
+def jsonable(res) -> dict:
+    """A loop-path result without its pose graph and scene."""
+    return {k: v for k, v in res.items() if k not in ("graph", "scene")}
+
+
 def require(ok, what) -> None:
     """A check of this script's results (raises even under ``python -O``)."""
     if not ok:
@@ -850,6 +1008,21 @@ class LaunchTimer:
                            f"{self.reps} calls, longer than every spin; no device time")
 
 
+def k3_vo_inputs(prev_img, cur_img, thr: float, N: int, levels: int = 4):
+    """Cold tracks between two frames at the VO path's shapes: the N
+    strongest FAST corners of prev (a stable descending sort, the keyframe
+    extraction's order), started at their own positions, on ``levels``
+    pyramid levels (4: the TUM rig's cold LK)."""
+    score = fast.nms3(fast.fast_score(prev_img, thr))
+    vals, idx = torch.sort(score.reshape(score.shape[0], -1), dim=1, descending=True,
+                           stable=True)
+    vals, idx = vals[:, :N], idx[:, :N]
+    W = prev_img.shape[-1]
+    pts = torch.stack([idx % W, idx // W], dim=-1).to(prev_img.dtype).contiguous()
+    return (image.build_pyramid(prev_img, levels), image.build_pyramid(cur_img, levels),
+            pts, pts.clone(), (vals > 0).contiguous())
+
+
 def k2_inputs(prev_img, cur_img, tcfg, N: int, gen):
     """Tracks between two frames at the slice's shapes: the N strongest
     FAST corners of prev, warm-started with a noisy flow (a few are pushed
@@ -927,11 +1100,13 @@ def k3_args(prev_pyr, cur_pyr, pts, flow, active, l: int, iters: int):
 
 
 def compare_k3(prev_pyr, cur_pyr, pts, init, active, tcfg):
-    """Both levels, K3 and ``lk_iterate_plain`` on identical inputs, then
-    the K3 route of ``pyramidal_lk`` against its K2 route."""
+    """Every level of the pyramids, coarse to fine, K3 and
+    ``lk_iterate_plain`` on identical inputs, then the K3 route of
+    ``pyramidal_lk`` against its K2 route."""
     report = []
-    flow = (init - pts) / 2.0
-    for l in (1, 0):
+    levels = len(prev_pyr)
+    flow = (init - pts) / 2.0 ** (levels - 1)
+    for l in range(levels - 1, -1, -1):
         iters = tcfg.lk_max_iters if l == 0 else tcfg.lk_coarse_iters
         args, st_args = k3_args(prev_pyr, cur_pyr, pts, flow, active, l, iters)
         u_k, err_k = lk.lk_iterate(*args)  # CUDA tensors: the kernel
@@ -1081,6 +1256,12 @@ def main() -> int:
               file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
+    t_run = time.perf_counter()
+    phase_s = {}
+
+    def done(phase):  # wall seconds of each phase: the script's time budget
+        phase_s[phase] = round(time.perf_counter() - t_run - sum(phase_s.values()), 1)
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     require(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
@@ -1113,6 +1294,8 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
 
+    done("1-2")
+
     # 3. K1 bit-exactness at both path shapes (noise defeats the pre-test)
     noise = torch.rand((B, 480, 640), generator=gen, device=dev) * 255.0
     k1_err, corners = 0.0, {}
@@ -1141,11 +1324,15 @@ def main() -> int:
           f"(scalar path); corners {corners}",
           flush=True)
 
+    done("3")
+
     # 4. K2 vs plain at the slice's shapes
     k2_in = k2_inputs(frame0, frame1, tcfg_run, N, gen)
     rep = compare_k2(*k2_in, tcfg_run)
     print("[4 K2] " + summary(rep), flush=True)
     k2_err = check_parity("K2", rep)
+
+    done("4")
 
     # 4b. K3 vs plain at the latency shape (B = 1) and the batched one
     k3_in = {1: tuple(([x[:1].contiguous() for x in a] if isinstance(a, list)
@@ -1153,7 +1340,15 @@ def main() -> int:
     rep3 = {b: compare_k3(*k3_in[b], tcfg_run) for b in k3_in}
     for b, r in rep3.items():
         print(f"[4b K3] B={b}: " + summary(r), flush=True)
+    # ... and at the VO path's shapes: 1 x 376 cold tracks on 4 levels
+    NV = 376
+    k3_vo = k3_vo_inputs(frame0[:1].contiguous(), frame1[:1].contiguous(), tcfg.fast_threshold,
+                         NV)
+    rep3["vo"] = compare_k3(*k3_vo, tcfg_run)
+    print(f"[4b K3] VO 1x{NV}, {len(k3_vo[0])} levels, cold: " + summary(rep3["vo"]), flush=True)
     k3_err = max(check_parity("K3", r) for r in rep3.values())
+
+    done("4b")
 
     # 5. the main path
     res = run_main_path(dev, B, T, extra=EXTRA, timer=CudaTimer())
@@ -1165,6 +1360,8 @@ def main() -> int:
           f"ATE m {[round(a, 4) for a in res['ates']]} (bounds "
           f"{[round(b, 3) for b in res['bounds']]}); features/seq "
           f"{res['n_features'][-1].tolist()}", flush=True)
+
+    done("5")
 
     # 6. timings and profile
     timer = LaunchTimer()
@@ -1224,8 +1421,14 @@ def main() -> int:
     print(f"[6 profile] {prof}", flush=True)
     require(prof["host_syncs"] == 0, "no host synchronisation inside run()")
 
-    # 7. the latency path (its own launch counts, zeroed just before it)
-    lat = run_latency_path(dev, profile=6, path=os.path.join(OUT_DIR, "profile_latency.txt"))
+    done("6")
+
+    # 7. the latency path (its own launch counts, zeroed just before it), at a
+    # depth of 16 + 48 frames and 3 profiled (each profiled frame's trace
+    # takes seconds to export and read): the script's time goes to the later
+    # phases
+    lat = run_latency_path(dev, n_frames=64, profile=3,
+                           path=os.path.join(OUT_DIR, "profile_latency.txt"))
     check_latency_path(lat)
     print(f"[7 latency] 1 stream 640x480, warm 16 + {lat['frames'] - 16} timed frames: "
           f"latency_fps {lat['latency_fps']:.2f}, latency_ms_per_frame "
@@ -1233,19 +1436,31 @@ def main() -> int:
           f"{lat['latency_ate_m']:.4f} (bound {lat['bound']:.3f}); launches {lat['counts']}; "
           f"profile {lat['profile']}", flush=True)
 
-    # 8. K3 timing per level at both shapes
-    for b, (prev_pyr, cur_pyr, pts, init, active) in k3_in.items():
-        for l in (1, 0):
+    done("7")
+
+    # 8. K3 timing per level at the three shapes (VO: at each level the flow
+    # the plain version carried down from the coarser levels; the others
+    # start every level at the coarse flow)
+    for b, (prev_pyr, cur_pyr, pts, init, active) in list(k3_in.items()) + [("vo", k3_vo)]:
+        L = len(prev_pyr)
+        flow = (init - pts) / 2.0 ** (L - 1)
+        n = pts.shape[1]
+        for l in range(L - 1, -1, -1):
             iters = tcfg_run.lk_max_iters if l == 0 else tcfg_run.lk_coarse_iters
-            args, _ = k3_args(prev_pyr, cur_pyr, pts, ((init - pts) / 2.0), active, l, iters)
+            args, _ = k3_args(prev_pyr, cur_pyr, pts, flow, active, l, iters)
             steps = gn_steps(lambda k: lk.lk_iterate_plain(*args[:12], k, args[13])[0], iters)
-            timing("lk_iterate", f"{b}x{N} level {l}", lambda: lk._lk_iterate_cuda(*args),
+            shape = f"1x{n} level {l} VO" if b == "vo" else f"{b}x{n} level {l}"
+            timing("lk_iterate", shape, lambda: lk._lk_iterate_cuda(*args),
                    lambda: lk.lk_iterate_plain(*args),
-                   kernel_bounds(b, 0, 0, N, iters, steps=sum(steps))["lk_iterate"])
+                   kernel_bounds(pts.shape[0], 0, 0, n, iters, steps=sum(steps))["lk_iterate"])
             timings[-1]["points_by_step"] = steps
+            if b == "vo":
+                flow = 2.0 * lk.lk_iterate_plain(*args)[0]
+
+    done("8")
 
     # 9. the latency path with loop closure (its own launch counts)
-    loop = run_loop_path(dev, profile=6, path=os.path.join(OUT_DIR, "profile_loop.txt"))
+    loop = run_loop_path(dev, profile=3, path=os.path.join(OUT_DIR, "profile_loop.txt"))
     require(loop["profile"] is not None, "phase 9 profiled")
     check_loop_path(loop)
     print(f"[9 loop] 1 stream 640x480 revisit scene, warm 16 + {loop['timed']} timed frames, "
@@ -1261,9 +1476,11 @@ def main() -> int:
           f"consumed by the worker in the timed frames (keyframes {loop['relo_keyframes']}); "
           f"worker seconds by stage {loop['worker_s']}; profile {loop['profile']}", flush=True)
 
+    done("9")
+
     # 9b. the same scene and configuration with no pose graph (the relo
     # block in the solve, never active): what the worker costs the frame thread
-    alone = run_latency_path(dev, profile=6, revisit=True,
+    alone = run_latency_path(dev, profile=3, revisit=True,
                              path=os.path.join(OUT_DIR, "profile_loop_no_graph.txt"))
     check_latency_path(alone, on_gpu=False)
     print(f"[9b no graph] the loop cell without the pose graph: latency_ms_per_frame "
@@ -1274,6 +1491,8 @@ def main() -> int:
           f"{alone['profile']['device_ms_per_frame']} device ms per frame, busy "
           f"{alone['profile']['busy_share']}, {alone['profile']['host_syncs']} host waits",
           flush=True)
+
+    done("9b")
 
     # 9c. 9b and 9 again in the reverse order (9, 9b, 9b, 9): the host's
     # speed drifts within a call, and the pairs' mean cancels a linear drift
@@ -1288,6 +1507,8 @@ def main() -> int:
           f"worker costs the frame thread {100 * worker_cost:.1f} % (pair means); "
           f"latency_loops of the second 9: {loop2['latency_loops']}", flush=True)
 
+    done("9c")
+
     # 9d. the pose graph inline (eager outputs: every frame read back)
     eager = run_loop_path(dev, eager=True)
     check_loop_path(eager)
@@ -1297,6 +1518,8 @@ def main() -> int:
           f"{eager['latency_vio_kf_ate_m']:.4f}, latency_kf {eager['latency_kf']}, "
           f"latency_loops {eager['latency_loops']} {eager['loops']}; launches {eager['counts']} "
           f"({eager['kf_timed']} keyframes extracted in the timed frames)", flush=True)
+
+    done("9d")
 
     # 10. the batched path with loop closure (its own launch counts)
     bl = run_batched_loop_path(dev, profile=True,
@@ -1318,10 +1541,50 @@ def main() -> int:
           f"keyframes per graph {bl['keyframes']}; loops per graph "
           f"{[len(x) for x in bl['loops']]}; profile {bl['profile']}", flush=True)
 
+    done("10")
+
+    # 11. VO mode: the loop cell with the TUM rig's knobs, no IMU, the 6-DoF
+    # graph on the worker (its own launch counts)
+    vo = run_loop_path(dev, max_cnt=250, profile=6, vo=True,
+                       path=os.path.join(OUT_DIR, "profile_vo.txt"))
+    require(vo["profile"] is not None, "phase 11 profiled")
+    check_loop_path(vo)
+    print(f"[11 VO loop] 1 stream 640x480 revisit scene, no IMU, max_cnt 250 "
+          f"({vo['graph'].cfg.max_wp} slots), warm 16 + {vo['timed']} timed frames, 6-DoF pose "
+          f"graph on the worker thread: latency_ms_per_frame {vo['latency_ms_per_frame']:.3f} "
+          f"(phase 9 in this run: {loop['latency_ms_per_frame']:.3f}), latency_fps "
+          f"{vo['latency_fps']:.2f}, latency_ate_m {vo['latency_ate_m']:.4f} (bound "
+          f"{vo['bound']:.3f}), latency_loop_ate_m {vo['latency_loop_ate_m']:.4f}, "
+          f"latency_vio_kf_ate_m {vo['latency_vio_kf_ate_m']:.4f}, latency_kf "
+          f"{vo['latency_kf']}, latency_loops {vo['latency_loops']} {vo['loops']}, 6-DoF solves "
+          f"{vo['solves_6dof']}; launches {vo['counts']} ({vo['kf_timed']} keyframes extracted "
+          f"in the timed frames); {vo['relo_consumed']} relocalizations consumed; worker "
+          f"seconds by stage {vo['worker_s']}; profile {vo['profile']}", flush=True)
+
+    done("11")
+
+    # 11b. the map: saved, loaded into a fresh VO pipeline that replays the
+    # revisit part, and through the reference's map directory
+    mp = run_map_roundtrip(dev, vo)
+    check_map_roundtrip(mp)
+    print(f"[11b map] {mp}", flush=True)
+
+    done("11b")
+
+    # 11c. checkpoint and resume mid-stream
+    ck = run_checkpoint_resume(dev)
+    check_checkpoint_resume(ck)
+    print(f"[11c checkpoint] resumed after frame {ck['cut']} of {ck['frames']}: {ck['outputs']} "
+          f"outputs, largest position difference {ck['max_dP']:.3e} m (bound 1e-4); keyframes "
+          f"{ck['keyframes']}, loops {ck['loops']} (uninterrupted, resumed)", flush=True)
+
+    done("11c")
+
     # the kernels line: per launch at the main path's shapes (K1 8x480x640,
     # K2 8x200 averaged over its two levels) and K3 at the latency path's
     # 1x200 (it never runs on the main path)
-    paths = {"batched": res, "latency": lat, "latency_loop": loop, "batched_loop": bl}
+    paths = {"batched": res, "latency": lat, "latency_loop": loop, "batched_loop": bl,
+             "latency_vo": vo}
     counts = {k: sum(r["counts"][k] for r in paths.values()) for k in KERNELS}
     errs = {"fast_nms": k1_err, "lk_level": k2_err, "lk_iterate": k3_err}
     main_shape = {"fast_nms": f"{B}x480x640 rendered", "lk_level": f"{B}x{N} level",
@@ -1347,15 +1610,17 @@ def main() -> int:
                 "batched": prof["by_kernel"][name]["device_ms_per_frame"],
                 "latency": lat["profile"]["by_kernel"][name]["device_ms_per_frame"],
                 "latency_loop": loop["profile"]["by_kernel"][name]["device_ms_per_frame"],
-                "batched_loop": bl["profile"]["by_kernel"][name]["device_ms_per_frame"]}))
+                "batched_loop": bl["profile"]["by_kernel"][name]["device_ms_per_frame"],
+                "latency_vo": vo["profile"]["by_kernel"][name]["device_ms_per_frame"]}))
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi, kernels=kernels, timings=timings, k2=rep, k3=rep3, main={
             k: res[k] for k in ("ates", "bounds", "counts", "run_ms", "wall_s", "frames")},
-            stages=stages, profile=prof, extraction=ext, latency=lat, latency_loop=loop,
-            latency_loop_no_graph=alone, abba_ms=ms, worker_cost=worker_cost,
-            latency_loop_eager=eager,
-            batched_loop={k: v for k, v in bl.items() if k != "cost"}), f,
-            indent=1, default=float)
+            stages=stages, profile=prof, extraction=ext, latency=lat,
+            latency_loop=jsonable(loop), latency_loop_no_graph=alone, abba_ms=ms,
+            worker_cost=worker_cost, latency_loop_eager=jsonable(eager),
+            batched_loop={k: v for k, v in bl.items() if k != "cost"}, latency_vo=jsonable(vo),
+            vo_map=mp, vo_checkpoint=ck, phase_s=phase_s), f, indent=1, default=float)
+    print(f"[phases] wall seconds {phase_s}, {sum(phase_s.values()):.1f} in all", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,91 @@
+#!/usr/bin/env python3
+"""The end-to-end cells of ``chip_smoke.py`` for two checkouts, on one
+card, in turns.
+
+    python3 path_ab.py --old OTHER
+
+``OTHER`` is another checkout of this repository (for example the parent
+commit, unpacked with ``git archive`` into a directory that ``.gitignore``
+lists).  Each turn runs one checkout's own ``chip_smoke`` cell functions in
+a fresh process started in that checkout (its package, its kernel build),
+in the order old, new, new, old:
+  * batched: phase 5's step (``run_main_path``, B = 8 at 640×480, 11 warm-up
+    and 40 steady frames; ms per step by CUDA events);
+  * latency: phase 7's cell (``run_latency_path``, 16 warm-up and 96 timed
+    frames; ms per frame, CUDA-synchronised wall);
+  * loop: phase 9's cell (``run_loop_path``, the pose graph on the worker;
+    ms per frame, and the loops).
+Prints one line per turn; the last line is one JSON object with each cell's
+mean per checkout and the new/old ratio of the means (the turns go to
+``path_ab.json`` in ``chip_smoke.py``'s output directory).  Compare the
+ratio with the spread of one checkout's two turns.  Exits non-zero without
+CUDA or when a turn fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+import torch
+
+OUT_DIR = "chiprun_out"
+CELLS = ("batched", "latency", "loop")
+TURN = """
+import json, torch
+import chip_smoke as c
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+dev = torch.device("cuda", 0)
+b = c.run_main_path(dev, 8, 40, timer=c.CudaTimer())
+lat = c.run_latency_path(dev)
+loop = c.run_loop_path(dev)
+print(json.dumps(dict(batched=b["run_ms"] / 40, latency=lat["latency_ms_per_frame"],
+                      loop=loop["latency_ms_per_frame"], loops=loop["latency_loops"],
+                      ate=[float(a) for a in b["ates"]] + [lat["latency_ate_m"],
+                                                           loop["latency_ate_m"]])))
+"""
+
+
+def turn(checkout: str) -> dict:
+    res = subprocess.run([sys.executable, "-c", TURN], cwd=checkout, capture_output=True,
+                         text=True, timeout=900)
+    if res.returncode != 0:
+        raise RuntimeError(f"path_ab: the turn in {checkout} failed:\n{res.stderr[-4000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--old", required=True, help="another checkout of this repository")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("path_ab: CUDA is not available; this script runs only on a GPU", file=sys.stderr)
+        return 2
+    new = os.path.dirname(os.path.abspath(__file__))
+    turns = []
+    for name, checkout in (("old", args.old), ("new", new), ("new", new), ("old", args.old)):
+        r = turn(checkout)
+        turns.append(dict(checkout=name, **r))
+        print(f"[{name}] " + ", ".join(f"{k} {r[k]:.3f} ms" for k in CELLS)
+              + f", loops {r['loops']}", flush=True)
+    summary = {}
+    for k in CELLS:
+        m = {s: statistics.fmean(t[k] for t in turns if t["checkout"] == s)
+             for s in ("old", "new")}
+        summary[k] = dict(old_ms=m["old"], new_ms=m["new"], ratio=m["new"] / m["old"],
+                          old_spread=abs(turns[0][k] - turns[3][k]) / m["old"],
+                          new_spread=abs(turns[1][k] - turns[2][k]) / m["new"])
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "path_ab.json"), "w") as f:
+        json.dump(dict(turns=turns, summary=summary), f, indent=1)
+    print(json.dumps(summary))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

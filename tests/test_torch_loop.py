@@ -16,7 +16,6 @@ count), ``rel_t`` within 1e-4 and ``path()`` within 1e-3 m (the JAX graph's
 LM runs in float64 under the suite's x64 setting, the port's in float32)."""
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +28,7 @@ from tests.torch_parity import assert_close, f32, tn, tt
 from vins_rgbd_fast_torch import bridge
 from vins_rgbd_fast_torch.io import synthetic as tsyn
 from vins_rgbd_fast_torch.loop import brief as tbrief
+from vins_rgbd_fast_torch.loop import interop as tinterop
 from vins_rgbd_fast_torch.loop import pose_graph as tpg
 from vins_rgbd_fast_torch.models.camera import PinholeCamera
 from vins_rgbd_fast_torch.ops import fast as tfast
@@ -439,12 +439,11 @@ def test_cross_sequence_alignment_matches_jax():
     np.testing.assert_allclose(out[0][0], [1.5, 0.0, 0.0], atol=0.1)
 
 
-def test_pose_graph_unported_parts_raise():
-    tg, _ = _mini_graphs()
-    with pytest.raises(NotImplementedError):
-        tg.save(os.devnull)
-    with pytest.raises(NotImplementedError):
-        tg.load(os.devnull)
+def test_pose_graph_unported_parts_raise(tmp_path):
+    """The parts once refused now run (the 6-DoF ``optimize``, ``save`` and
+    ``load``; their parity is ``tests/test_torch_vo.py`` and
+    ``tests/test_torch_persistence.py``); what still raises is a malformed
+    reference map.  Then the DB compaction's parity."""
     tcam, _ = _cams()
     g = tpg.PoseGraph(tpg.PoseGraphConfig(max_kp=32, max_wp=16, use_6dof=True), tcam,
                       np.eye(3), np.zeros(3), "cpu")
@@ -455,8 +454,18 @@ def test_pose_graph_unported_parts_raise():
     g.loops.append(dict(cur=1, old=0, rel_t=np.zeros(3), rel_yaw=0.0,
                         rel_q=np.array([1.0, 0, 0, 0])))
     g.earliest_loop_index = 0
-    with pytest.raises(NotImplementedError):
-        g.optimize()
+    g.optimize()
+    assert g.n_solves_6dof == 1 and set(g.corrected) == {0, 1}
+    path = str(tmp_path / "map.npz")
+    g.save(path)
+    back = tpg.PoseGraph(g.cfg, tcam, np.eye(3), np.zeros(3), "cpu")
+    back.load(path)
+    assert [k.index for k in back.keyframes] == [0, 1] and back.loops[0]["old"] == 0
+    bad = tmp_path / "bad_map"
+    bad.mkdir()
+    (bad / "pose_graph.txt").write_text("0 0.0 1 2 3\n")
+    with pytest.raises(ValueError, match="26 fields"):
+        tinterop.load_reference_pose_graph(str(bad), back)
     # the retrieval DB at max_keyframes compacts as JAX's (keyframe 1 is in a
     # loop: kept), through both appends, a padded block included ...
     _, jcam = _cams()

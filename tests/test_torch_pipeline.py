@@ -39,6 +39,7 @@ from vins_rgbd_fast_torch.io import stream as tstream
 from vins_rgbd_fast_torch.io import synthetic as tsyn
 from vins_rgbd_fast_torch.pipeline import VinsPipeline as TPipeline
 from vins_rgbd_fast_torch.loop import pose_graph as tpg
+from vins_rgbd_fast_torch.parallel import batched_pipeline as tbp
 from vins_rgbd_fast_tpu import config as jconfig
 from vins_rgbd_fast_tpu.backend import estimator as jest
 from vins_rgbd_fast_tpu.io import stream as jstream
@@ -262,27 +263,34 @@ def test_load_config_matches_jax(tmp_path):
 
 
 def test_unported_options_raise(stream):
+    """What the port still refuses: dynamic init, td and extrinsic
+    estimation, CLAHE, the Mei camera, and VO on the batched runner.  VO
+    mode on the latency pipeline, its 6-DoF graph and the map's save and
+    load run (``tests/test_torch_vo.py``, ``tests/test_torch_persistence.py``)."""
     tcfg = stream[4]
     for change in (dict(static_init=False), dict(estimate_td=True), dict(estimate_extrinsic=2),
-                   dict(imu=False), dict(equalize=True)):
+                   dict(equalize=True)):
         with pytest.raises(NotImplementedError):
             TPipeline(dataclasses.replace(tcfg, **change), "cpu")
     with pytest.raises(NotImplementedError):
         dataclasses.replace(tcfg, model_type="MEI").camera()
-    pipe = TPipeline(dataclasses.replace(tcfg, loop_closure=True, fast_relocalization=True),
-                     "cpu")
-    with pytest.raises(NotImplementedError):
-        pipe.pose_graph.save(os.devnull)
+    rig, btcfg, becfg, bcam = chip_smoke.slice_config(W, H, MAX_CNT)
+    with pytest.raises(NotImplementedError, match="VO"):
+        tbp.BatchedVioRunner(btcfg, bcam, dataclasses.replace(becfg, use_imu=False), "cpu", 1)
+    pipe = TPipeline(dataclasses.replace(tcfg, imu=False, loop_closure=True,
+                                         fast_relocalization=True), "cpu")
+    assert pipe.pose_graph.cfg.use_6dof and not pipe.estimator.cfg.use_imu
     vo = tpg.PoseGraph(dataclasses.replace(pipe.pose_graph.cfg, use_6dof=True), pipe.cam,
                        np.eye(3), np.zeros(3), "cpu")
     vo.keyframes = [tpg.KeyFrameData(index=i, t=float(i), sequence=1, P_vio=np.full(3, 0.1 * i),
                                      Q_vio=np.array([1.0, 0, 0, 0]), kp_uv=None, kp_norm=None,
                                      kp_valid=None, kp_desc=None, wp_world=None, wp_norm=None,
                                      wp_valid=None, wp_desc=None) for i in range(2)]
-    vo.loops = [dict(cur=1, old=0, rel_t=np.zeros(3), rel_yaw=0.0)]
+    vo.loops = [dict(cur=1, old=0, rel_t=np.zeros(3), rel_yaw=0.0,
+                     rel_q=np.array([1.0, 0, 0, 0]))]
     vo.earliest_loop_index = 0
-    with pytest.raises(NotImplementedError):
-        vo.optimize()
+    vo.optimize()
+    assert vo.n_solves_6dof == 1
 
 
 def test_stream_pairer_matches_jax():
@@ -312,7 +320,8 @@ def test_port_imports_nothing_of_jax():
     code = ("import sys; sys.modules['jax'] = None; "
             "import vins_rgbd_fast_torch.pipeline, chip_smoke; "
             "import vins_rgbd_fast_torch.loop.pose_graph, "
-            "vins_rgbd_fast_torch.parallel.loop_closer; "
+            "vins_rgbd_fast_torch.parallel.loop_closer, vins_rgbd_fast_torch.loop.interop, "
+            "vins_rgbd_fast_torch.io.checkpoint; "
             "bad = [m for m in sys.modules if m.startswith('vins_rgbd_fast_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)

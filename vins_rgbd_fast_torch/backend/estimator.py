@@ -3,6 +3,12 @@
 ``vins_rgbd_fast_tpu/backend/estimator.py``), plus a numpy port of the
 host IMU-interval pairing (``VinsEstimator._collect_interval_np``).
 
+Without an IMU (``cfg.use_imu`` False, VO mode) a new frame starts at the
+previous pose and the newest pose is initialised by PnP RANSAC on the
+depth-anchored landmarks (``_pnp_newest``); the solve has no IMU factors,
+frozen speed-biases and a fixed first pose.  PnP's random draws are an
+input, (B, 32, MAXF) uniforms, as F-RANSAC's are.
+
 Slot indices (``frame_idx``, the steady slot ``WINDOW_SIZE``) are Python
 ints.  Where JAX selects with ``lax.cond`` under ``vmap`` (keyframe vs
 non-keyframe slide and marginalization), both branches run and a
@@ -12,7 +18,7 @@ per-sequence ``torch.where`` picks — no host synchronisation.
 from __future__ import annotations
 
 import threading
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -20,6 +26,7 @@ import torch
 from ..config import FOCAL_LENGTH, EstimatorConfig
 from ..ops import imu_preintegration as imupre
 from ..ops import marginalization as marg
+from ..ops import ransac as ransac_ops
 from ..ops import solver as slv
 from ..utils import quaternion as quat
 from . import feature_table as ftab
@@ -152,6 +159,35 @@ def _start_points_world(x: WindowState, t: FeatureTable):
     return p_w, t_wc, R_wc
 
 
+def _pnp_newest(cfg: EstimatorConfig, st: EstimatorState, u: torch.Tensor) -> WindowState:
+    """VO pose init of the newest frame: PnP RANSAC on the depth-anchored
+    landmarks it observes, from the previous camera pose; ``u`` (B, 32,
+    MAXF) uniforms.  Where PnP fails the pose stays as it was."""
+    x, t = st.x, st.table
+    j = FRAMES - 1
+    p_w, t_wc, R_wc = _start_points_world(x, t)
+    ok = ftab.active_rows(t) & (t.est_depth > 0) & t.obs_mask[:, :, j] & ~t.is_dynamic
+    R_prev, t_prev = R_wc[:, j - 1], t_wc[:, j - 1]
+    R_init = R_prev.transpose(1, 2)
+    res = ransac_ops.pnp_ransac_guess(u, p_w, t.pts[:, :, j], ok, R_init,
+                                      -(R_init @ t_prev[..., None])[..., 0],
+                                      threshold=10.0 / 460.0)
+    R_cw, t_cw = res.model[..., :3], res.model[..., 3]
+    R_wc_j = R_cw.transpose(1, 2)
+    t_wc_j = -(R_wc_j @ t_cw[..., None])[..., 0]
+    R_wi = R_wc_j @ quat.q2R(x.qic).transpose(1, 2)
+    P_wi = t_wc_j - (R_wi @ x.tic[..., None])[..., 0]
+    use = res.ok[:, None]
+    return x._replace(P=_set_slot(x.P, j, torch.where(use, P_wi, x.P[:, j])),
+                      Q=_set_slot(x.Q, j, torch.where(use, quat.R2q(R_wi), x.Q[:, j])))
+
+
+def _copy_previous_pose(x: WindowState, j: int) -> WindowState:
+    """VO: slot j starts at slot j-1's pose (slot 0 stays)."""
+    i = max(j - 1, 0)
+    return x._replace(P=_set_slot(x.P, j, x.P[:, i]), Q=_set_slot(x.Q, j, x.Q[:, i]))
+
+
 def _moving_consistency(cfg: EstimatorConfig, x: WindowState, t: FeatureTable) -> FeatureTable:
     """Mark features whose mean reprojection error exceeds 10 px @ 460 or
     whose mean 3D relative error exceeds 2.0 as dynamic."""
@@ -179,10 +215,12 @@ def _moving_consistency(cfg: EstimatorConfig, x: WindowState, t: FeatureTable) -
 def _failure_flags(cfg: EstimatorConfig, st: EstimatorState, x_new: WindowState,
                    last_track_num) -> torch.Tensor:
     dp = x_new.P[:, WINDOW_SIZE] - st.last_P
-    return ((last_track_num < 2)
-            | (torch.linalg.norm(x_new.Ba[:, WINDOW_SIZE], dim=-1) > 2.5)
-            | (torch.linalg.norm(x_new.Bg[:, WINDOW_SIZE], dim=-1) > 1.0)
-            | (torch.linalg.norm(dp, dim=-1) > 5.0) | (torch.abs(dp[:, 2]) > 1.0))
+    fail = ((last_track_num < 2) | (torch.linalg.norm(dp, dim=-1) > 5.0)
+            | (torch.abs(dp[:, 2]) > 1.0))
+    if not cfg.use_imu:  # VO: no bias tests
+        return fail
+    return (fail | (torch.linalg.norm(x_new.Ba[:, WINDOW_SIZE], dim=-1) > 2.5)
+            | (torch.linalg.norm(x_new.Bg[:, WINDOW_SIZE], dim=-1) > 1.0))
 
 
 def _slide_old(st: EstimatorState) -> EstimatorState:
@@ -242,9 +280,12 @@ def _window_points(x: WindowState, t: FeatureTable):
 def fill_step(cfg: EstimatorConfig, st: EstimatorState, frame_idx: int,
               feats: FrameFeatures, imu: ImuInterval) -> Tuple[EstimatorState, torch.Tensor]:
     """Window-filling phase: store IMU, propagate (or gravity-align the
-    first frame), ingest, triangulate."""
+    first frame; without an IMU copy the previous pose), ingest,
+    triangulate."""
     st = _store_interval(st, frame_idx, imu)
-    if frame_idx == 0:
+    if not cfg.use_imu:
+        st = st._replace(x=_copy_previous_pose(st.x, frame_idx))
+    elif frame_idx == 0:
         q0 = init_ops.init_first_imu_pose(imu.acc, torch.ones_like(imu.acc[..., 0], dtype=torch.bool))
         st = st._replace(x=st.x._replace(Q=_set_slot(st.x.Q, 0, q0)))
     else:
@@ -264,8 +305,8 @@ def _solve_and_slide(cfg: EstimatorConfig, st: EstimatorState, is_kf, last_track
     st = st._replace(table=ftab.triangulate_with_depth(
         st.table, st.x.P, st.x.Q, st.x.tic, st.x.qic, cfg.depth_min_dist, cfg.depth_max_dist))
     vis = _visual_data(cfg, st.table)
-    imu_data = _make_preints(cfg, st)
-    sqrt_infos = imupre.sqrt_information(imu_data.pre)
+    imu_data = _make_preints(cfg, st) if cfg.use_imu else None
+    sqrt_infos = imupre.sqrt_information(imu_data.pre) if cfg.use_imu else None
     if relo is not None:
         relo = slv.remap_relo_by_id(relo, st.table.ids)
     res = slv.solve(cfg.solver, st.x, vis, imu_data, st.prior, g, sqrt_infos=sqrt_infos,
@@ -304,14 +345,16 @@ def _solve_and_slide(cfg: EstimatorConfig, st: EstimatorState, is_kf, last_track
 
 
 def init_full(cfg: EstimatorConfig, st: EstimatorState) -> Tuple[EstimatorState, StepOutput]:
-    """Static initialization at window-full: gyro-bias least squares, then
-    the solve/marginalize/slide tail with the first frame marginalized."""
-    pre0 = _make_preints(cfg, st)
-    dbg = init_ops.solve_gyroscope_bias(
-        pre0.pre.delta_q,
-        pre0.pre.jacobian[..., imupre.O_R:imupre.O_R + 3, imupre.O_BG:imupre.O_BG + 3],
-        st.x.Q, pre0.valid)
-    st = st._replace(x=st.x._replace(Bg=st.x.Bg + dbg[:, None]))
+    """Static initialization at window-full: gyro-bias least squares (with
+    an IMU), then the solve/marginalize/slide tail with the first frame
+    marginalized."""
+    if cfg.use_imu:
+        pre0 = _make_preints(cfg, st)
+        dbg = init_ops.solve_gyroscope_bias(
+            pre0.pre.delta_q,
+            pre0.pre.jacobian[..., imupre.O_R:imupre.O_R + 3, imupre.O_BG:imupre.O_BG + 3],
+            st.x.Q, pre0.valid)
+        st = st._replace(x=st.x._replace(Bg=st.x.Bg + dbg[:, None]))
     B = st.x.P.shape[0]
     dev = st.x.P.device
     return _solve_and_slide(cfg, st, torch.ones((B,), dtype=torch.bool, device=dev),
@@ -319,16 +362,25 @@ def init_full(cfg: EstimatorConfig, st: EstimatorState) -> Tuple[EstimatorState,
 
 
 def vio_step(cfg: EstimatorConfig, st: EstimatorState, feats: FrameFeatures,
-             imu: ImuInterval, relo: Optional[slv.ReloData] = None
-             ) -> Tuple[EstimatorState, StepOutput]:
+             imu: ImuInterval, relo: Optional[slv.ReloData] = None,
+             pnp_u: Optional[torch.Tensor] = None) -> Tuple[EstimatorState, StepOutput]:
     """Steady-state per-frame program (the newest slot is WINDOW_SIZE);
-    ``relo`` is the relocalization constraint (``fast_relo``)."""
+    ``relo`` is the relocalization constraint (``fast_relo``); ``pnp_u``
+    (B, 32, MAXF), the PnP uniforms of the VO pose init (VO only)."""
     j = WINDOW_SIZE
     st = _store_interval(st, j, imu)
-    st = st._replace(x=_propagate_newest(cfg, st, j))
+    if cfg.use_imu:
+        st = st._replace(x=_propagate_newest(cfg, st, j))
+    else:
+        st = st._replace(x=_copy_previous_pose(st.x, j))
     table, is_kf, ltn = ftab.ingest_frame(st.table, j, feats, st.x.td,
                                           cfg.depth_min_dist, cfg.min_parallax)
-    return _solve_and_slide(cfg, st._replace(table=table), is_kf, ltn, relo)
+    st = st._replace(table=table)
+    if not cfg.use_imu:
+        if pnp_u is None:
+            raise ValueError("vio_step: VO mode needs the PnP uniforms pnp_u")
+        st = st._replace(x=_pnp_newest(cfg, st, pnp_u))
+    return _solve_and_slide(cfg, st, is_kf, ltn, relo)
 
 
 def relo_to_device(relo: dict, device, dtype=torch.float32) -> slv.ReloData:
@@ -400,7 +452,11 @@ class VinsEstimator:
     Only static initialization is ported: a config that asks for dynamic
     or monocular initialization or td or extrinsic estimation raises
     ``NotImplementedError`` here, at construction (``EstimatorConfig.
-    from_vins``).  With ``eager_outputs=False`` nothing is read back on a
+    from_vins``).  Without an IMU (VO) every interval is empty and each
+    steady step draws its PnP uniforms from the estimator's own
+    ``torch.Generator``, or from ``pnp_uniforms(step)`` (tests inject JAX's
+    ``PRNGKey(1)`` draws; ``step`` counts every processed frame, as JAX's
+    key index does).  With ``eager_outputs=False`` nothing is read back on a
     steady frame except the failure check, every ``failure_check_interval``
     frames.  ``set_relo_frame`` (from any thread) queues a relocalization
     constraint as host arrays; the next steady step takes it."""
@@ -409,10 +465,13 @@ class VinsEstimator:
     NON_LINEAR = 1
 
     def __init__(self, vcfg, device, dtype=torch.float32, eager_outputs: bool = True,
-                 failure_check_interval: int = 1):
+                 failure_check_interval: int = 1, pnp_uniforms: Optional[Callable] = None):
         self.vcfg = vcfg
         self.cfg = EstimatorConfig.from_vins(vcfg)
         self.device = torch.device(device)
+        self._pnp_uniforms = pnp_uniforms
+        self.pnp_generator = torch.Generator(device=self.device)
+        self.pnp_generator.manual_seed(1)
         self.dtype = dtype
         self.eager_outputs = eager_outputs
         self.failure_check_interval = failure_check_interval
@@ -445,6 +504,15 @@ class VinsEstimator:
     def _collect_interval_np(self, t0: float, t1: float):
         return self._imu.collect(t0, t1)
 
+    def draw_pnp_uniforms(self, step: int) -> torch.Tensor:
+        """(1, 32, MAXF) uniforms for the VO pose init of step ``step``."""
+        shape = (ransac_ops.PNP_TRIALS, self.cfg.maxf)
+        if self._pnp_uniforms is not None:
+            u = torch.tensor(np.asarray(self._pnp_uniforms(step)), dtype=self.dtype)
+            return u.reshape(shape)[None].to(self.device)
+        return torch.rand((1,) + shape, generator=self.pnp_generator, device=self.device,
+                          dtype=self.dtype)
+
     def _upload_interval(self, dts, acc, gyr) -> ImuInterval:
         def put(a):
             return torch.as_tensor(a[None], dtype=self.dtype).to(self.device)
@@ -457,8 +525,13 @@ class VinsEstimator:
         ``eager_outputs``) once NON_LINEAR, else None."""
         cfg = self.cfg
         cur_time = t + self._td_cache
-        imu = self._upload_interval(*self._collect_interval_np(
-            self.prev_time if self.prev_time is not None else cur_time - 1e-3, cur_time))
+        if cfg.use_imu:
+            iv = self._collect_interval_np(
+                self.prev_time if self.prev_time is not None else cur_time - 1e-3, cur_time)
+        else:
+            iv = (np.zeros(cfg.max_imu), np.zeros((cfg.max_imu + 1, 3)),
+                  np.zeros((cfg.max_imu + 1, 3)))
+        imu = self._upload_interval(*iv)
         self.prev_time = cur_time
 
         out = None
@@ -477,7 +550,8 @@ class VinsEstimator:
                 pend = self.take_relo()
                 relo = (slv.empty_relo(1, cfg.maxf, self.device, self.dtype) if pend is None
                         else relo_to_device(pend, self.device, self.dtype))
-            self.state, step_out = vio_step(cfg, self.state, feats, imu, relo)
+            pnp_u = None if cfg.use_imu else self.draw_pnp_uniforms(self._step)
+            self.state, step_out = vio_step(cfg, self.state, feats, imu, relo, pnp_u)
             self.headers = self.headers[1:] + [t]
             if self._step % self.failure_check_interval == 0 and bool(step_out.failure[0]):
                 self.reset()

@@ -4,9 +4,9 @@ Field names and derived properties follow the JAX package (``config.
 VinsConfig``/``load_config``, ``frontend/feature_tracker.TrackerConfig``,
 ``backend/estimator.EstimatorConfig``, ``ops/solver.SolverConfig``), so a
 config built from a ``VinsConfig`` drives both packages identically.  Only
-the options the ported slices run are kept: pinhole camera, IMU on, static
-initialization, no fisheye mask, no CLAHE, no relocalization factors, no
-td or extrinsic estimation.  The JAX ``config.py`` imports jax, so the
+the options the ported slices run are kept: pinhole camera, IMU on (VIO)
+or off (VO), static initialization, no fisheye mask, no CLAHE, no td or
+extrinsic estimation.  The JAX ``config.py`` imports jax, so the
 port cannot import it on a machine without JAX.
 """
 
@@ -41,6 +41,7 @@ class TrackerConfig:
     lk_max_iters: int = 20
     lk_coarse_iters: int = 10
     lk_engine: str = "auto"  # "pallas" (K3) | "pallas3" (K2) | "xla" (CPU only)
+    use_imu_prediction: bool = True  # False: LK starts at the previous positions, cold pyramid
 
     @property
     def maxc(self) -> int:
@@ -69,6 +70,9 @@ class TrackerConfig:
 class SolverConfig:
     maxf: int
     max_iters: int = 8
+    use_imu: bool = True  # False (VO): the speed-bias dims are frozen
+    fix_pose0: bool = False  # VO: the first pose anchors the gauge
+    yaw_gauge: bool = True  # IMU: the post-solve yaw/position re-anchoring
     with_relo: bool = False  # append the relocalization pose block
 
 
@@ -76,6 +80,7 @@ class SolverConfig:
 class EstimatorConfig:
     maxf: int
     max_imu: int = 32
+    use_imu: bool = True
     fix_depth: bool = True
     depth_min_dist: float = 0.3
     depth_max_dist: float = 6.0
@@ -92,13 +97,12 @@ class EstimatorConfig:
     @classmethod
     def from_vins(cls, vcfg) -> "EstimatorConfig":
         """Mirror of the JAX ``EstimatorConfig.from_vins`` for the ported
-        slices (IMU on, static init, no td/extrinsic estimation)."""
-        if not (vcfg.imu and vcfg.static_init) or vcfg.estimate_td \
-                or vcfg.estimate_extrinsic:
+        slices (VIO with static init, or VO; no td/extrinsic estimation)."""
+        if not vcfg.static_init or vcfg.estimate_td or vcfg.estimate_extrinsic:
             raise NotImplementedError(
-                "the port runs IMU + static init without td/extrinsic estimation")
+                "the port runs static init without td/extrinsic estimation")
         return cls(
-            maxf=vcfg.feature_capacity, max_imu=vcfg.max_imu_per_frame,
+            maxf=vcfg.feature_capacity, max_imu=vcfg.max_imu_per_frame, use_imu=bool(vcfg.imu),
             fix_depth=vcfg.fix_depth, depth_min_dist=vcfg.depth_min_dist,
             depth_max_dist=vcfg.depth_max_dist,
             min_parallax=vcfg.keyframe_parallax / vcfg.focal_length,
@@ -112,7 +116,9 @@ class EstimatorConfig:
 
     @property
     def solver(self) -> SolverConfig:
-        return SolverConfig(maxf=self.maxf, max_iters=self.max_iters, with_relo=self.fast_relo)
+        return SolverConfig(maxf=self.maxf, max_iters=self.max_iters, use_imu=self.use_imu,
+                            fix_pose0=not self.use_imu, yaw_gauge=self.use_imu,
+                            with_relo=self.fast_relo)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,8 +2,10 @@
 ``track_frame``/``lookup_depth`` in
 ``vins_rgbd_fast_tpu/frontend/feature_tracker.py``).
 
-pipeline per frame: pyramid → IMU-predicted pyramidal LK (K3 by default,
-K2 in the batched runner: ``TrackerConfig.lk_engine``) →
+pipeline per frame: pyramid → IMU-predicted pyramidal LK on
+``pyr_levels_predicted`` levels, or without IMU prediction (VO) LK from the
+previous positions on ``pyr_levels_cold`` levels (K3 by default, K2 in the
+batched runner: ``TrackerConfig.lk_engine``) →
 border/status cull → F-RANSAC → FAST + 3×3 NMS (K1) → per-grid top-k →
 min-distance admission (long tracks first) → compaction → undistortion
 and per-id velocities.  No CLAHE and no fisheye mask (the slice's
@@ -129,18 +131,23 @@ def track_frame(cfg: TrackerConfig, cam: PinholeCamera, state: TrackerState,
     """Process one frame of B sequences.
 
     ``img`` (B, H, W) f32; ``t`` (B,); ``relative_R`` (B, 3, 3) predicted
-    cam_cur <- cam_prev; ``ransac_u`` (B, ransac_trials, MAXC) uniforms."""
+    cam_cur <- cam_prev (unused without ``cfg.use_imu_prediction``);
+    ``ransac_u`` (B, ransac_trials, MAXC) uniforms."""
     dtype = img.dtype
     maxc = cfg.maxc
     B = img.shape[0]
     pyr = tuple(image_ops.build_pyramid(img, cfg.pyr_levels))
     active = state.ids >= 0
 
-    # ---- LK tracking with IMU-aided prediction ----
-    rays = cam.lift(state.pts)
-    pred = cam.project(torch.einsum("bij,bnj->bni", relative_R, rays))
-    pred = torch.where(_in_border(cfg, pred)[..., None], pred, state.pts)
-    levels = cfg.pyr_levels_predicted
+    # ---- LK tracking, IMU-predicted or cold ----
+    if cfg.use_imu_prediction:
+        rays = cam.lift(state.pts)
+        pred = cam.project(torch.einsum("bij,bnj->bni", relative_R, rays))
+        pred = torch.where(_in_border(cfg, pred)[..., None], pred, state.pts)
+        levels = cfg.pyr_levels_predicted
+    else:
+        pred = state.pts
+        levels = cfg.pyr_levels_cold
     lk = lk_ops.pyramidal_lk(
         list(state.pyramid[:levels]), list(pyr[:levels]), state.pts, pred,
         active & state.has_prev[:, None],

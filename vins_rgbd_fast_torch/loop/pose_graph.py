@@ -1,4 +1,4 @@
-"""Loop closure and the 4-DoF pose graph (twin of
+"""Loop closure and the 4-DoF and 6-DoF pose graphs (twin of
 ``vins_rgbd_fast_tpu/loop/pose_graph.py``).
 
   * keyframe extraction: FAST-20 on the keyframe image through
@@ -18,14 +18,18 @@
   * ``optimize_4dof``: dense Levenberg-Marquardt over (yaw, t) per node with
     closed-form edge Jacobians, every step on the device, for one problem or
     a batch of them;
+  * ``optimize_6dof`` (VO mode, ``use_6dof``): dense LM over SE(3) nodes
+    (t, quaternion), the reference's relative-pose edges, closed-form
+    Jacobians over each edge's 12-dim local perturbation;
   * ``PoseGraph``: the host bookkeeping (drift, sequence alignment, fast
-    relocalization feedback), numpy as in JAX.
+    relocalization feedback), numpy as in JAX, and the map's ``save`` and
+    ``load`` (JAX's ``.npz`` layout, version 3: a map saved by either
+    package loads in the other).
 
 PnP's random draws are an input: ``PoseGraph(pnp_uniforms=...)`` maps a
 keyframe index and a point count to (32, N) uniforms (the tests inject the
 JAX package's ``PRNGKey(index)`` draws); by default one ``torch.Generator``
-on the graph's device draws them.  VO mode (``use_6dof``), ``save`` and
-``load`` are not ported and raise ``NotImplementedError``.
+on the graph's device draws them.
 """
 
 from __future__ import annotations
@@ -50,7 +54,7 @@ log = logging.getLogger(__name__)
 MIN_LOOP_NUM = 25  # keyframe.h:16
 LOOP_YAW_MAX = 30.0
 LOOP_T_MAX = 20.0
-PNP_TRIALS = 32
+PNP_TRIALS = ransac_ops.PNP_TRIALS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,7 +73,7 @@ class PoseGraphConfig:
     huber: float = 1.0
     recency_exclusion: int = 50
     min_loop_num: int = MIN_LOOP_NUM
-    use_6dof: bool = False  # VO mode: not ported
+    use_6dof: bool = False  # VO mode: the SE(3) graph
     pad_nodes_min: int = 8
     pad_edges_min: int = 8
 
@@ -373,6 +377,89 @@ def optimize_4dof(yaw0, t0, pitch, roll, node_valid, node_fixed, edge_i, edge_j,
 
 
 # ---------------------------------------------------------------------------
+# 6-DoF pose graph optimization (VO mode)
+# ---------------------------------------------------------------------------
+
+def _edges_6dof(t, q, ei, ej, rel_t, rel_q, t_var: float, q_var: float, with_jac: bool):
+    """Residuals (E, 6) of the relative-pose edges (translation of j in
+    frame i over ``t_var``; 2·vec(rel_q⁻¹ ⊗ q_i⁻¹ ⊗ q_j) over ``q_var``)
+    and, with ``with_jac``, their Jacobians (E, 6, 12) over the local
+    perturbation [δt_i, δθ_i, δt_j, δθ_j] (q ⊞ δθ = q ⊗ [1, δθ/2]): the
+    closed form of JAX's ``jacfwd`` at 0."""
+    ti, qi, tj, qj = t[ei], q[ei], t[ej], q[ej]
+    t_ij = quat.qrot_inv(qi, tj - ti)
+    b = quat.qmul(quat.qconj(qi), qj)
+    a = quat.qconj(rel_q)
+    e = quat.qmul(a, b)
+    r = torch.cat([(t_ij - rel_t) / t_var, 2.0 * e[..., 1:4] / q_var], dim=-1)
+    if not with_jac:
+        return r, None
+    RiT = quat.q2R(qi).transpose(-1, -2)
+    J = torch.zeros(ei.shape + (6, 12), dtype=t.dtype, device=t.device)
+    J[..., :3, 0:3] = -RiT / t_var
+    J[..., :3, 3:6] = quat.skew(t_ij) / t_var
+    J[..., :3, 6:9] = RiT / t_var
+    # q_i ⊞ δ: e -> a ⊗ [1, -δ/2] ⊗ b; q_j ⊞ δ: e -> e ⊗ [1, δ/2]
+    J[..., 3:, 3:6] = -(quat.qleft(a) @ quat.qright(b))[..., 1:4, 1:4] / q_var
+    J[..., 3:, 9:12] = quat.qleft(e)[..., 1:4, 1:4] / q_var
+    return r, J
+
+
+def optimize_6dof(t0, q0, node_valid, node_fixed, edge_i, edge_j, edge_rel_t, edge_rel_q,
+                  edge_is_loop, edge_valid, iters: int = 5, huber: float = 0.1,
+                  t_var: float = 0.1, q_var: float = 0.01):
+    """Dense LM over the SE(3) poses of K nodes, t0 (K, 3) and q0 (K, 4)
+    wxyz (node k's tangent at [6k, 6k+6): δt then δθ), Huber on loop edges,
+    fixed nodes frozen; ``iters`` damped steps with accept/reject on the
+    device.  The normal equations are JᵀJ of the dense edge rows, each edge
+    block placed by one-hot products (no indexed stores: node indices
+    repeat).  Returns (t, q, cost0, cost)."""
+    K = t0.shape[0]
+    dtype = t0.dtype
+    ei, ej = edge_i.to(torch.int64), edge_j.to(torch.int64)
+    nodes = torch.arange(K, device=ei.device)
+    Pi = (ei[:, None] == nodes).to(dtype)  # (E, K)
+    Pj = (ej[:, None] == nodes).to(dtype)
+
+    def weighted(t, q, with_jac):
+        r, Jl = _edges_6dof(t, q, ei, ej, edge_rel_t, edge_rel_q, t_var, q_var, with_jac)
+        s = torch.sum(r * r, dim=-1)
+        hw = torch.where(edge_is_loop & (s > huber * huber),
+                         torch.sqrt(huber / torch.clamp(torch.sqrt(s), min=1e-12)),
+                         torch.ones_like(s))
+        hw = torch.where(edge_valid, hw, torch.zeros_like(hw))
+        return r * hw[:, None], None if Jl is None else Jl * hw[:, None, None]
+
+    def cost_at(t, q):
+        r, _ = weighted(t, q, False)
+        return 0.5 * torch.sum(r * r)
+
+    fm = torch.repeat_interleave((node_valid & ~node_fixed).to(dtype), 6)  # (6K,)
+    eye = torch.eye(6 * K, dtype=dtype, device=t0.device)
+    t, q = t0, q0
+    lm = torch.full((), 1e-4, dtype=dtype, device=t0.device)
+    cost0 = cost = cost_at(t, q)
+    for _ in range(iters):
+        r, Jl = weighted(t, q, True)
+        rows = (Jl[:, :, None, 0:6] * Pi[:, None, :, None]
+                + Jl[:, :, None, 6:12] * Pj[:, None, :, None]).reshape(-1, 6 * K) * fm
+        H = rows.T @ rows
+        g = rows.T @ r.reshape(-1, 1)
+        damp = lm * torch.clamp(torch.diagonal(H), min=1e-6) + (1.0 - fm)
+        L = cholesky_nan(H + damp[:, None] * eye)
+        d = (-cho_solve(L, g)[:, 0] * fm).reshape(K, 6)
+        t_n = t + d[:, 0:3]
+        q_n = quat.qboxplus(q, d[:, 3:6])
+        new_cost = cost_at(t_n, q_n)
+        accept = (new_cost < cost) & torch.isfinite(new_cost)
+        t = torch.where(accept, t_n, t)
+        q = torch.where(accept, q_n, q)
+        lm = torch.where(accept, lm * 0.3, lm * 5.0)
+        cost = torch.where(accept, new_cost, cost)
+    return t, q, cost0, cost
+
+
+# ---------------------------------------------------------------------------
 # PoseGraph host class
 # ---------------------------------------------------------------------------
 
@@ -443,6 +530,7 @@ class PoseGraph:
         self.w_r_vio = np.eye(3)  # vio -> map alignment of the live sequence
         self.w_t_vio = np.zeros(3)
         self.sequence_aligned = {0: True, 1: False}
+        self.n_solves_6dof = 0  # 6-DoF LM solves run (diagnostics)
 
     # ------------------------------------------------------------------
     def clone(self) -> "PoseGraph":
@@ -467,6 +555,7 @@ class PoseGraph:
         g.w_r_vio = self.w_r_vio.copy()
         g.w_t_vio = self.w_t_vio.copy()
         g.sequence_aligned = dict(self.sequence_aligned)
+        g.n_solves_6dof = self.n_solves_6dof
         return g
 
     def pnp_uniforms(self, index: int, n: int) -> torch.Tensor:
@@ -915,13 +1004,22 @@ class PoseGraph:
         return p
 
     def optimize(self):
-        """4-DoF PGO from the earliest looped keyframe, then the drift and
-        its propagation to later keyframes."""
+        """4-DoF PGO (6-DoF with ``use_6dof``) from the earliest looped
+        keyframe, then the drift and its propagation to later keyframes."""
         prob = self._build_4dof()
         if prob is None:
             return
         if prob == "6dof":
-            raise NotImplementedError("the 6-DoF pose graph (VO mode) is not ported")
+            nodes, local, n_anchors, first, win_start = self._select_nodes()
+            Kpad = self._pad(len(nodes), self.cfg.pad_nodes_min)
+            valid = np.zeros(Kpad, bool)
+            valid[:len(nodes)] = True
+            fixed = np.zeros(Kpad, bool)
+            for li, kf in enumerate(nodes):
+                fixed[li] = (li < n_anchors or kf.index == first or kf.index == win_start
+                             or kf.sequence == 0)
+            self._optimize_6dof_impl(nodes, Kpad, valid, fixed, local)
+            return
         self._solve_apply_4dof(prob)
 
     def _solve_apply_4dof(self, prob):
@@ -1047,6 +1145,78 @@ class PoseGraph:
             for i, kf in enumerate(tail):
                 self.corrected[kf.index] = (P2[i], Q2[i])
 
+    def _optimize_6dof_impl(self, nodes, Kpad: int, valid, fixed, local):
+        """The SE(3) graph of VO mode over the windowed nodes: initialised at
+        the corrected poses, sequential edges from the raw VIO relative
+        poses (anchors are no sequential neighbours), loop edges with their
+        ``rel_q``.  The drift kept afterwards is JAX's: the yaw of the last
+        node's rotational correction and the translation that goes with it
+        (an approximation of the full rotational drift, kept as it is)."""
+        cfg = self.cfg
+        K = len(nodes)
+        tt = np.zeros((Kpad, 3))
+        q0 = np.zeros((Kpad, 4))
+        q0[:, 0] = 1.0
+        for li, kf in enumerate(nodes):
+            P0, Q0 = self._node_init(kf)
+            tt[li] = np.asarray(P0)
+            q0[li] = np.asarray(Q0)
+        e_i, e_j, e_rt, e_rq, e_loop = [], [], [], [], []
+        for li in range(1, K):
+            for back in range(1, 5):
+                lj = li - back
+                if lj < 0 or nodes[lj].sequence != nodes[li].sequence:
+                    continue
+                if abs(nodes[li].index - nodes[lj].index) != li - lj:
+                    continue  # anchor nodes are not sequential neighbours
+                qj = np.asarray(nodes[lj].Q_vio)
+                e_i.append(lj)
+                e_j.append(li)
+                e_rt.append(nq.q2R(qj).T @ (nodes[li].P_vio - nodes[lj].P_vio))
+                e_rq.append(nq.qmul(nq.qconj(qj), np.asarray(nodes[li].Q_vio)))
+                e_loop.append(False)
+        for lp in self.loops:
+            if lp["cur"] not in local or lp["old"] not in local or "rel_q" not in lp:
+                continue
+            e_i.append(local[lp["old"]])
+            e_j.append(local[lp["cur"]])
+            e_rt.append(lp["rel_t"])
+            e_rq.append(lp["rel_q"])
+            e_loop.append(True)
+        E = len(e_i)
+        if E == 0:
+            return
+        Epad = self._pad(E, cfg.pad_edges_min)
+        ei = np.zeros(Epad, np.int64)
+        ej = np.zeros(Epad, np.int64)
+        ert = np.zeros((Epad, 3))
+        erq = np.zeros((Epad, 4))
+        erq[:, 0] = 1.0
+        elo = np.zeros(Epad, bool)
+        evl = np.zeros(Epad, bool)
+        ei[:E], ej[:E], ert[:E], erq[:E], elo[:E], evl[:E] = e_i, e_j, e_rt, e_rq, e_loop, True
+        dev, dt = self.device, self.dtype
+
+        def put(a, dtype=dt):
+            return torch.as_tensor(a, dtype=dtype, device=dev)
+
+        t_o, q_o, _, _ = optimize_6dof(
+            put(tt), put(q0), put(valid, torch.bool), put(fixed, torch.bool),
+            put(ei, torch.int64), put(ej, torch.int64), put(ert), put(erq),
+            put(elo, torch.bool), put(evl, torch.bool), iters=cfg.pg_iters, huber=cfg.huber)
+        out = _host(torch.cat([t_o, q_o], dim=1)).astype(np.float64)  # the one read-back
+        self.n_solves_6dof += 1
+        t_o, q_o = out[:, :3], out[:, 3:]
+        for li, kf in enumerate(nodes):
+            self.corrected[kf.index] = (t_o[li], q_o[li])
+        cur_kf = nodes[K - 1]
+        Rd = nq.q2R(q_o[K - 1]) @ nq.q2R(cur_kf.Q_vio).T
+        self.yaw_drift = float(nq.R2ypr(Rd)[0])
+        self.t_drift = t_o[K - 1] - self._r_drift() @ cur_kf.P_vio
+        for kf in self.keyframes:
+            if kf.index > cur_kf.index:
+                self.corrected[kf.index] = self.apply_drift(kf.P_vio, kf.Q_vio)
+
     # ------------------------------------------------------------------
     def path(self) -> list:
         """Corrected trajectory [(t, P, Q)] of every keyframe."""
@@ -1056,8 +1226,113 @@ class PoseGraph:
             out.append((kf.t, np.asarray(P), np.asarray(Q)))
         return out
 
+    # ------------------------------------------------------------------
     def save(self, path: str):
-        raise NotImplementedError("saving a pose graph is not ported")
+        """Persist the map as JAX's ``PoseGraph.save`` does (``.npz``,
+        version 3): keyframes with their corrected poses, retrieval
+        keypoints and window points with their descriptors (brought to the
+        host), the loop edges, ``earliest_loop_index``, the drift and the
+        BRIEF pattern's hash."""
+        kfs = self.keyframes
+        corr = [self.corrected.get(k.index, (k.P_vio, k.Q_vio)) for k in kfs]
+
+        def stack(get, empty):
+            return np.stack([_host(get(k)) for k in kfs]) if kfs else np.zeros(empty)
+
+        np.savez_compressed(
+            path, version=3, n=len(kfs),
+            index=np.asarray([k.index for k in kfs]), t=np.asarray([k.t for k in kfs]),
+            sequence=np.asarray([k.sequence for k in kfs]),
+            P_vio=stack(lambda k: k.P_vio, (0, 3)), Q_vio=stack(lambda k: k.Q_vio, (0, 4)),
+            P_corr=np.stack([np.asarray(c[0]) for c in corr]) if kfs else np.zeros((0, 3)),
+            Q_corr=np.stack([np.asarray(c[1]) for c in corr]) if kfs else np.zeros((0, 4)),
+            kp_uv=stack(lambda k: k.kp_uv, (0, 0, 2)),
+            kp_norm=stack(lambda k: k.kp_norm, (0, 0, 2)),
+            kp_valid=stack(lambda k: k.kp_valid, (0, 0)),
+            kp_desc=stack(lambda k: k.kp_desc, (0, 0, 256)),
+            wp_norm=stack(lambda k: _host(k.wp_norm)[..., :2], (0, 0, 2)),
+            wp_valid=stack(lambda k: k.wp_valid, (0, 0)),
+            wp_desc=stack(lambda k: k.wp_desc, (0, 0, 256)).astype(np.int8),
+            loop_cur=np.asarray([lp["cur"] for lp in self.loops], np.int64),
+            loop_old=np.asarray([lp["old"] for lp in self.loops], np.int64),
+            loop_rel_t=(np.stack([lp["rel_t"] for lp in self.loops]) if self.loops
+                        else np.zeros((0, 3))),
+            loop_rel_q=(np.stack([lp.get("rel_q", np.array([1.0, 0, 0, 0]))
+                                  for lp in self.loops]) if self.loops else np.zeros((0, 4))),
+            loop_rel_yaw=np.asarray([lp["rel_yaw"] for lp in self.loops]),
+            loop_n_inliers=np.asarray([lp.get("n_inliers", 0) for lp in self.loops], np.int64),
+            earliest_loop_index=(-1 if self.earliest_loop_index is None
+                                 else self.earliest_loop_index),
+            yaw_drift=self.yaw_drift, t_drift=self.t_drift,
+            brief_pattern_hash=brief.pattern_hash())
 
     def load(self, path: str):
-        raise NotImplementedError("loading a pose graph is not ported")
+        """Rebuild keyframes, the retrieval DB (through ``_db_append``, so
+        the DB compacts at its cap) and the loop edges from a map saved by
+        either package's ``save``.  Loaded keyframes join as sequence 0
+        (fixed in optimization) at their corrected poses; loading into a
+        non-empty graph offsets every index past the existing keyframes.
+        Legacy (version 1) loop rows are kept; saves from before version 3
+        have no window points."""
+        data = np.load(path)
+        if "brief_pattern_hash" in data and int(data["brief_pattern_hash"]) != brief.pattern_hash():
+            log.warning("pose-graph %s was saved under a DIFFERENT BRIEF test pattern (hash %d "
+                        "vs active %d): stored descriptors will not match live ones — "
+                        "relocalization against this map will not work (set VINS_BRIEF_PATTERN "
+                        "to the pattern the map was built with)", path,
+                        int(data["brief_pattern_hash"]), brief.pattern_hash())
+        cfg = self.cfg
+        n = int(data["n"])
+        off = len(self.keyframes)
+        has_wp = "wp_desc" in data
+        for i in range(n):
+            kp_norm = data["kp_norm"][i]
+            if kp_norm.shape[-1] == 2:
+                kp_norm = np.concatenate([kp_norm, np.zeros(kp_norm.shape[:-1] + (1,))], -1)
+            kf = KeyFrameData(
+                index=off + i, t=float(data["t"][i]), sequence=0,
+                P_vio=data["P_vio"][i], Q_vio=data["Q_vio"][i], kp_uv=data["kp_uv"][i],
+                kp_norm=kp_norm, kp_valid=data["kp_valid"][i].astype(bool),
+                kp_desc=data["kp_desc"][i].astype(np.int8),
+                wp_world=np.zeros((cfg.max_wp, 3)),
+                wp_norm=(np.asarray(data["wp_norm"][i]) if has_wp
+                         else np.zeros((cfg.max_wp, 2))),
+                wp_valid=(data["wp_valid"][i].astype(bool) if has_wp
+                          else np.zeros(cfg.max_wp, bool)),
+                wp_desc=(data["wp_desc"][i].astype(np.int8) if has_wp
+                         else np.zeros((cfg.max_wp, 256), np.int8)))
+            self.keyframes.append(kf)
+            self._db_append(*combine_db_rows(
+                kf.kp_desc, kf.kp_valid, np.asarray(kf.kp_norm, np.float32), kf.wp_desc,
+                kf.wp_valid, np.asarray(kf.wp_norm, np.float32)), kf_index=kf.index)
+            if "P_corr" in data:
+                self.corrected[kf.index] = (np.asarray(data["P_corr"][i]),
+                                            np.asarray(data["Q_corr"][i]))
+        if "loop_cur" in data:
+            for j in range(len(data["loop_cur"])):
+                self.loops.append(dict(
+                    cur=int(data["loop_cur"][j]) + off, old=int(data["loop_old"][j]) + off,
+                    rel_t=np.asarray(data["loop_rel_t"][j]),
+                    rel_q=np.asarray(data["loop_rel_q"][j]),
+                    rel_yaw=float(data["loop_rel_yaw"][j]),
+                    n_inliers=int(data["loop_n_inliers"][j])))
+            eli = int(data["earliest_loop_index"])
+            self._lower_earliest_loop(eli + off if eli >= 0 else None)
+        elif "loops" in data:
+            # legacy v1 rows [cur, old, rel_yaw, rel_t (3)]: no rel_q, no inlier counts
+            legacy = np.asarray(data["loops"])
+            for row in legacy:
+                self.loops.append(dict(cur=int(row[0]) + off, old=int(row[1]) + off,
+                                       rel_t=np.asarray(row[3:6], np.float64),
+                                       rel_q=np.array([1.0, 0.0, 0.0, 0.0]),
+                                       rel_yaw=float(row[2]), n_inliers=0))
+            if len(legacy):
+                self._lower_earliest_loop(int(min(int(r[1]) for r in legacy)) + off)
+        self.yaw_drift = float(data["yaw_drift"])
+        self.t_drift = np.asarray(data["t_drift"])
+
+    def _lower_earliest_loop(self, index: Optional[int]):
+        """Lower ``earliest_loop_index`` to ``index`` (None: no change)."""
+        if index is not None and (self.earliest_loop_index is None
+                                  or index < self.earliest_loop_index):
+            self.earliest_loop_index = index

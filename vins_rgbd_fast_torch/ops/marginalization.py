@@ -121,12 +121,14 @@ _KEEP_NEW = [d for d in range(NX) if d not in set(_DROP_NEW)]
 def marginalize_old(cfg: SolverConfig, x: WindowState, vis: VisualData, imu,
                     prior: PriorFactor, gravity, sqrt_infos=None) -> PriorFactor:
     """New prior when the oldest frame leaves: previous prior + IMU factor
-    0-1 + projection factors of features rooted at frame 0; landmarks are
-    eliminated first (diagonal block), then pose0 + sb0."""
+    0-1 (none in VO, ``imu`` None) + projection factors of features rooted
+    at frame 0; landmarks are eliminated first (diagonal block), then pose0
+    + sb0."""
     vis_m = vis._replace(valid=vis.valid & (vis.start == 0))
-    W = imu.valid.shape[1]
-    first = torch.arange(W, device=imu.valid.device) == 0
-    imu_m = imu._replace(valid=imu.valid & first)
+    imu_m = imu
+    if imu is not None:
+        first = torch.arange(imu.valid.shape[1], device=imu.valid.device) == 0
+        imu_m = imu._replace(valid=imu.valid & first)
     s, _ = solver_mod.normal_equations_structured(x, vis_m, imu_m, prior, gravity,
                                                   sqrt_infos=sqrt_infos)
     dinv = torch.where(s.dl > EIG_EPS, 1.0 / torch.clamp(s.dl, min=EIG_EPS),

@@ -1,7 +1,7 @@
-"""Fixed-trial RANSAC: the fundamental matrix over a batch of sequences and
-PnP from a pose guess over a batch of loop candidates (twins of
-``fundamental_ransac`` and ``pnp_ransac_guess`` in
-``vins_rgbd_fast_tpu/ops/ransac.py``).
+"""Fixed-trial RANSAC: the fundamental matrix over a batch of sequences,
+PnP from a pose guess over a batch of loop candidates or VO frames, and
+PnP from DLT trials (twins of ``fundamental_ransac``, ``pnp_ransac_guess``,
+``_pnp_dlt`` and ``pnp_ransac`` in ``vins_rgbd_fast_tpu/ops/ransac.py``).
 
 The random numbers are an input: ``u`` holds one uniform per (trial,
 point); trial k takes the 8 points of smallest ``u + 10·~valid``.  The JAX
@@ -176,6 +176,7 @@ def _solve6_nan(H, b):
     return torch.where((info == 0)[..., None], x[..., 0], torch.nan)
 
 
+PNP_TRIALS = 32        # trials of ``pnp_ransac_guess`` (loop checks, VO pose init)
 PNP_DEPTH_WEIGHT = 0.5  # weight of the relative-depth rows against reprojection
 PNP_REFINE_ITERS = 8    # Gauss-Newton steps per trial and per refit
 
@@ -257,3 +258,65 @@ def pnp_ransac_guess(u: torch.Tensor, Pw, uv, valid, R_init, t_init,
     t = torch.where(use2[:, None], t2, t)
     return PnPResult(inliers=inliers, model=torch.cat([R, t[..., None]], -1),
                      n_inliers=n_in, ok=n_in >= min_inliers)
+
+
+# ---------------------------------------------------------------------------
+# PnP from DLT trials (twin of ``_pnp_dlt``/``pnp_ransac``)
+# ---------------------------------------------------------------------------
+
+def pnp_dlt(Pw, uv):
+    """Pose from n >= 6 3D-2D pairs by DLT on the projection matrix,
+    batched over leading axes: Pw (..., n, 3), uv (..., n, 2) normalized-
+    plane observations.  Returns (R (..., 3, 3), t (..., 3)), camera <- world;
+    the sign is chosen so that most points lie in front of the camera."""
+    n = Pw.shape[-2]
+    dtype = Pw.dtype
+    Ph = torch.cat([Pw, torch.ones_like(Pw[..., :1])], dim=-1)
+    zeros = torch.zeros_like(Ph)
+    r1 = torch.cat([Ph, zeros, -uv[..., 0:1] * Ph], dim=-1)
+    r2 = torch.cat([zeros, Ph, -uv[..., 1:2] * Ph], dim=-1)
+    A = torch.cat([r1, r2], dim=-2)  # (..., 2n, 12)
+    P = _smallest_eigvec(A.transpose(-1, -2) @ A).reshape(*A.shape[:-2], 3, 4)
+
+    def proper(U, Vh):  # U diag(1, 1, det(U Vh)) Vh, and det(U Vh)
+        d = torch.linalg.det(U @ Vh)
+        D = torch.ones(d.shape + (3,), dtype=dtype, device=Pw.device)
+        D[..., 2] = d
+        return (U * D[..., None, :]) @ Vh, d
+
+    U, S, Vh = torch.linalg.svd(P[..., :3])
+    R, detUV = proper(U, Vh)
+    scale = torch.sum(S, dim=-1) / 3.0 * torch.sign(detUV)
+    t = P[..., 3] / torch.clamp(torch.abs(scale), min=1e-12)[..., None] \
+        * torch.sign(scale)[..., None]
+    depth = (Pw @ R.transpose(-1, -2) + t[..., None, :])[..., 2]
+    flip = torch.sum(depth > 0, dim=-1) < (n / 2)
+    R = torch.where(flip[..., None, None], -R, R)
+    U2, _, Vh2 = torch.linalg.svd(R)
+    R, _ = proper(U2, Vh2)
+    return R, torch.where(flip[..., None], -t, t)
+
+
+def pnp_ransac(u: torch.Tensor, Pw, uv, valid, threshold: float = 10.0 / 460.0,
+               min_inliers: int = 10) -> PnPResult:
+    """PnP RANSAC from DLT trials for C problems: ``u`` (C, T, N) uniforms
+    (trial t takes the 6 points of smallest ``u + 10·~valid``), Pw (C, N, 3),
+    uv (C, N, 2), valid (C, N).  The best trial's model is returned as it
+    is (no refit), with its inliers at ``threshold``."""
+    idx = random_subsets(u, valid, 6)                                    # (C, T, 6)
+    C, T = idx.shape[:2]
+
+    def take(a):
+        return torch.gather(a[:, None].expand(C, T, -1, -1), 2,
+                            idx[..., None].expand(-1, -1, -1, a.shape[-1]))
+
+    R, t = pnp_dlt(take(Pw), take(uv))
+    ex = (lambda a: a[:, None].expand((C, T) + a.shape[1:]))
+    counts = torch.sum((reproj_err_norm(R, t, ex(Pw), ex(uv)) < threshold) & valid[:, None], -1)
+    best = torch.argmax(counts, dim=-1)
+    ar = torch.arange(C, device=Pw.device)
+    R, t = R[ar, best], t[ar, best]
+    inliers = (reproj_err_norm(R, t, Pw, uv) < threshold) & valid
+    n_in = torch.sum(inliers, -1)
+    return PnPResult(inliers=inliers, model=torch.cat([R, t[..., None]], -1), n_inliers=n_in,
+                     ok=n_in >= min_inliers)

@@ -323,11 +323,16 @@ def _prior_residual(x: WindowState, prior: PriorFactor):
     return (prior.r0 + (prior.J @ dx[..., None])[..., 0]) * prior.valid.to(dx.dtype)[:, None]
 
 
-def free_mask(vis: VisualData, dtype) -> torch.Tensor:
+def free_mask(cfg: SolverConfig, vis: VisualData, dtype) -> torch.Tensor:
     """(B, NX + MAXF) 1.0 for free tangent dims: extrinsic and td frozen
-    (not estimated), inverse depths free where ``depth_free``."""
+    (not estimated), the speed-biases frozen without an IMU, pose 0 frozen
+    with ``fix_pose0``, inverse depths free where ``depth_free``."""
     B = vis.start.shape[0]
     m = torch.ones((B, NX), dtype=dtype, device=vis.start.device)
+    if not cfg.use_imu:
+        m[:, NP:EX_OFF] = 0.0
+    if cfg.fix_pose0:
+        m[:, 0:POSE_DIM] = 0.0
     m[:, EX_OFF:EX_OFF + 6] = 0.0
     m[:, TD_OFF] = 0.0
     return torch.cat([m, vis.depth_free.to(dtype)], dim=1)
@@ -395,13 +400,14 @@ def solve(cfg: SolverConfig, x0: WindowState, vis: VisualData, imu: Optional[Imu
           prior: PriorFactor, gravity, sqrt_infos=None,
           relo: Optional[ReloData] = None) -> SolveResult:
     """Damped Gauss-Newton with delayed accept/reject, ``max_iters`` scored
-    candidates (one assembly per iteration), dense Schur, yaw re-anchoring.
+    candidates (one assembly per iteration), dense Schur, yaw re-anchoring
+    (with an IMU and ``cfg.yaw_gauge``, pose 0 free); ``imu`` None in VO.
     With ``cfg.with_relo`` the relo pose is optimized alongside (an
     inactive ``relo`` when none is given), free only where it is active."""
     dtype = x0.P.dtype
     B, M = vis.start.shape
     dev = x0.P.device
-    fm = free_mask(vis, dtype)
+    fm = free_mask(cfg, vis, dtype)
     fmp, fml = fm[:, :NX], fm[:, NX:]
     if cfg.with_relo:
         if relo is None:
@@ -466,6 +472,7 @@ def solve(cfg: SolverConfig, x0: WindowState, vis: VisualData, imu: Optional[Imu
                 None if relo is None else best[2] + dxp[:, NX:NX + 3],
                 None if relo is None else quat.qboxplus(best[3], dxp[:, NX + 3:NX + 6]))
     x, lam_vec, rP, rQ = best
-    x = yaw_gauge_fix(x, x0)
+    if cfg.yaw_gauge and cfg.use_imu and not cfg.fix_pose0:
+        x = yaw_gauge_fix(x, x0)
     return SolveResult(x=x, inv_depth=lam_vec, cost0=cost0, cost=cost_b,
                        iters_accepted=torch.clamp(n_acc - 1, min=0), relo_P=rP, relo_Q=rQ)

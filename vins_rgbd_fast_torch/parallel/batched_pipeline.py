@@ -77,15 +77,16 @@ def gyro_relative_R(dts, gyr, bg, qic) -> torch.Tensor:
 
 def fused_frame_step(tcfg: TrackerConfig, cam: PinholeCamera, ecfg: EstimatorConfig,
                      trk: ft.TrackerState, st: est.EstimatorState, img, depth, t,
-                     imu: est.ImuInterval, ransac_u, relo=None):
+                     imu: est.ImuInterval, ransac_u, relo=None, pnp_u=None):
     """One steady-state frame of B sequences: gyro prediction → tracker →
     depth lookup → ``vio_step`` (with the relocalization constraint
-    ``relo`` when ``ecfg.fast_relo``)."""
+    ``relo`` when ``ecfg.fast_relo``, and in VO mode the PnP uniforms
+    ``pnp_u`` (B, 32, MAXF); JAX draws both RANSACs from one key)."""
     relR = gyro_relative_R(imu.dts, imu.gyr, st.x.Bg[:, WINDOW_SIZE], st.x.qic)
     trk, tout = ft.track_frame(tcfg, cam, trk, img, t, relR, ransac_u)
     feats = tout.features
     feats = feats._replace(depth=ft.lookup_depth(depth, feats.uv, feats.ids >= 0))
-    st, sout = est.vio_step(ecfg, st, feats, imu, relo)
+    st, sout = est.vio_step(ecfg, st, feats, imu, relo, pnp_u)
     return trk, st, sout
 
 
@@ -126,6 +127,9 @@ class BatchedVioRunner:
 
     def __init__(self, tcfg: TrackerConfig, cam: PinholeCamera, ecfg: EstimatorConfig,
                  device, B: int, seed: int = 17):
+        if not ecfg.use_imu or not tcfg.use_imu_prediction:
+            raise NotImplementedError("the batched runner runs VIO only; VO mode (no IMU) "
+                                      "runs on the latency pipeline, VinsPipeline")
         # the batched envelope: LK capped at 12 fine / 6 coarse iterations;
         # "auto" is the whole-level kernel K2, as JAX picks on TPU
         eng = "pallas3" if tcfg.lk_engine == "auto" else tcfg.lk_engine

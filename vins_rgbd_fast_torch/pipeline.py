@@ -20,11 +20,19 @@ worker thread runs the pose graph on a stream of its own (``run`` and
 through ``VinsEstimator.set_relo_frame`` and the solve's refined relo pose
 goes back to the graph (``PoseGraph.update_keyframe_loop``).
 
+Without an IMU (``vcfg.imu`` off, VO mode: the TUM RGB-D rig) no frame
+waits for IMU samples, the tracker runs cold LK from the previous positions
+on 4 pyramid levels, the estimator initialises each new pose by PnP and the
+pose graph is the 6-DoF one.
+
 RANSAC draws come from one ``torch.Generator`` per pipeline, or from a
 ``ransac_uniforms(fused, index)`` callable (tests inject the JAX draws:
 ``index`` is the frame counter on the unfused path and the fused-step
-counter on the fused one, as JAX keys them); PnP draws likewise from the
-pose graph's generator or ``pnp_uniforms(keyframe index, n)``.
+counter on the fused one, as JAX keys them); the VO pose init's PnP draws
+from the estimator's generator or ``vo_pnp_uniforms(fused, index)``
+(``index``: the estimator's step unfused, the fused-step counter fused); a
+loop check's PnP draws from the pose graph's generator or
+``pnp_uniforms(keyframe index, n)``.
 """
 
 from __future__ import annotations
@@ -55,7 +63,8 @@ class VinsPipeline:
                  fused_steady_state: bool = False,
                  ransac_uniforms: Optional[Callable] = None,
                  pose_graph_config: Optional[PoseGraphConfig] = None,
-                 pnp_uniforms: Optional[Callable] = None):
+                 pnp_uniforms: Optional[Callable] = None,
+                 vo_pnp_uniforms: Optional[Callable] = None):
         if vcfg.equalize or vcfg.fisheye:
             raise NotImplementedError("the port's tracker has no CLAHE and no fisheye mask")
         self.vcfg = vcfg
@@ -66,10 +75,14 @@ class VinsPipeline:
             width=vcfg.image_width, height=vcfg.image_height, max_cnt=vcfg.max_cnt,
             capacity=vcfg.feature_capacity, min_dist=vcfg.min_dist,
             grid_rows=vcfg.num_grid_rows, grid_cols=vcfg.num_grid_cols,
-            f_threshold=vcfg.f_threshold, fast_threshold=float(vcfg.fast_threshold))
-        self.estimator = est.VinsEstimator(vcfg, self.device, dtype,
-                                           eager_outputs=eager_outputs,
-                                           failure_check_interval=failure_check_interval)
+            f_threshold=vcfg.f_threshold, fast_threshold=float(vcfg.fast_threshold),
+            use_imu_prediction=bool(vcfg.imu))
+        self._vo_pnp_uniforms = vo_pnp_uniforms
+        self.estimator = est.VinsEstimator(
+            vcfg, self.device, dtype, eager_outputs=eager_outputs,
+            failure_check_interval=failure_check_interval,
+            pnp_uniforms=(None if vo_pnp_uniforms is None
+                          else (lambda step: vo_pnp_uniforms(False, step))))
         self.tracker_state = ft.init_state(self.tcfg, 1, self.device, dtype)
         self.pairer = io_stream.StreamPairer(frontend_freq=vcfg.frontend_freq,
                                              publish_freq=vcfg.freq)
@@ -147,6 +160,13 @@ class VinsPipeline:
         return torch.rand((1,) + shape, generator=self._generator, device=self.device,
                           dtype=self.dtype)
 
+    def _vo_uniforms(self, fused_step: int) -> torch.Tensor:
+        """(1, 32, MAXF) PnP uniforms of a fused VO frame."""
+        if self._vo_pnp_uniforms is None:
+            return self.estimator.draw_pnp_uniforms(self.estimator._step)
+        u = torch.tensor(np.asarray(self._vo_pnp_uniforms(True, fused_step)), dtype=self.dtype)
+        return u.reshape(-1, self.estimator.cfg.maxf)[None].to(self.device)
+
     def _on_device(self, a) -> torch.Tensor:
         return torch.as_tensor(a, dtype=self.dtype, device=self.device)[None]
 
@@ -172,7 +192,7 @@ class VinsPipeline:
         t = frame.t
         # the backend needs IMU coverage up to t + td: hold the frame (it is
         # already popped from the pairer) and retry on the next spin
-        if not self.estimator.imu_available(t + self.vcfg.td):
+        if self.vcfg.imu and not self.estimator.imu_available(t + self.vcfg.td):
             self._held_frame = frame
             return None
         t_last = self._last_frame_time
@@ -190,7 +210,8 @@ class VinsPipeline:
                     self._loop_stager.on_frame(out, img[0], t, depth=depth[0])
             return out
 
-        rel_R = self._predict_relative_R(t_last if t_last else t - 1e-3, t)
+        rel_R = (self._predict_relative_R(t_last if t_last else t - 1e-3, t) if self.vcfg.imu
+                 else np.eye(3))
         with self.timer.stage("frontend"):
             img = self._on_device(frame.image)
             self.tracker_state, tout = ft.track_frame(
@@ -262,8 +283,11 @@ class VinsPipeline:
         est_ = self.estimator
         maxi = est_.cfg.max_imu
         cur_time = t + est_._td_cache
-        dts, acc, gyr = est_._collect_interval_np(
-            est_.prev_time if est_.prev_time is not None else cur_time - 1e-3, cur_time)
+        if est_.cfg.use_imu:
+            dts, acc, gyr = est_._collect_interval_np(
+                est_.prev_time if est_.prev_time is not None else cur_time - 1e-3, cur_time)
+        else:  # VO: an empty interval
+            dts, acc, gyr = np.zeros(maxi), np.zeros((maxi + 1, 3)), np.zeros((maxi + 1, 3))
         est_.prev_time = cur_time
         n_imu = 1 + maxi + 6 * (maxi + 1)
         parts = [[t], dts, acc.ravel(), gyr.ravel()]
@@ -275,11 +299,12 @@ class VinsPipeline:
                               gyr=dev[1 + maxi + 3 * (maxi + 1):n_imu].reshape(1, maxi + 1, 3))
         relo = self._unpack_relo(dev[n_imu:], est_.cfg.maxf) if est_.cfg.fast_relo else None
         u = self._uniforms(True, self._fused_step)
+        pnp_u = None if est_.cfg.use_imu else self._vo_uniforms(self._fused_step)
         self._fused_step += 1
         with self.timer.stage("fused"):
             self.tracker_state, est_.state, step_out = fused_frame_step(
                 self.tcfg, self.cam, est_.cfg, self.tracker_state, est_.state,
-                img, depth, dev[0:1], imu, u, relo)
+                img, depth, dev[0:1], imu, u, relo, pnp_u)
         self._frame_idx += 1
         est_.headers = est_.headers[1:] + [t]
         if est_._step % est_.failure_check_interval == 0 and bool(step_out.failure[0]):
