@@ -23,6 +23,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      at the VO path's shapes: 1 × 376 cold tracks (the 376 strongest
      corners, started at their own positions) on 4 levels down to 80×60;
      and ``pyramidal_lk``'s K3 route against its K2 route on each;
+  4c. the OpenLORIS rig's shapes: K1 bit-exact on one rendered 848×480
+     frame (its last 64-wide output tile is 16 wide) and K3 at 1 × 200 on
+     levels 1 and 0 of an 848×480 pyramid, with the K3 bounds;
   5. the main path: B = 8 sequences at 640×480 rendered on the device,
      ``BatchedVioRunner.warm`` (11 window-filling frames + static init) and
      ``run`` over T steady frames; finite costs, every kernel launched by
@@ -44,8 +47,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      NON_LINEAR after the warm-up, ATE under max(0.05·travelled, 0.08 m),
      K1 once and K3 twice per frame and K2 never, and a profile of a few
      more frames that must show no host wait inside ``spin_once``;
-  8. K3 timings per level at 1×200 and 8×200, as in phase 6, and at the
-     VO shape 1×376 on levels 3..0;
+  8. K3 timings per level at 1×200 and 8×200, as in phase 6, at the
+     VO shape 1×376 on levels 3..0 and at 1×200 on the 848×480 levels 1
+     and 0; K1 at 1×480×848;
   9. the latency path with loop closure (the bench's default
      ``run_latency``): the revisit scene with a gyro pulse, ``VinsPipeline
      (loop_closure, fast_relocalization)`` with the pose graph on the
@@ -77,10 +81,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
      loop-corrected keyframe ATE no worse than the keyframes' VIO ATE, K1
      once per frame and once per extraction chunk, K2 twice per frame, K3
      never; drain-inclusive seq-frames/s and ms per lock-step frame beside
-     phase 5's step; and a profile of one real segment (the last one again,
-     ``run`` then ``submit``) while a threaded closer advances the earlier
-     segments submitted to it, with no host wait on the frame thread inside
-     the span (the worker's waits are counted apart);
+     phase 5's step; and a profile of 6 frames of one real segment (the
+     last one again, ``run`` then ``submit``) while a threaded closer
+     advances the earlier segments submitted to it, with no host wait on
+     the frame thread inside the span (the worker's waits are counted
+     apart);
  11. VO mode on the latency path (the TUM RGB-D rig's knobs: no IMU,
      ``max_cnt`` 250 = 376 slots): phase 9's scene and configuration with
      no IMU pushed, cold LK on 4 levels, the PnP pose init and the 6-DoF
@@ -95,10 +100,30 @@ Phases (each prints one line; any failure raises and exits non-zero):
      loaded keyframe, and the map through the reference's directory format
      and back; 11c. a VO pipeline with the pose graph inline checkpointed
      mid-stream (``io/checkpoint.py``) and resumed in a fresh one: the
-     resumed positions within 1e-4 m of the uninterrupted run's.
-Phases 5, 7, 9, 10 and 11 each zero the kernels' launch counters just
-before their path and read them just after; the ``kernels`` line sums the
-five.  A line before the card's lists each phase's wall seconds.
+     resumed positions within 1e-4 m of the uninterrupted run's;
+ 12. the RealSense rig's knobs on the latency path (640×480, grid 5×6,
+     ``max_cnt`` 30, static init, ``estimate_td`` from 0 against IMU
+     stamps 5 ms ahead, rolling shutter with tr 0.033 (the renderer has a
+     global shutter: the term is exercised, not matched), the extrinsic
+     refined online), the failure check and td refresh every 4th frame;
+     16 warm-up + 96 timed frames fused, 4 profiled: ATE under its bound, td
+     finite within 50 ms, K1 once and K3 twice per frame, K2 never, and at
+     most the td read and the failure check as host waits on the frame
+     thread; 12b. the same stream calibrating the extrinsic rotation
+     online from 5° off (unfused, where the calibration runs): the ATE
+     bound, and an error under 4° if the calibration ends;
+ 13. the OpenLORIS rig's knobs (848×480 at 30 Hz, grid 7×8, ``max_cnt``
+     130, ``static_init`` 0, depth to 3 m) over a stream moving from frame
+     0: ``init_dynamic`` initializes by frame 15, the relative motion from
+     the first output to the last within max(0.1·d, 0.08 m) of the truth,
+     K1 once and K3 twice per frame, K2 never, 3 profiled frames with no
+     host wait on the frame thread; 13b. that stream with no depth over
+     its first 12 frames: ``init_dynamic`` fails, ``init_mono`` runs, the
+     window initializes by frame 23, the relative motion within
+     max(0.15·d, 0.1 m).
+Phases 5, 7, 9, 10, 11, 12 and 13 each zero the kernels' launch counters
+just before their path and read them just after; the ``kernels`` line sums
+the seven.  A line before the card's lists each phase's wall seconds.
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA it exits
 non-zero before printing any result.
 """
@@ -139,6 +164,7 @@ DISTORTION = dict(k1=0.13387871564774004, k2=-0.2731913133377051,
 OUT_DIR = "chiprun_out"
 RUN_SPAN = "chip_smoke::run"
 SPIN_SPAN = "chip_smoke::spin_once"
+TD_TRUE = 0.005  # phase 12's IMU clock runs 5 ms ahead of the image stamps
 HOST_SYNC_CALLS = ("cudaStreamSynchronize", "cudaEventSynchronize", "cudaDeviceSynchronize",
                    "cudaMemcpy")
 KERNELS = ("fast_nms", "lk_level", "lk_iterate")  # launch counters, and <name>_kernel on the card
@@ -743,6 +769,203 @@ def check_checkpoint_resume(res) -> None:
     require(res["max_dP"] <= 1e-4, ("resumed trajectory", res))
 
 
+def td_config(rig, seq, max_cnt: int = 30) -> VinsConfig:
+    """The RealSense D435i rig's knobs (the reference's
+    ``config/realsense/vio.yaml`` as ``tests/test_config.py:15-27`` reads
+    it: grid 5×6, max_cnt 30, min_dist 30, a 20 Hz frontend, static init,
+    ``estimate_td`` 1, rolling shutter with tr 0.033) on the latency cell's
+    ``rig`` and noise; td starts at 0 and the extrinsic is refined online
+    (``estimate_extrinsic`` 1)."""
+    return dataclasses.replace(
+        latency_config(rig, seq, max_cnt), num_grid_rows=5, num_grid_cols=6,
+        frontend_freq=20.0, estimate_td=True, td=0.0, rolling_shutter=True,
+        rolling_shutter_tr=0.033, estimate_extrinsic=1)
+
+
+def calib_config(cfg: VinsConfig, seq, deg: float = 5.0) -> VinsConfig:
+    """``cfg`` with the extrinsic rotation calibrated online
+    (``estimate_extrinsic`` 2), started from the true ``ric`` turned by
+    ``deg`` degrees about (1, 1, 1)."""
+    axis = np.ones(3) / np.sqrt(3.0)
+    turn = syn._q2R(syn._so3_exp(np.radians(deg) * axis))
+    return dataclasses.replace(cfg, estimate_extrinsic=2,
+                               ric=tuple((seq.ric @ turn).ravel().tolist()))
+
+
+def openloris_rig(W: int = 848, H: int = 480):
+    """The OpenLORIS rig's camera (848×480 at 30 Hz, the bench's focal
+    length and no distortion), scaled to W×H for rehearsals."""
+    s = W / 848.0
+    return syn.SyntheticRig(width=W, height=H, fx=460.0 * s, fy=460.0 * s, cx=W / 2.0,
+                            cy=H / 2.0, frame_rate=30.0)
+
+
+def openloris_config(rig, seq, max_cnt: int = 130) -> VinsConfig:
+    """The OpenLORIS rig's knobs (the reference's
+    ``config/openloris/openloris_vio.yaml``, ``SURVEY.md`` §5.6 and §6:
+    848×480, grid 7×8, max_cnt 130, a 30 Hz frontend, ``static_init`` 0,
+    ``depth_max_dist`` 3) on ``rig`` (``openloris_rig``), min_dist 30 at
+    full width, the latency cell's noise."""
+    s = min(rig.width / 640.0, 1.0)
+    return dataclasses.replace(
+        latency_config(rig, seq, max_cnt), static_init=False, frontend_freq=30.0,
+        min_dist=max(int(round(30 * s)), 4), depth_max_dist=3.0)
+
+
+def realsense_scene(n_frames: int, W: int = 640, H: int = 480):
+    """Phase 12's rig, stream (the latency cell's, seed 7) and knobs
+    (``td_config``) at W×H: (rig, seq, cfg)."""
+    rig, _, _, _ = slice_config(W, H, 30)
+    seq = syn.make_trajectory(n_frames, rig, seed=7, omega_scale=0.15, acc_scale=0.3)
+    return rig, seq, td_config(rig, seq)
+
+
+def openloris_scene(n_frames: int, W: int = 848, H: int = 480):
+    """Phase 13's rig, stream and knobs at W×H: (rig, seq, cfg).  The
+    stream is ``make_trajectory`` (seed 7, moving from frame 0) with motion
+    enough for the excitation check of dynamic initialization (the std of
+    the window's accelerations above 0.25 m/s², which the latency cell's
+    gentler motion fails)."""
+    rig = openloris_rig(W, H)
+    seq = syn.make_trajectory(n_frames, rig, seed=7, omega_scale=0.3, acc_scale=2.0)
+    return rig, seq, openloris_config(rig, seq)
+
+
+def angle_deg(R_a, R_b) -> float:
+    """The angle of R_aᵀ·R_b in degrees."""
+    c = (np.trace(np.asarray(R_a).T @ np.asarray(R_b)) - 1.0) / 2.0
+    return float(np.degrees(np.arccos(np.clip(c, -1.0, 1.0))))
+
+
+def run_rig_path(device, cfg: VinsConfig, rig, seq, n_frames: int = 112, warmup: int = 16,
+                 profile: int = 0, path=None, fused: bool = True,
+                 failure_check_interval: int = 10 ** 9, imu_shift: float = 0.0,
+                 depthless: int = 0):
+    """One stream through ``VinsPipeline`` with a rig's knobs (phases 12,
+    12b, 13 and 13b): frames rendered on the device first (the depth of the
+    first ``depthless`` zeroed), IMU stamps shifted by ``imu_shift`` (a
+    known td), ``warmup`` frames, then the timed ones (CUDA-synchronised
+    wall time) with the launch counters zeroed before the warm-up, then
+    ``profile`` frames under the profiler.  The envelope, no read-back per
+    frame but the failure check every ``failure_check_interval`` frames
+    and the td refresh.  Records the frame of initialization, which of
+    ``init_dynamic``/``init_mono`` succeeded, and the frame the extrinsic
+    calibration ended, if it did."""
+    ts, imgs, deps = syn.render_sequence(seq, rig, device)
+    if depthless:
+        deps[:depthless] = 0.0
+    pipe = envelope(VinsPipeline(cfg, device, eager_outputs=False,
+                                 failure_check_interval=failure_check_interval,
+                                 fused_steady_state=fused))
+    for (t, a, g) in seq.imu:
+        pipe.push_imu(t + imu_shift, a, g)
+    e = pipe.estimator
+    attempts = []  # (program, ok) of every initialization attempt
+    progs = {name: getattr(est, name) for name in ("init_dynamic", "init_mono")}
+
+    def recorded(name):
+        def run(*args):
+            res = progs[name](*args)
+            attempts.append((name, res[2]))
+            return res
+        return run
+
+    marks = dict(init_frame=None, calib_frame=None, calib_err_deg=None)
+
+    def feed(k0, k1):
+        for k in range(k0, k1):
+            pipe.push_image(ts[k], imgs[k])
+            pipe.push_depth(ts[k], deps[k])
+            pipe.spin_once()
+            if marks["init_frame"] is None and e.solver_flag == e.NON_LINEAR:
+                marks["init_frame"] = k
+            if cfg.estimate_extrinsic == 2 and marks["calib_frame"] is None \
+                    and not e._ex_calibrating:
+                marks["calib_frame"] = k
+                marks["calib_err_deg"] = angle_deg(quat_np_R(e.state.x.qic[0]), seq.ric)
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    for name in progs:
+        setattr(est, name, recorded(name))
+    try:
+        reset_counts()
+        feed(0, warmup)
+        flag = e.solver_flag
+        sync()
+        t0 = time.perf_counter()
+        feed(warmup, n_frames)
+        sync()
+        elapsed = time.perf_counter() - t0
+        counts = read_counts()
+        tracked = pipe._frame_idx  # the frames the pairer's rate gate let through
+        prof = None
+        if profile:
+            prof = profile_span(lambda: feed(n_frames, n_frames + profile), SPIN_SPAN, profile,
+                                path, 1e3 * elapsed / (n_frames - warmup))
+    finally:
+        for name, fn in progs.items():
+            setattr(est, name, fn)
+    traj = [r for r in e.trajectory if r["t"] <= ts[n_frames - 1]]
+    times, P = [r["t"] for r in traj], [r["P"] for r in traj]
+    travelled = float(np.sum(np.linalg.norm(np.diff(seq.P[:n_frames], axis=0), axis=1)))
+    # the relative motion from the first output to the last (a dynamic
+    # initialization anchors its world at the window's first frame)
+    k_first = int(np.argmin(np.abs(seq.times - times[0]))) if traj else 0
+    k_last = int(np.argmin(np.abs(seq.times - times[-1]))) if traj else 0
+    d_gt = float(np.linalg.norm(seq.P[k_last] - seq.P[k_first]))
+    d_est = float(np.linalg.norm(P[-1] - P[0])) if traj else float("nan")
+    ric = quat_np_R(e.state.x.qic[0])
+    n_timed = n_frames - warmup
+    return dict(latency_fps=n_timed / elapsed, latency_ms_per_frame=1e3 * elapsed / n_timed,
+                latency_ate_m=(ate_rmse(times, P, seq.times, seq.P, align=False)
+                               if len(traj) >= 5 else float("nan")),
+                aligned_ate_m=(ate_rmse(times, P, seq.times, seq.P, align=True)
+                               if len(traj) >= 5 else float("nan")),
+                bound=max(0.05 * travelled, 0.08), d_est=d_est, d_gt=d_gt,
+                frames=n_frames, tracked=tracked, timed=n_timed, n_records=len(traj),
+                solver_flag_after_warmup=flag, init_frame=marks["init_frame"],
+                attempts=[(name, bool(ok[0])) for name, ok in attempts],
+                calib_frame=marks["calib_frame"], calib_err_deg=marks["calib_err_deg"],
+                calibrating=e._ex_calibrating,
+                ric_err_deg=angle_deg(ric, seq.ric), td=float(e.state.x.td[0]),
+                td_cache=e._td_cache, counts=counts, profile=prof, timer=pipe.timer.summary())
+
+
+def quat_np_R(q: torch.Tensor) -> np.ndarray:
+    """A (4,) wxyz quaternion tensor -> its rotation matrix (numpy float64)."""
+    return syn._q2R(q.detach().cpu().double().numpy())
+
+
+def check_rig_path(res, dynamic: bool, rel_frac: float = 0.1, rel_min: float = 0.08,
+                   init_by: int = 16, on_gpu: bool = True, waits: int = 0) -> None:
+    """Phases 12-13b: initialized by frame ``init_by`` - 1 (dynamic: by
+    ``init_dynamic`` or its fallback), finite td within 50 ms; static: the
+    ATE bound; dynamic: the relative motion from the first output to the
+    last within max(``rel_frac``·d, ``rel_min``) of the truth.  On the
+    card: K1 once and K3 twice per tracked frame (the rig's frontend rate
+    gate drops the stream's second frame), K2 never, and at most ``waits``
+    host waits on the frame thread in the profile."""
+    require(res["init_frame"] is not None and res["init_frame"] < init_by,
+            ("initialized", res["init_frame"], res["attempts"]))
+    require(np.isfinite(res["td"]) and abs(res["td"]) < 0.05, ("td", res["td"]))
+    if dynamic:
+        require(abs(res["d_est"] - res["d_gt"]) < max(rel_frac * res["d_gt"], rel_min),
+                ("relative motion", res["d_est"], res["d_gt"]))
+    else:
+        require(np.isfinite(res["latency_ate_m"]) and res["latency_ate_m"] < res["bound"],
+                ("latency ATE", res["latency_ate_m"], res["bound"]))
+    if on_gpu:
+        n = res["tracked"]
+        require(n >= res["frames"] - 1 and res["counts"] == {
+            "fast_nms": n, "lk_level": 0, "lk_iterate": 2 * n}, ("launches", res["counts"], n))
+        if res["profile"] is not None:
+            require(res["profile"]["host_syncs"] <= waits,
+                    ("host waits on the frame thread", res["profile"]))
+
+
 def batched_loop_scene(rig, B: int, n_frames: int, n_revisit: int):
     """bench.py run_batched's scene with BENCH_LOOP=1: sequences b <
     ``n_revisit`` are ``make_revisit_trajectory(seed 200+b, accel 1.5,
@@ -757,7 +980,7 @@ def batched_loop_scene(rig, B: int, n_frames: int, n_revisit: int):
 
 def run_batched_loop_path(device, B: int = 8, n_frames: int = 212, seg_len: int = 18,
                           W: int = 640, H: int = 480, max_cnt: int = 130, max_kp: int = 192,
-                          k_pad: int = 32, profile: bool = False, path=None,
+                          k_pad: int = 32, profile: int = 0, path=None,
                           mode: str = "threaded"):
     """bench.py run_batched with BENCH_LOOP=1 on the port: B sequences (half
     of them revisits with a gyro pulse) rendered on the device, the runner's
@@ -766,11 +989,11 @@ def run_batched_loop_path(device, B: int = 8, n_frames: int = 212, seg_len: int 
     (``consume`` and the closer's warm-up), the others are timed through
     ``ThreadedLoopCloser`` (``submit`` after each ``run``) up to the end of
     ``drain()`` and a device synchronisation.  The launch counters are
-    zeroed just before the timed segments.  With ``profile``, the last
-    segment runs again under the profiler after (from the runner state it
-    started from), ``run`` then ``submit``, while a second threaded closer
-    (a clone of the first, fresh gates) advances the earlier segments
-    submitted to it just before.  ``mode`` exists for the reproducibility
+    zeroed just before the timed segments.  With ``profile`` n > 0, the
+    first n frames of the last segment run again under the profiler after
+    (from the runner state it started from), ``run`` then ``submit``, while
+    a second threaded closer (a clone of the first, fresh gates) advances
+    the earlier segments submitted to it just before.  ``mode`` exists for the reproducibility
     probe (``batched_loop_repro.py``): "inline" runs the closer's serial
     ``consume`` after each ``run`` on the frame thread, "none" runs no
     closer (no loop metrics)."""
@@ -858,10 +1081,12 @@ def run_batched_loop_path(device, B: int = 8, n_frames: int = 212, seg_len: int 
             for k in range(1, n_seg - 1):
                 busy.submit(batches[k], outs_all[k])
 
-            def segment():
-                busy.submit(batches[-1], runner.run(*last_state, batches[-1])[2])
+            part = bp.FrameBatch(*(a[:profile] for a in batches[-1]))
 
-            prof = profile_span(segment, RUN_SPAN, seg_len, path, 1e3 * elapsed / n_timed)
+            def segment():
+                busy.submit(part, runner.run(*last_state, part)[2])
+
+            prof = profile_span(segment, RUN_SPAN, profile, path, 1e3 * elapsed / n_timed)
         finally:
             busy.close()
     cost = torch.stack([o.cost for o in outs_all]).cpu().numpy()
@@ -1350,6 +1575,24 @@ def main() -> int:
 
     done("4b")
 
+    # 4c. the OpenLORIS rig's shapes: K1 at 1x480x848 (its last 64-wide
+    # output tile 16 wide) and K3 on levels 1 and 0 of an 848x480 pyramid
+    rig_o, seq_o, _ = openloris_scene(2)
+    _, frames_o, _ = syn.render_sequence(seq_o, rig_o, dev)
+    f0_o, f1_o = frames_o[:1].contiguous(), frames_o[1:2].contiguous()
+    out_k = fast.fast_nms(f0_o, tcfg.fast_threshold)
+    out_p = fast.nms3(fast.fast_score(f0_o, tcfg.fast_threshold))
+    k1_err = max(k1_err, float((out_k - out_p).abs().max()))
+    require(torch.equal(out_k, out_p), "K1 bit-exact on 1x480x848")
+    tcfg_o = dataclasses.replace(tcfg_run, width=848, height=480)
+    k3_o = k2_inputs(f0_o, f1_o, tcfg_o, N, gen)
+    rep3["openloris"] = compare_k3(*k3_o, tcfg_o)
+    k3_err = max(k3_err, check_parity("K3", rep3["openloris"]))
+    print(f"[4c 848x480] K1 bit-exact on 1x480x848 ({int((out_k > 0).sum())} corners); K3 "
+          f"1x{N}: " + summary(rep3["openloris"]), flush=True)
+
+    done("4c")
+
     # 5. the main path
     res = run_main_path(dev, B, T, extra=EXTRA, timer=CudaTimer())
     check_main_path(res, B, T)
@@ -1367,11 +1610,12 @@ def main() -> int:
     timer = LaunchTimer()
     timings = []
 
-    def timing(kernel, shape, fn, plain, bound):
+    def timing(kernel, shape, fn, plain, bound, phase=None):
         t = dict(kernel=kernel, shape=shape, **timer(fn), plain_ms=median_ms(plain), **bound)
         t["share_of_bound"] = t["bound_ms"] / t["device_ms"]
         timings.append(t)
-        print(f"[{6 if kernel != 'lk_iterate' else 8} timing] {kernel} {shape}: "
+        phase = phase or (6 if kernel != "lk_iterate" else 8)
+        print(f"[{phase} timing] {kernel} {shape}: "
               f"{t['device_ms']:.5f} ms per launch on the device ({t['reps']} per event "
               f"pair), wrapper {t['host_us']:.1f} us per call on the host; bound "
               f"{t['bound_ms']:.5f} ms ({t['bound_by']}; {t['bytes'] / 1e6:.3f} MB, "
@@ -1441,7 +1685,11 @@ def main() -> int:
     # 8. K3 timing per level at the three shapes (VO: at each level the flow
     # the plain version carried down from the coarser levels; the others
     # start every level at the coarse flow)
-    for b, (prev_pyr, cur_pyr, pts, init, active) in list(k3_in.items()) + [("vo", k3_vo)]:
+    timing("fast_nms", "1x480x848 rendered", lambda: fast.fast_nms(f0_o, thr),
+           lambda: fast.nms3(fast.fast_score(f0_o, thr)),
+           kernel_bounds(1, 480, 848, N, 0, pairs=fast_pairs(f0_o, thr))["fast_nms"], phase=8)
+    for b, (prev_pyr, cur_pyr, pts, init, active) in (list(k3_in.items()) + [("vo", k3_vo)]
+                                                      + [("848", k3_o)]):
         L = len(prev_pyr)
         flow = (init - pts) / 2.0 ** (L - 1)
         n = pts.shape[1]
@@ -1449,7 +1697,8 @@ def main() -> int:
             iters = tcfg_run.lk_max_iters if l == 0 else tcfg_run.lk_coarse_iters
             args, _ = k3_args(prev_pyr, cur_pyr, pts, flow, active, l, iters)
             steps = gn_steps(lambda k: lk.lk_iterate_plain(*args[:12], k, args[13])[0], iters)
-            shape = f"1x{n} level {l} VO" if b == "vo" else f"{b}x{n} level {l}"
+            shape = (f"1x{n} level {l} VO" if b == "vo" else f"848x480 1x{n} level {l}"
+                     if b == "848" else f"{b}x{n} level {l}")
             timing("lk_iterate", shape, lambda: lk._lk_iterate_cuda(*args),
                    lambda: lk.lk_iterate_plain(*args),
                    kernel_bounds(pts.shape[0], 0, 0, n, iters, steps=sum(steps))["lk_iterate"])
@@ -1522,7 +1771,10 @@ def main() -> int:
     done("9d")
 
     # 10. the batched path with loop closure (its own launch counts)
-    bl = run_batched_loop_path(dev, profile=True,
+    # the profile covers 6 frames of a segment: a profiled frame's trace
+    # takes seconds to export and read, and the script's time goes to the
+    # later phases
+    bl = run_batched_loop_path(dev, profile=6,
                                path=os.path.join(OUT_DIR, "profile_batched_loop.txt"))
     require(bl["profile"] is not None, "phase 10 profiled")
     check_batched_loop_path(bl)
@@ -1580,11 +1832,79 @@ def main() -> int:
 
     done("11c")
 
+    # 12. the RealSense rig on the latency path: td estimated online from 0
+    # against IMU stamps 5 ms ahead, rolling shutter (the renderer's global
+    # shutter: the term is exercised, not matched), the extrinsic refined;
+    # the failure check and the td refresh every 4th frame
+    rig_r, seq_r, cfg_r = realsense_scene(112 + 4)
+    td = run_rig_path(dev, cfg_r, rig_r, seq_r, profile=4, failure_check_interval=4,
+                      imu_shift=TD_TRUE, path=os.path.join(OUT_DIR, "profile_td.txt"))
+    check_rig_path(td, dynamic=False, waits=2)
+    print(f"[12 td] RealSense rig 640x480, max_cnt 30 ({cfg_r.feature_capacity} slots), td "
+          f"estimated (truth {TD_TRUE} s), rolling shutter, extrinsic refined; warm 16 + "
+          f"{td['timed']} timed frames, fused: latency_ms_per_frame "
+          f"{td['latency_ms_per_frame']:.3f} (phase 7 in this run: "
+          f"{lat['latency_ms_per_frame']:.3f}), latency_ate_m {td['latency_ate_m']:.4f} (bound "
+          f"{td['bound']:.3f}); final td {td['td']:.5f} s (host pairing td "
+          f"{td['td_cache']:.5f}); extrinsic drift {td['ric_err_deg']:.3f} deg; launches "
+          f"{td['counts']} over {td['tracked']} tracked frames; profile "
+          f"{td['profile']}", flush=True)
+
+    done("12")
+
+    # 12b. the same stream calibrating the extrinsic rotation online from
+    # 5 degrees off (unfused: JAX's fused steady state does not calibrate)
+    cal = run_rig_path(dev, calib_config(cfg_r, seq_r), rig_r, seq_r, fused=False,
+                       failure_check_interval=4, imu_shift=TD_TRUE)
+    check_rig_path(cal, dynamic=False)
+    if cal["calib_frame"] is not None:
+        require(cal["calib_err_deg"] < 4.0, ("calibrated ric", cal["calib_err_deg"]))
+    print(f"[12b extrinsic calibration] from 5 deg off, unfused: calibration "
+          + (f"ended at frame {cal['calib_frame']}, error {cal['calib_err_deg']:.3f} deg"
+             if cal["calib_frame"] is not None else "did not end (the rendered motion excites "
+             "too little rotation)")
+          + f"; final extrinsic error {cal['ric_err_deg']:.3f} deg; latency_ms_per_frame "
+          f"{cal['latency_ms_per_frame']:.3f}, latency_ate_m {cal['latency_ate_m']:.4f} (bound "
+          f"{cal['bound']:.3f}); launches {cal['counts']}", flush=True)
+
+    done("12b")
+
+    # 13. the OpenLORIS rig (848x480, 30 Hz, max_cnt 130) initializing in
+    # motion (static_init 0)
+    rig_o, seq_o, cfg_o = openloris_scene(112 + 3)
+    dyn = run_rig_path(dev, cfg_o, rig_o, seq_o, profile=3,
+                       path=os.path.join(OUT_DIR, "profile_dyn.txt"))
+    check_rig_path(dyn, dynamic=True)
+    require(("init_dynamic", True) in dyn["attempts"], ("init_dynamic", dyn["attempts"]))
+    print(f"[13 dynamic init] OpenLORIS rig 848x480 30 Hz, max_cnt 130 "
+          f"({cfg_o.feature_capacity} slots), depth to 3 m; warm 16 + {dyn['timed']} timed "
+          f"frames, fused: initialized at frame {dyn['init_frame']} by {dyn['attempts']}; "
+          f"latency_ms_per_frame {dyn['latency_ms_per_frame']:.3f}; relative motion "
+          f"{dyn['d_est']:.4f} m against {dyn['d_gt']:.4f} m; aligned ATE "
+          f"{dyn['aligned_ate_m']:.4f} m; launches {dyn['counts']}; profile {dyn['profile']}",
+          flush=True)
+
+    done("13")
+
+    # 13b. the same stream with no depth over its first 12 frames: dynamic
+    # initialization fails, the monocular one runs
+    mono = run_rig_path(dev, cfg_o, rig_o, seq_o, n_frames=64, depthless=12)
+    check_rig_path(mono, dynamic=True, rel_frac=0.15, rel_min=0.1, init_by=24)
+    require(any(name == "init_mono" for name, _ in mono["attempts"]), ("init_mono ran",
+                                                                       mono["attempts"]))
+    print(f"[13b monocular init] phase 13's stream, depth zeroed over frames 0-11: initialized "
+          f"at frame {mono['init_frame']} by {mono['attempts']}; relative motion "
+          f"{mono['d_est']:.4f} m against {mono['d_gt']:.4f} m; aligned ATE "
+          f"{mono['aligned_ate_m']:.4f} m; latency_ms_per_frame "
+          f"{mono['latency_ms_per_frame']:.3f}", flush=True)
+
+    done("13b")
+
     # the kernels line: per launch at the main path's shapes (K1 8x480x640,
     # K2 8x200 averaged over its two levels) and K3 at the latency path's
     # 1x200 (it never runs on the main path)
     paths = {"batched": res, "latency": lat, "latency_loop": loop, "batched_loop": bl,
-             "latency_vo": vo}
+             "latency_vo": vo, "latency_td": td, "latency_dyn": dyn}
     counts = {k: sum(r["counts"][k] for r in paths.values()) for k in KERNELS}
     errs = {"fast_nms": k1_err, "lk_level": k2_err, "lk_iterate": k3_err}
     main_shape = {"fast_nms": f"{B}x480x640 rendered", "lk_level": f"{B}x{N} level",
@@ -1607,11 +1927,8 @@ def main() -> int:
             bound_by=rows[0]["bound_by"], library_ms=None,
             launches_by_path={p: r["counts"][name] for p, r in paths.items()},
             host_us=mean("host_us"), profile_ms_per_frame={
-                "batched": prof["by_kernel"][name]["device_ms_per_frame"],
-                "latency": lat["profile"]["by_kernel"][name]["device_ms_per_frame"],
-                "latency_loop": loop["profile"]["by_kernel"][name]["device_ms_per_frame"],
-                "batched_loop": bl["profile"]["by_kernel"][name]["device_ms_per_frame"],
-                "latency_vo": vo["profile"]["by_kernel"][name]["device_ms_per_frame"]}))
+                p: (prof if p == "batched" else r["profile"])["by_kernel"][name][
+                    "device_ms_per_frame"] for p, r in paths.items()}))
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi, kernels=kernels, timings=timings, k2=rep, k3=rep3, main={
             k: res[k] for k in ("ates", "bounds", "counts", "run_ms", "wall_s", "frames")},
@@ -1619,7 +1936,8 @@ def main() -> int:
             latency_loop=jsonable(loop), latency_loop_no_graph=alone, abba_ms=ms,
             worker_cost=worker_cost, latency_loop_eager=jsonable(eager),
             batched_loop={k: v for k, v in bl.items() if k != "cost"}, latency_vo=jsonable(vo),
-            vo_map=mp, vo_checkpoint=ck, phase_s=phase_s), f, indent=1, default=float)
+            vo_map=mp, vo_checkpoint=ck, latency_td=td, latency_td_calib=cal,
+            latency_dyn=dyn, latency_mono=mono, phase_s=phase_s), f, indent=1, default=float)
     print(f"[phases] wall seconds {phase_s}, {sum(phase_s.values()):.1f} in all", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -263,20 +263,28 @@ def test_load_config_matches_jax(tmp_path):
 
 
 def test_unported_options_raise(stream):
-    """What the port still refuses: dynamic init, td and extrinsic
-    estimation, CLAHE, the Mei camera, and VO on the batched runner.  VO
-    mode on the latency pipeline, its 6-DoF graph and the map's save and
-    load run (``tests/test_torch_vo.py``, ``tests/test_torch_persistence.py``)."""
+    """What the port still refuses: CLAHE and the fisheye mask, the Mei
+    camera, and VO or dynamic initialization on the batched runner.
+    Dynamic init, td and extrinsic estimation run on the latency pipeline
+    (``tests/test_torch_init.py``, ``tests/test_torch_td_ex.py``,
+    ``tests/test_torch_td_pipeline.py``); VO mode there, its 6-DoF graph and
+    the map's save and load too (``tests/test_torch_vo.py``,
+    ``tests/test_torch_persistence.py``)."""
     tcfg = stream[4]
-    for change in (dict(static_init=False), dict(estimate_td=True), dict(estimate_extrinsic=2),
-                   dict(equalize=True)):
+    for change in (dict(equalize=True), dict(fisheye=True)):
         with pytest.raises(NotImplementedError):
             TPipeline(dataclasses.replace(tcfg, **change), "cpu")
+    for change in (dict(static_init=False), dict(estimate_td=True, rolling_shutter=True),
+                   dict(estimate_extrinsic=2), dict(estimate_extrinsic=1)):
+        cfg = TPipeline(dataclasses.replace(tcfg, **change), "cpu").estimator.cfg
+        assert cfg == tes.EstimatorConfig.from_vins(dataclasses.replace(tcfg, **change))
     with pytest.raises(NotImplementedError):
         dataclasses.replace(tcfg, model_type="MEI").camera()
     rig, btcfg, becfg, bcam = chip_smoke.slice_config(W, H, MAX_CNT)
     with pytest.raises(NotImplementedError, match="VO"):
         tbp.BatchedVioRunner(btcfg, bcam, dataclasses.replace(becfg, use_imu=False), "cpu", 1)
+    with pytest.raises(NotImplementedError, match="static"):
+        tbp.BatchedVioRunner(btcfg, bcam, dataclasses.replace(becfg, static_init=False), "cpu", 1)
     pipe = TPipeline(dataclasses.replace(tcfg, imu=False, loop_closure=True,
                                          fast_relocalization=True), "cpu")
     assert pipe.pose_graph.cfg.use_6dof and not pipe.estimator.cfg.use_imu
@@ -321,7 +329,7 @@ def test_port_imports_nothing_of_jax():
             "import vins_rgbd_fast_torch.pipeline, chip_smoke; "
             "import vins_rgbd_fast_torch.loop.pose_graph, "
             "vins_rgbd_fast_torch.parallel.loop_closer, vins_rgbd_fast_torch.loop.interop, "
-            "vins_rgbd_fast_torch.io.checkpoint; "
+            "vins_rgbd_fast_torch.io.checkpoint, vins_rgbd_fast_torch.backend.initialization; "
             "bad = [m for m in sys.modules if m.startswith('vins_rgbd_fast_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)

@@ -1,7 +1,12 @@
 """Sliding-window VIO estimator programs over B sequences in lock step
-(twin of ``fill_step``, ``init_full``, ``vio_step`` and their helpers in
-``vins_rgbd_fast_tpu/backend/estimator.py``), plus a numpy port of the
-host IMU-interval pairing (``VinsEstimator._collect_interval_np``).
+(twin of ``fill_step``, ``init_full``, ``init_dynamic``, ``init_mono``,
+``vio_step`` and their helpers in ``vins_rgbd_fast_tpu/backend/
+estimator.py``), plus a numpy port of the host IMU-interval pairing
+(``VinsEstimator._collect_interval_np``).
+
+The dynamic and monocular initializations take their RANSAC and PnP draws
+as uniforms too, and return per sequence either the initialized state or,
+where the attempt failed, the input state slid (the retry path).
 
 Without an IMU (``cfg.use_imu`` False, VO mode) a new frame starts at the
 previous pose and the newest pose is initialised by PnP RANSAC on the
@@ -17,6 +22,7 @@ per-sequence ``torch.where`` picks — no host synchronisation.
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 from typing import Callable, NamedTuple, Optional, Tuple
 
@@ -281,7 +287,7 @@ def fill_step(cfg: EstimatorConfig, st: EstimatorState, frame_idx: int,
               feats: FrameFeatures, imu: ImuInterval) -> Tuple[EstimatorState, torch.Tensor]:
     """Window-filling phase: store IMU, propagate (or gravity-align the
     first frame; without an IMU copy the previous pose), ingest,
-    triangulate."""
+    triangulate (not under dynamic init)."""
     st = _store_interval(st, frame_idx, imu)
     if not cfg.use_imu:
         st = st._replace(x=_copy_previous_pose(st.x, frame_idx))
@@ -292,15 +298,18 @@ def fill_step(cfg: EstimatorConfig, st: EstimatorState, frame_idx: int,
         st = st._replace(x=_propagate_newest(cfg, st, frame_idx))
     table, is_kf, _ = ftab.ingest_frame(st.table, frame_idx, feats, st.x.td,
                                         cfg.depth_min_dist, cfg.min_parallax)
-    table = ftab.triangulate_with_depth(table, st.x.P, st.x.Q, st.x.tic, st.x.qic,
-                                        cfg.depth_min_dist, cfg.depth_max_dist)
+    if cfg.static_init or not cfg.use_imu:  # dynamic init triangulates after its alignment
+        table = ftab.triangulate_with_depth(table, st.x.P, st.x.Q, st.x.tic, st.x.qic,
+                                            cfg.depth_min_dist, cfg.depth_max_dist)
     return st._replace(table=table), is_kf
 
 
 def _solve_and_slide(cfg: EstimatorConfig, st: EstimatorState, is_kf, last_track_num,
                      relo: Optional[slv.ReloData] = None) -> Tuple[EstimatorState, StepOutput]:
     """Triangulate → solve → write back → checks → marginalize → slide.
-    ``relo`` is bound to the current table rows by feature id first."""
+    ``relo`` is bound to the current table rows by feature id first.  td
+    (when estimated) is free only in sequences whose oldest frame moves
+    faster than 0.2 m/s."""
     g = _gravity(cfg, st.x.P)
     st = st._replace(table=ftab.triangulate_with_depth(
         st.table, st.x.P, st.x.Q, st.x.tic, st.x.qic, cfg.depth_min_dist, cfg.depth_max_dist))
@@ -309,8 +318,9 @@ def _solve_and_slide(cfg: EstimatorConfig, st: EstimatorState, is_kf, last_track
     sqrt_infos = imupre.sqrt_information(imu_data.pre) if cfg.use_imu else None
     if relo is not None:
         relo = slv.remap_relo_by_id(relo, st.table.ids)
+    td_free = (torch.linalg.norm(st.x.V[:, 0], dim=-1) > 0.2).to(g.dtype) if cfg.use_imu else None
     res = slv.solve(cfg.solver, st.x, vis, imu_data, st.prior, g, sqrt_infos=sqrt_infos,
-                    relo=relo)
+                    relo=relo, td_free=td_free)
     x_new = res.x
     table = ftab.update_depths_from_solver(st.table, res.inv_depth, vis.depth_free)
     table = _moving_consistency(cfg, x_new, table)
@@ -344,21 +354,220 @@ def _solve_and_slide(cfg: EstimatorConfig, st: EstimatorState, is_kf, last_track
     return _slide(cfg, st, is_kf), out
 
 
+def _all(st: EstimatorState, value, dtype=torch.bool) -> torch.Tensor:
+    return torch.full((st.x.P.shape[0],), value, dtype=dtype, device=st.x.P.device)
+
+
+def _gyro_bias_update(cfg: EstimatorConfig, st: EstimatorState, pre0: slv.ImuData,
+                      Q) -> EstimatorState:
+    """The gyro-bias least squares against frame rotations Q (B, FRAMES, 4)."""
+    dbg = init_ops.solve_gyroscope_bias(
+        pre0.pre.delta_q,
+        pre0.pre.jacobian[..., imupre.O_R:imupre.O_R + 3, imupre.O_BG:imupre.O_BG + 3],
+        Q, pre0.valid)
+    return st._replace(x=st.x._replace(Bg=st.x.Bg + dbg[:, None]))
+
+
 def init_full(cfg: EstimatorConfig, st: EstimatorState) -> Tuple[EstimatorState, StepOutput]:
     """Static initialization at window-full: gyro-bias least squares (with
     an IMU), then the solve/marginalize/slide tail with the first frame
     marginalized."""
     if cfg.use_imu:
-        pre0 = _make_preints(cfg, st)
-        dbg = init_ops.solve_gyroscope_bias(
-            pre0.pre.delta_q,
-            pre0.pre.jacobian[..., imupre.O_R:imupre.O_R + 3, imupre.O_BG:imupre.O_BG + 3],
-            st.x.Q, pre0.valid)
-        st = st._replace(x=st.x._replace(Bg=st.x.Bg + dbg[:, None]))
-    B = st.x.P.shape[0]
+        st = _gyro_bias_update(cfg, st, _make_preints(cfg, st), st.x.Q)
+    return _solve_and_slide(cfg, st, _all(st, True), _all(st, 50, torch.int64))
+
+
+def _world_aligned(x: WindowState, g_c0, P_wi, R_wi, V_body) -> WindowState:
+    """Rotate the window so gravity g_c0 (B, 3) points along world z (yaw
+    zeroed), positions relative to frame 0; V_body are body-frame
+    velocities."""
+    R0 = quat.g2R(g_c0)[:, None]
+    P_new = (R0 @ P_wi[..., None])[..., 0]
+    R_new = R0 @ R_wi
+    return x._replace(P=P_new - P_new[:, :1], Q=quat.R2q(R_new),
+                      V=(R_new @ V_body[..., None])[..., 0])
+
+
+def init_dynamic(cfg: EstimatorConfig, st: EstimatorState,
+                 u_chain: torch.Tensor) -> Tuple[EstimatorState, StepOutput, torch.Tensor]:
+    """Dynamic (in-motion) initialization at window-full: the IMU
+    excitation check; camera poses chained frame to frame by PnP RANSAC on
+    the previous frame's depth-measured points (metric, no scale); the
+    gyro-bias least squares and the velocity/gravity alignment; the window
+    rotated to gravity; the solve/marginalize/slide tail.  ``u_chain`` (B,
+    FRAMES - 1, 8, MAXF): the uniforms of each link's 8 PnP trials.
+    Returns (state, output, ok (B,)); where not ok the state is the
+    original one slid (the failed-init retry path)."""
+    dtype = st.x.P.dtype
+    pre0 = _make_preints(cfg, st)
+    excited = init_ops.imu_excitation_ok(pre0.pre.delta_v, pre0.pre.sum_dt, pre0.valid)
+    t, x = st.table, st.x
+    rays = torch.cat([t.pts, torch.ones_like(t.pts[..., :1])], dim=-1)  # (B, M, F, 3)
+    eye = torch.eye(3, dtype=dtype, device=x.P.device).expand(x.P.shape[0], 3, 3)
+    R_wc, t_wc = [eye], [torch.zeros_like(x.P[:, 0])]
+    chain_ok = _all(st, True)
+    for j in range(1, FRAMES):
+        i = j - 1
+        d_i = t.depth_meas[:, :, i]
+        has_d = t.obs_mask[:, :, i] & t.obs_mask[:, :, j] & (d_i > 0)
+        p_w = (rays[:, :, i] * d_i[..., None]) @ R_wc[i].transpose(1, 2) + t_wc[i][:, None]
+        R_init = R_wc[i].transpose(1, 2)
+        res = ransac_ops.pnp_ransac_guess(
+            u_chain[:, i], p_w, t.pts[:, :, j], has_d, R_init,
+            -(R_init @ t_wc[i][..., None])[..., 0], threshold=10.0 / 460.0,
+            min_inliers=8, refine_iters=6)
+        Rj_T = res.model[..., :3].transpose(1, 2)
+        ok = res.ok[:, None]
+        R_wc.append(torch.where(ok[..., None], Rj_T, R_wc[i]))
+        t_wc.append(torch.where(ok, -(Rj_T @ res.model[..., 3:])[..., 0], t_wc[i]))
+        chain_ok = chain_ok & res.ok
+    R_wi = torch.stack(R_wc, dim=1) @ quat.q2R(x.qic)[:, None].transpose(-1, -2)
+    P_wi = torch.stack(t_wc, dim=1) - (R_wi @ x.tic[:, None, :, None])[..., 0]
+    Q_wi = quat.R2q(R_wi)
+
+    st1 = _gyro_bias_update(cfg, st, pre0, Q_wi)
+    pre1 = _make_preints(cfg, st1)
+    V_c0, g_c0, align_ok = init_ops.linear_alignment_with_depth(
+        pre1.pre.delta_p, pre1.pre.delta_v, pre1.pre.sum_dt, P_wi, Q_wi, st1.x.tic,
+        pre1.valid, cfg.g_norm)
+    st1 = st1._replace(x=_world_aligned(st1.x, g_c0, P_wi, R_wi, V_c0))
+    ok = excited & chain_ok & align_ok
+    st2, out = _solve_and_slide(cfg, st1, _all(st, True), _all(st, 50, torch.int64))
+    return where_state(ok, st2, _slide(cfg, st, _all(st, True))), out, ok
+
+
+def _dlt_triangulate(pts, obs_mask, R_cw, t_cw, pose_known):
+    """Multiview DLT triangulation of every feature from the frames with
+    known camera poses (the smallest eigenvector of the stacked rows by
+    inverse iteration).  pts (B, M, F, 2), obs_mask (B, M, F), R_cw (B, F,
+    3, 3), t_cw (B, F, 3) world -> camera, pose_known (B, F).  Returns
+    (points_w (B, M, 3), n_obs (B, M), ok (B, M): two observations or more,
+    in front of all of its cameras but one)."""
+    dtype = pts.dtype
+    Pmat = torch.cat([R_cw, t_cw[..., None]], dim=-1)[:, None]  # (B, 1, F, 3, 4)
+    use = obs_mask & pose_known[:, None]
+    w = use.to(dtype)[..., None]
+    r0 = pts[..., 0:1] * Pmat[..., 2, :] - Pmat[..., 0, :]  # (B, M, F, 4)
+    r1 = pts[..., 1:2] * Pmat[..., 2, :] - Pmat[..., 1, :]
+    A = torch.cat([r0 * w, r1 * w], dim=2)
+    Mt = A.transpose(-1, -2) @ A
+    n_obs = torch.sum(use, dim=-1)
+    tr = torch.diagonal(Mt, dim1=-2, dim2=-1).sum(-1)
+    eye4 = torch.eye(4, dtype=dtype, device=pts.device)
+    Binv = ransac_ops.inv_nan(Mt + (1e-9 * tr + 1e-12)[..., None, None] * eye4)
+    v = torch.full(Mt.shape[:-1], 0.5, dtype=dtype, device=pts.device)
+    for _ in range(4):
+        v = (Binv @ v[..., None])[..., 0]
+        v = v / torch.clamp(torch.linalg.norm(v, dim=-1, keepdim=True), min=1e-30)
+    h = v[..., 3:4]
+    pw = v[..., :3] / torch.where(torch.abs(h) > 1e-9, h, torch.full_like(h, 1e-9))
+    depths = torch.einsum("bfa,bna->bnf", R_cw[..., 2, :], pw) + t_cw[:, None, :, 2]
+    pos = torch.sum((depths > 0.05) & use, dim=-1)
+    ok = (n_obs >= 2) & (pos >= torch.clamp(n_obs - 1, min=2))
+    return pw, n_obs, ok
+
+
+def init_mono(cfg: EstimatorConfig, st: EstimatorState, u_f: torch.Tensor,
+              u_pnp: torch.Tensor) -> Tuple[EstimatorState, StepOutput, torch.Tensor]:
+    """Monocular (depth-less) initialization at window-full: the IMU
+    excitation check; the earliest frame l with ≥ 20 features in common
+    with the newest frame and ≥ 30 px @ 460 of mean parallax, their
+    relative pose by F-RANSAC (``u_f`` (B, 64, MAXF)) and the essential
+    decomposition; three rounds of DLT triangulation and PnP of every
+    frame against the structure (``u_pnp`` (B, 3, FRAMES, 8, MAXF)); a
+    visual-only bundle adjustment; the gyro-bias least squares and the
+    velocity/gravity/scale alignment; the window scaled to metres and
+    rotated to gravity; the solve/marginalize/slide tail.  Returns (state,
+    output, ok (B,)); where not ok the state is the original one slid."""
+    dtype = st.x.P.dtype
     dev = st.x.P.device
-    return _solve_and_slide(cfg, st, torch.ones((B,), dtype=torch.bool, device=dev),
-                            torch.full((B,), 50, dtype=torch.int64, device=dev))
+    t, x = st.table, st.x
+    B, M = t.start.shape
+    jW = FRAMES - 1
+    pre0 = _make_preints(cfg, st)
+    excited = init_ops.imu_excitation_ok(pre0.pre.delta_v, pre0.pre.sum_dt, pre0.valid)
+
+    act = ftab.active_rows(t)
+    common = t.obs_mask & t.obs_mask[:, :, jW:] & act[..., None]  # (B, M, F)
+    par = torch.linalg.norm(t.pts - t.pts[:, :, jW:], dim=-1)
+    n_common = torch.sum(common, dim=1)  # (B, F)
+    mean_par = (torch.sum(torch.where(common, par, torch.zeros_like(par)), dim=1)
+                / torch.clamp(n_common, min=1))
+    frames = torch.arange(FRAMES, device=dev)
+    cand = (n_common >= 20) & (mean_par * 460.0 > 30.0) & (frames != jW)
+    l = torch.argmax(cand.to(torch.int32), dim=1)  # the earliest candidate
+    have_l = torch.any(cand, dim=1)
+    l_rows = l[:, None].expand(B, M)
+    pts_l = ftab.take_frame(t.pts, l_rows)
+    pts_W = t.pts[:, :, jW]
+    pair_ok = ftab.take_frame(common, l_rows)
+    fm = ransac_ops.fundamental_ransac(u_f, pts_l, pts_W, pair_ok, threshold=0.3 / 460.0,
+                                       min_valid=15)
+    R_rel, t_rel, cheir = init_ops.decompose_essential(fm.model, pts_l, pts_W, fm.inliers)
+    rel_ok = fm.ok & (fm.n_inliers > 12) & (cheir > 8)
+
+    # the world is the camera frame of l
+    is_W = frames == jW
+    R_cw = torch.where(is_W[None, :, None, None], R_rel[:, None],
+                       torch.eye(3, dtype=dtype, device=dev).expand(B, FRAMES, 3, 3))
+    t_cw = torch.where(is_W[None, :, None], t_rel[:, None], torch.zeros_like(x.P))
+    anchors = (frames == l[:, None]) | is_W
+    pose_known = anchors
+    obs = t.obs_mask & act[..., None]
+    for rnd in range(3):
+        pw, _, tri_ok = _dlt_triangulate(t.pts, obs, R_cw, t_cw, pose_known)
+        ok_j = (obs & tri_ok[..., None]).transpose(1, 2).reshape(B * FRAMES, M)
+        res = ransac_ops.pnp_ransac_guess(
+            u_pnp[:, rnd].reshape(B * FRAMES, -1, M),
+            pw[:, None].expand(B, FRAMES, M, 3).reshape(B * FRAMES, M, 3),
+            t.pts.transpose(1, 2).reshape(B * FRAMES, M, 2), ok_j,
+            R_cw.reshape(B * FRAMES, 3, 3), t_cw.reshape(B * FRAMES, 3),
+            threshold=10.0 / 460.0, min_inliers=10, refine_iters=8)
+        okn = res.ok.reshape(B, FRAMES)
+        # only l and the newest frame anchor the gauge; every other frame
+        # refines against the re-triangulated structure each round
+        upd = okn & ~anchors
+        R_cw = torch.where(upd[..., None, None], res.model[..., :3].reshape(B, FRAMES, 3, 3),
+                           R_cw)
+        t_cw = torch.where(upd[..., None], res.model[..., 3].reshape(B, FRAMES, 3), t_cw)
+        pose_known = pose_known | okn
+    chain_ok = rel_ok & torch.all(pose_known, dim=1)
+
+    R_wc = R_cw.transpose(-1, -2)
+    t_wc = -(R_wc @ t_cw[..., None])[..., 0]
+    R_wi = R_wc @ quat.q2R(x.qic)[:, None].transpose(-1, -2)
+    pw, _, tri_ok = _dlt_triangulate(t.pts, obs, R_cw, t_cw, pose_known)
+    s_all = t.start.to(torch.int64)
+    bidx = torch.arange(B, device=dev)[:, None]
+    d_start = ((R_cw[bidx, s_all] @ pw[..., None])[..., 0] + t_cw[bidx, s_all])[..., 2]
+    # a visual-only bundle adjustment over the bootstrapped window
+    ba_cfg = dataclasses.replace(cfg, use_imu=False, fix_depth=False)
+    x_ba = x._replace(P=t_wc - (R_wi @ x.tic[:, None, :, None])[..., 0], Q=quat.R2q(R_wi))
+    use = tri_ok & act
+    vis = slv.VisualData(start=t.start, pts=t.pts, vel=t.vel, td_obs=t.td_obs,
+                         row_scaled=t.uv[..., 1] * cfg.tr_over_row, obs_mask=t.obs_mask,
+                         inv_depth=1.0 / torch.clamp(d_start, min=0.1), depth_free=use,
+                         valid=use)
+    x_ba = slv.solve(ba_cfg.solver, x_ba, vis, None, slv.empty_prior(B, dev, dtype),
+                     _gravity(cfg, x.P)).x
+    R_ba = quat.q2R(x_ba.Q)
+    t_wc_ba = x_ba.P + (R_ba @ x.tic[:, None, :, None])[..., 0]
+
+    st1 = _gyro_bias_update(cfg, st, pre0, x_ba.Q)
+    pre1 = _make_preints(cfg, st1)
+    V_body, g_c0, s_scale, align_ok = init_ops.linear_alignment(
+        pre1.pre.delta_p, pre1.pre.delta_v, pre1.pre.sum_dt, t_wc_ba, x_ba.Q, st1.x.tic,
+        pre1.valid, cfg.g_norm)
+    # metric camera positions -> imu positions
+    P_imu = s_scale[:, None, None] * t_wc_ba - (R_ba @ st1.x.tic[:, None, :, None])[..., 0]
+    x_new = _world_aligned(st1.x, g_c0, P_imu - P_imu[:, :1], R_ba, V_body)
+    # the scaled structure seeds the table's depths
+    table1 = st1.table._replace(est_depth=torch.where(
+        tri_ok, s_scale[:, None] * d_start, st1.table.est_depth))
+    st1 = st1._replace(x=x_new, table=table1)
+    ok = excited & have_l & chain_ok & align_ok & torch.isfinite(s_scale)
+    st2, out = _solve_and_slide(cfg, st1, _all(st, True), _all(st, 50, torch.int64))
+    return where_state(ok, st2, _slide(cfg, st, _all(st, True))), out, ok
 
 
 def vio_step(cfg: EstimatorConfig, st: EstimatorState, feats: FrameFeatures,
@@ -449,29 +658,47 @@ class VinsEstimator:
     ``vins_rgbd_fast_tpu/backend/estimator.py:960-1319``).  The state is
     the batched state at B = 1.
 
-    Only static initialization is ported: a config that asks for dynamic
-    or monocular initialization or td or extrinsic estimation raises
-    ``NotImplementedError`` here, at construction (``EstimatorConfig.
-    from_vins``).  Without an IMU (VO) every interval is empty and each
-    steady step draws its PnP uniforms from the estimator's own
-    ``torch.Generator``, or from ``pnp_uniforms(step)`` (tests inject JAX's
-    ``PRNGKey(1)`` draws; ``step`` counts every processed frame, as JAX's
-    key index does).  With ``eager_outputs=False`` nothing is read back on a
-    steady frame except the failure check, every ``failure_check_interval``
-    frames.  ``set_relo_frame`` (from any thread) queues a relocalization
-    constraint as host arrays; the next steady step takes it."""
+    At window-full the static initialization runs, or under
+    ``static_init`` 0 the dynamic one (``init_dynamic``), then the
+    monocular one (``init_mono``) if it fails; if both fail the window
+    slides and the next frame retries.  With ``estimate_extrinsic`` 2 the
+    imu<-cam rotation is calibrated hand-eye from each frame's tracked
+    features and IMU interval (``_update_ex_calibration``) until the
+    calibration converges.  With ``estimate_td`` the host re-reads td from
+    the state every ``max(failure_check_interval, 4)`` steps to pair the
+    IMU intervals (on CUDA through a pinned copy started after the step
+    before).
+
+    Random draws come from the estimator's own ``torch.Generator``s or
+    from injected callables (tests inject JAX's ``PRNGKey(1)`` draws;
+    ``step`` counts every processed frame, as JAX's key index does):
+    ``pnp_uniforms(step)`` the VO pose init's (32, MAXF);
+    ``init_uniforms(step)`` a triple, the dynamic chain's (FRAMES - 1, 8,
+    MAXF), the monocular F-RANSAC's (64, MAXF) and the monocular PnP
+    rounds' (3, FRAMES, 8, MAXF); ``ex_uniforms(step, n)`` the hand-eye
+    F-RANSAC's (64, n) over n matches.  With ``eager_outputs=False``
+    nothing is read back on a steady frame except the failure check, every
+    ``failure_check_interval`` frames, and the td refresh.
+    ``set_relo_frame`` (from any thread) queues a relocalization constraint
+    as host arrays; the next steady step takes it."""
 
     INITIAL = 0
     NON_LINEAR = 1
 
     def __init__(self, vcfg, device, dtype=torch.float32, eager_outputs: bool = True,
-                 failure_check_interval: int = 1, pnp_uniforms: Optional[Callable] = None):
+                 failure_check_interval: int = 1, pnp_uniforms: Optional[Callable] = None,
+                 init_uniforms: Optional[Callable] = None,
+                 ex_uniforms: Optional[Callable] = None):
         self.vcfg = vcfg
         self.cfg = EstimatorConfig.from_vins(vcfg)
         self.device = torch.device(device)
         self._pnp_uniforms = pnp_uniforms
+        self._init_uniforms = init_uniforms
+        self._ex_uniforms = ex_uniforms
         self.pnp_generator = torch.Generator(device=self.device)
         self.pnp_generator.manual_seed(1)
+        self.init_generator = torch.Generator(device=self.device)
+        self.init_generator.manual_seed(3)
         self.dtype = dtype
         self.eager_outputs = eager_outputs
         self.failure_check_interval = failure_check_interval
@@ -481,6 +708,10 @@ class VinsEstimator:
         self._latest_base = None
         self._relo_lock = threading.Lock()
         self._pending_relo: Optional[dict] = None  # host arrays of set_relo_frame
+        # extrinsic rotation calibration (estimate_extrinsic 2)
+        self._ex_calibrating = vcfg.estimate_extrinsic == 2
+        self._ex_pairs: list = []  # (q_cam (4,), q_imu (4,)) host arrays
+        self._prev_feats_host: Optional[tuple] = None  # (ids, pts) of the previous frame
         self.reset()
 
     def reset(self):
@@ -492,6 +723,37 @@ class VinsEstimator:
         self.headers = [0.0] * FRAMES
         self._step = 0
         self._td_cache = float(self.vcfg.td)
+        self._td_copy = None  # (pinned (1,) buffer, event) of a td read in flight
+
+    # -- td -----------------------------------------------------------------
+    def _td_refresh_due(self) -> bool:
+        return (self.cfg.estimate_td
+                and self._step % max(self.failure_check_interval, 4) == 0)
+
+    def refresh_td_cache(self):
+        """At the start of a step: every ``max(failure_check_interval, 4)``
+        steps, the state's td becomes the host's IMU pairing offset."""
+        if not self._td_refresh_due():
+            return
+        if self._td_copy is not None:
+            buf, done = self._td_copy
+            self._td_copy = None
+            if not done.query():
+                done.synchronize()  # the step before is still running
+            self._td_cache = float(buf[0])
+        else:
+            self._td_cache = float(self.state.x.td[0])
+
+    def stage_td_copy(self):
+        """At the end of a step on CUDA: when the next step refreshes td,
+        copy it to pinned memory now, behind the step's launches."""
+        if self.device.type != "cuda" or not self._td_refresh_due():
+            return
+        buf = torch.empty((1,), dtype=self.dtype, pin_memory=True)
+        buf.copy_(self.state.x.td, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        self._td_copy = (buf, done)
 
     # -- IMU ----------------------------------------------------------------
     def push_imu(self, t: float, acc, gyr):
@@ -513,6 +775,26 @@ class VinsEstimator:
         return torch.rand((1,) + shape, generator=self.pnp_generator, device=self.device,
                           dtype=self.dtype)
 
+    def draw_init_uniforms(self, step: int):
+        """The uniforms of an initialization attempt at step ``step``: the
+        dynamic chain's (1, FRAMES - 1, 8, MAXF), the monocular F-RANSAC's
+        (1, 64, MAXF) and PnP rounds' (1, 3, FRAMES, 8, MAXF)."""
+        M = self.cfg.maxf
+        shapes = ((FRAMES - 1, 8, M), (64, M), (3, FRAMES, 8, M))
+        if self._init_uniforms is not None:
+            return tuple(torch.tensor(np.asarray(a), dtype=self.dtype).reshape(sh)[None]
+                         .to(self.device) for a, sh in zip(self._init_uniforms(step), shapes))
+        return tuple(torch.rand((1,) + sh, generator=self.init_generator, device=self.device,
+                                dtype=self.dtype) for sh in shapes)
+
+    def draw_ex_uniforms(self, step: int, n: int) -> torch.Tensor:
+        """(1, 64, n) uniforms of the hand-eye F-RANSAC over n matches."""
+        if self._ex_uniforms is not None:
+            u = torch.tensor(np.asarray(self._ex_uniforms(step, n)), dtype=self.dtype)
+            return u.reshape(64, n)[None].to(self.device)
+        return torch.rand((1, 64, n), generator=self.init_generator, device=self.device,
+                          dtype=self.dtype)
+
     def _upload_interval(self, dts, acc, gyr) -> ImuInterval:
         def put(a):
             return torch.as_tensor(a[None], dtype=self.dtype).to(self.device)
@@ -524,6 +806,7 @@ class VinsEstimator:
         the odometry (a dict, or the device ``StepOutput`` without
         ``eager_outputs``) once NON_LINEAR, else None."""
         cfg = self.cfg
+        self.refresh_td_cache()
         cur_time = t + self._td_cache
         if cfg.use_imu:
             iv = self._collect_interval_np(
@@ -534,14 +817,24 @@ class VinsEstimator:
         imu = self._upload_interval(*iv)
         self.prev_time = cur_time
 
+        if self._ex_calibrating:
+            self._update_ex_calibration(feats, imu)
+
         out = None
         if self.solver_flag == self.INITIAL:
             self.state, _ = fill_step(cfg, self.state, self.frame_count, feats, imu)
             self.headers[self.frame_count] = t
             if self.frame_count == WINDOW_SIZE:
-                self.state, step_out = init_full(cfg, self.state)
-                self.solver_flag = self.NON_LINEAR
-                out = self._emit(step_out, t)
+                if cfg.use_imu and not cfg.static_init:
+                    ok, step_out = self._init_dynamic_or_mono()
+                else:
+                    self.state, step_out = init_full(cfg, self.state)
+                    ok = True
+                if ok:
+                    self.solver_flag = self.NON_LINEAR
+                    out = self._emit(step_out, t)
+                else:  # the window was slid: stay INITIAL, retry on the next frame
+                    self.headers = self.headers[1:] + [t]
             else:
                 self.frame_count += 1
         else:
@@ -559,7 +852,65 @@ class VinsEstimator:
                 return None
             out = self._emit(step_out, t)
         self._step += 1
+        self.stage_td_copy()
         return out
+
+    def _init_dynamic_or_mono(self):
+        """Dynamic initialization, then the monocular one from the same
+        window if it failed; returns (ok, StepOutput) and leaves the state
+        initialized, or slid where both failed."""
+        u_chain, u_f, u_pnp = self.draw_init_uniforms(self._step)
+        st_before = self.state
+        self.state, step_out, ok = init_dynamic(self.cfg, st_before, u_chain)
+        if bool(ok[0]):
+            return True, step_out
+        st_m, out_m, ok_m = init_mono(self.cfg, st_before, u_f, u_pnp)
+        if bool(ok_m[0]):
+            self.state = st_m
+            return True, out_m
+        return False, step_out
+
+    def _update_ex_calibration(self, feats: FrameFeatures, imu: ImuInterval):
+        """Online imu<-cam rotation calibration: a (camera, IMU) pair of
+        relative rotations per frame, from the features tracked since the
+        previous frame (F-RANSAC and the essential decomposition) and the
+        gyro-integrated interval; once 12 pairs are in, the hand-eye solve
+        over the last 100 each frame, until it converges (then the solver
+        refines the extrinsic online, ``estimate_extrinsic`` 1)."""
+        ids = feats.ids[0].cpu().numpy()
+        pts = feats.pts[0].cpu().numpy()
+        prev, self._prev_feats_host = self._prev_feats_host, (ids, pts)
+        if prev is None:
+            return
+        pids, ppts = prev
+        common = {int(i): k for k, i in enumerate(pids) if i >= 0}
+        pairs = [(ppts[common[int(i)]], pts[k]) for k, i in enumerate(ids)
+                 if i >= 0 and int(i) in common]
+        if len(pairs) < 9:
+            return
+        m1, m2 = (torch.as_tensor(np.stack(p), dtype=self.dtype).to(self.device)[None]
+                  for p in zip(*pairs))
+        res = ransac_ops.fundamental_ransac(
+            self.draw_ex_uniforms(self._step, len(pairs)), m1, m2,
+            torch.ones(m1.shape[:2], dtype=torch.bool, device=self.device),
+            threshold=1.0 / 460.0)
+        R_cam, _, _ = init_ops.decompose_essential(res.model, m1, m2, res.inliers)
+        # the camera's rotation of frame k in frame k-1, and the IMU's
+        zero = torch.zeros_like(imu.acc[:, 0])
+        pre = imupre.preintegrate(imu.dts, imu.acc, imu.gyr, zero, zero, _noise(self.cfg))
+        self._ex_pairs.append((quat.R2q(R_cam.transpose(1, 2))[0].cpu().numpy(),
+                               pre.delta_q[0].cpu().numpy()))
+        if len(self._ex_pairs) < 12:
+            return
+        self._ex_pairs = self._ex_pairs[-100:]
+        qc, qi = (torch.as_tensor(np.stack(p), dtype=self.dtype).to(self.device)
+                  for p in zip(*self._ex_pairs))
+        ric, ok = init_ops.calibrate_extrinsic_rotation(
+            qc, qi, quat.q2R(self.state.x.qic[0]),
+            torch.ones(qc.shape[0], dtype=torch.bool, device=self.device))
+        if bool(ok):
+            self.state = self.state._replace(x=self.state.x._replace(qic=quat.R2q(ric)[None]))
+            self._ex_calibrating = False
 
     def latest_odometry(self, t=None):
         """IMU-rate odometry: midpoint-propagate the newest solved state

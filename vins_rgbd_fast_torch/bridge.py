@@ -5,7 +5,8 @@ them into NamedTuples of numpy arrays, which is what this module takes.
 ``to_torch`` rebuilds the port's NamedTuple of the same name, field by
 field and recursively (``TrackerState``, ``EstimatorState`` with its
 ``WindowState``, ``FeatureTable`` and ``PriorFactor``, ``FrameFeatures``,
-``ImuInterval``, ``StepOutput``, ``ReloData``, and the batched runner's
+``ImuInterval``, ``StepOutput``, ``ReloData``, the solver's ``VisualData``
+and ``ImuData`` with its ``Preintegrated``, and the batched runner's
 ``FrameBatch`` and ``ScanOutputs``); ``to_numpy`` goes back to
 plain numpy NamedTuples of the port's classes, with the same field names as
 JAX's.  Leading batch axes are kept as they are: stack per-sequence JAX
@@ -27,12 +28,14 @@ from .backend.feature_table import FeatureTable, FrameFeatures
 from .backend.state import WindowState
 from .frontend.feature_tracker import TrackerState
 from .loop.pose_graph import KeyFrameData, PoseGraph
-from .ops.solver import PriorFactor, ReloData
+from .ops.imu_preintegration import Preintegrated
+from .ops.solver import ImuData, PriorFactor, ReloData, VisualData
 from .parallel.batched_pipeline import FrameBatch, ScanOutputs
 
 PORT_TYPES = {cls.__name__: cls for cls in (
     TrackerState, EstimatorState, WindowState, FeatureTable, PriorFactor,
-    FrameFeatures, ImuInterval, StepOutput, ReloData, KeyFrameData, FrameBatch, ScanOutputs)}
+    FrameFeatures, ImuInterval, StepOutput, ReloData, KeyFrameData, FrameBatch, ScanOutputs,
+    VisualData, ImuData, Preintegrated)}
 
 
 def _port_type(obj):

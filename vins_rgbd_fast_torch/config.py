@@ -5,9 +5,10 @@ VinsConfig``/``load_config``, ``frontend/feature_tracker.TrackerConfig``,
 ``backend/estimator.EstimatorConfig``, ``ops/solver.SolverConfig``), so a
 config built from a ``VinsConfig`` drives both packages identically.  Only
 the options the ported slices run are kept: pinhole camera, IMU on (VIO)
-or off (VO), static initialization, no fisheye mask, no CLAHE, no td or
-extrinsic estimation.  The JAX ``config.py`` imports jax, so the
-port cannot import it on a machine without JAX.
+or off (VO), static or dynamic initialization (with its monocular
+fallback), online td and extrinsic estimation, rolling shutter; no fisheye
+mask, no CLAHE.  The JAX ``config.py`` imports jax, so the port cannot
+import it on a machine without JAX.
 """
 
 from __future__ import annotations
@@ -74,6 +75,8 @@ class SolverConfig:
     fix_pose0: bool = False  # VO: the first pose anchors the gauge
     yaw_gauge: bool = True  # IMU: the post-solve yaw/position re-anchoring
     with_relo: bool = False  # append the relocalization pose block
+    estimate_td: bool = False  # td free (gated per sequence by ``td_free``)
+    estimate_extrinsic: bool = False  # the imu<-cam extrinsic free
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +84,9 @@ class EstimatorConfig:
     maxf: int
     max_imu: int = 32
     use_imu: bool = True
+    static_init: bool = True  # False: dynamic init, monocular init as its fallback
+    estimate_td: bool = False
+    estimate_extrinsic: bool = False  # the rig's estimate_extrinsic > 0
     fix_depth: bool = True
     depth_min_dist: float = 0.3
     depth_max_dist: float = 6.0
@@ -96,13 +102,13 @@ class EstimatorConfig:
 
     @classmethod
     def from_vins(cls, vcfg) -> "EstimatorConfig":
-        """Mirror of the JAX ``EstimatorConfig.from_vins`` for the ported
-        slices (VIO with static init, or VO; no td/extrinsic estimation)."""
-        if not vcfg.static_init or vcfg.estimate_td or vcfg.estimate_extrinsic:
-            raise NotImplementedError(
-                "the port runs static init without td/extrinsic estimation")
+        """Mirror of the JAX ``EstimatorConfig.from_vins``.  With
+        ``estimate_extrinsic`` 2 the solver frees the extrinsic while the
+        hand-eye calibration runs, as in JAX."""
         return cls(
             maxf=vcfg.feature_capacity, max_imu=vcfg.max_imu_per_frame, use_imu=bool(vcfg.imu),
+            static_init=bool(vcfg.static_init), estimate_td=bool(vcfg.estimate_td),
+            estimate_extrinsic=vcfg.estimate_extrinsic > 0,
             fix_depth=vcfg.fix_depth, depth_min_dist=vcfg.depth_min_dist,
             depth_max_dist=vcfg.depth_max_dist,
             min_parallax=vcfg.keyframe_parallax / vcfg.focal_length,
@@ -118,7 +124,8 @@ class EstimatorConfig:
     def solver(self) -> SolverConfig:
         return SolverConfig(maxf=self.maxf, max_iters=self.max_iters, use_imu=self.use_imu,
                             fix_pose0=not self.use_imu, yaw_gauge=self.use_imu,
-                            with_relo=self.fast_relo)
+                            with_relo=self.fast_relo, estimate_td=self.estimate_td,
+                            estimate_extrinsic=self.estimate_extrinsic)
 
 
 @dataclasses.dataclass(frozen=True)

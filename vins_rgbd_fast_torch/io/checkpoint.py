@@ -7,10 +7,12 @@ state and estimator state, the port's NamedTuples at B = 1, stored leaf by
 leaf and checked against a fresh pipeline's leaf shapes on load (a config
 that does not match the checkpoint raises ``ValueError``).  Beside the host
 state JAX's checkpoint keeps (the IMU buffers, the window's host scalars,
-the frame counter), it keeps what the port's pipeline holds beyond JAX's:
-the states of the RANSAC generator, the VO PnP generator and the pose
-graph's generator, the fused-step counter, the stream pairer's rate-gate
-state, the keyframe gate and the relocalization constraint in flight.  So a
+the frame counter, whether the extrinsic is still being calibrated), it
+keeps what the port's pipeline holds beyond JAX's: the states of the
+RANSAC generator, the VO PnP generator, the initialization generator and
+the pose graph's generator, the fused-step counter, the stream pairer's
+rate-gate state, the keyframe gate, the relocalization constraint in
+flight, and the extrinsic calibration's rotation pairs and previous frame.  So a
 resumed run draws what the uninterrupted one drew and, where the frames are
 the same, computes the same trajectory.
 
@@ -93,6 +95,11 @@ def save_pipeline(pipe, path: str) -> None:
     arrs["bg_cache"] = np.asarray(pipe._bg_cache, np.float64)
     arrs["gen_ransac"] = _gen_state(pipe._generator)
     arrs["gen_pnp"] = _gen_state(e.pnp_generator)
+    arrs["gen_init"] = _gen_state(e.init_generator)
+    arrs["ex_pairs"] = np.asarray([np.concatenate(p) for p in e._ex_pairs],
+                                  np.float64).reshape(-1, 8)
+    if e._prev_feats_host is not None:
+        arrs["ex_prev_ids"], arrs["ex_prev_pts"] = e._prev_feats_host
     relo = e._pending_relo
     if relo is not None:
         arrs.update({f"relo_{k}": np.asarray(v) for k, v in relo.items()})
@@ -102,6 +109,7 @@ def save_pipeline(pipe, path: str) -> None:
         version=FORMAT_VERSION, frame_count=int(e.frame_count), solver_flag=int(e.solver_flag),
         headers=[float(h) for h in e.headers], step=int(e._step), td_cache=float(e._td_cache),
         prev_time=None if e.prev_time is None else float(e.prev_time),
+        ex_calibrating=bool(e._ex_calibrating),
         frame_idx=int(pipe._frame_idx), fused_step=int(pipe._fused_step),
         last_frame_time=(None if pipe._last_frame_time is None
                          else float(pipe._last_frame_time)),
@@ -148,6 +156,10 @@ def load_pipeline(vcfg, path: str, device, dtype=torch.float32, **pipeline_kwarg
         pipe._bg_cache = np.asarray(z["bg_cache"], np.float64)
         _set_gen_state(pipe._generator, z["gen_ransac"])
         _set_gen_state(e.pnp_generator, z["gen_pnp"])
+        _set_gen_state(e.init_generator, z["gen_init"])
+        e._ex_pairs = [(r[:4].copy(), r[4:].copy()) for r in np.asarray(z["ex_pairs"])]
+        e._prev_feats_host = ((np.asarray(z["ex_prev_ids"]), np.asarray(z["ex_prev_pts"]))
+                              if "ex_prev_ids" in z.files else None)
         if meta["pending_relo"]:
             e._pending_relo = {k: np.asarray(z[f"relo_{k}"])
                                for k in ("match_pts", "match_valid", "match_ids", "P", "Q")}
@@ -158,6 +170,7 @@ def load_pipeline(vcfg, path: str, device, dtype=torch.float32, **pipeline_kwarg
     e._step = int(meta["step"])
     e._td_cache = float(meta["td_cache"])
     e.prev_time = meta["prev_time"]
+    e._ex_calibrating = bool(meta["ex_calibrating"])
     pipe._frame_idx = int(meta["frame_idx"])
     pipe._fused_step = int(meta["fused_step"])
     pipe._last_frame_time = meta["last_frame_time"]

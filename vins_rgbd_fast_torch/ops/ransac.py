@@ -224,14 +224,15 @@ def pnp_gn(Pw, uv, w, R0, t0, iters: int = 10, z_meas=None):
 
 
 def pnp_ransac_guess(u: torch.Tensor, Pw, uv, valid, R_init, t_init,
-                     threshold: float = 10.0 / 460.0, min_inliers: int = 10) -> PnPResult:
+                     threshold: float = 10.0 / 460.0, min_inliers: int = 10,
+                     refine_iters: int = PNP_REFINE_ITERS) -> PnPResult:
     """PnP RANSAC around Gauss-Newton from a pose guess for C problems:
-    ``u`` (C, T, N) uniforms (T trials, each refines on an 8-subset), Pw
-    (C, N, 3) world points, ``uv`` (C, N, 2|3) normalized observations (a
-    third column: measured depths), valid (C, N), R_init (C, 3, 3), t_init
-    (C, 3).  The best trial is re-refined on its inliers, then on its tight
-    (3 px) inliers when there are enough of them; inliers count at
-    ``threshold``."""
+    ``u`` (C, T, N) uniforms (T trials, each refines on an 8-subset with
+    ``refine_iters`` GN steps), Pw (C, N, 3) world points, ``uv`` (C, N,
+    2|3) normalized observations (a third column: measured depths), valid
+    (C, N), R_init (C, 3, 3), t_init (C, 3).  The best trial is re-refined
+    on its inliers, then on its tight (3 px) inliers when there are enough
+    of them; inliers count at ``threshold``."""
     dtype = Pw.dtype
     z_meas = uv[..., 2] if uv.shape[-1] == 3 else None
     uv = uv[..., :2]
@@ -240,14 +241,14 @@ def pnp_ransac_guess(u: torch.Tensor, Pw, uv, valid, R_init, t_init,
     w = torch.zeros(idx.shape[:-1] + (Pw.shape[-2],), dtype=dtype, device=Pw.device)
     w = w.scatter(-1, idx, 1.0) * valid[:, None].to(dtype)
     ex = (lambda a: a[:, None].expand((a.shape[0], T) + a.shape[1:]))
-    R, t = pnp_gn(ex(Pw), ex(uv), w, ex(R_init), ex(t_init), iters=PNP_REFINE_ITERS,
+    R, t = pnp_gn(ex(Pw), ex(uv), w, ex(R_init), ex(t_init), iters=refine_iters,
                   z_meas=None if z_meas is None else ex(z_meas))
     counts = torch.sum((reproj_err_norm(R, t, ex(Pw), ex(uv)) < threshold) & valid[:, None], -1)
     best = torch.argmax(counts, dim=-1)
     ar = torch.arange(Pw.shape[0], device=Pw.device)
     R, t = R[ar, best], t[ar, best]
     inl0 = (reproj_err_norm(R, t, Pw, uv) < threshold) & valid
-    R, t = pnp_gn(Pw, uv, inl0.to(dtype), R, t, iters=PNP_REFINE_ITERS, z_meas=z_meas)
+    R, t = pnp_gn(Pw, uv, inl0.to(dtype), R, t, iters=refine_iters, z_meas=z_meas)
     e = reproj_err_norm(R, t, Pw, uv)
     inliers = (e < threshold) & valid
     n_in = torch.sum(inliers, -1)

@@ -323,18 +323,24 @@ def _prior_residual(x: WindowState, prior: PriorFactor):
     return (prior.r0 + (prior.J @ dx[..., None])[..., 0]) * prior.valid.to(dx.dtype)[:, None]
 
 
-def free_mask(cfg: SolverConfig, vis: VisualData, dtype) -> torch.Tensor:
-    """(B, NX + MAXF) 1.0 for free tangent dims: extrinsic and td frozen
-    (not estimated), the speed-biases frozen without an IMU, pose 0 frozen
-    with ``fix_pose0``, inverse depths free where ``depth_free``."""
+def free_mask(cfg: SolverConfig, vis: VisualData, dtype, td_free=None) -> torch.Tensor:
+    """(B, NX + MAXF) 1.0 for free tangent dims: the extrinsic frozen unless
+    ``cfg.estimate_extrinsic``, td frozen unless ``cfg.estimate_td`` (then
+    free where the per-sequence gate ``td_free`` (B,) is 1, when given),
+    the speed-biases frozen without an IMU, pose 0 frozen with
+    ``fix_pose0``, inverse depths free where ``depth_free``."""
     B = vis.start.shape[0]
     m = torch.ones((B, NX), dtype=dtype, device=vis.start.device)
     if not cfg.use_imu:
         m[:, NP:EX_OFF] = 0.0
     if cfg.fix_pose0:
         m[:, 0:POSE_DIM] = 0.0
-    m[:, EX_OFF:EX_OFF + 6] = 0.0
-    m[:, TD_OFF] = 0.0
+    if not cfg.estimate_extrinsic:
+        m[:, EX_OFF:EX_OFF + 6] = 0.0
+    if not cfg.estimate_td:
+        m[:, TD_OFF] = 0.0
+    elif td_free is not None:
+        m[:, TD_OFF] = td_free.to(dtype)
     return torch.cat([m, vis.depth_free.to(dtype)], dim=1)
 
 
@@ -398,16 +404,17 @@ def cho_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def solve(cfg: SolverConfig, x0: WindowState, vis: VisualData, imu: Optional[ImuData],
           prior: PriorFactor, gravity, sqrt_infos=None,
-          relo: Optional[ReloData] = None) -> SolveResult:
+          relo: Optional[ReloData] = None, td_free=None) -> SolveResult:
     """Damped Gauss-Newton with delayed accept/reject, ``max_iters`` scored
     candidates (one assembly per iteration), dense Schur, yaw re-anchoring
     (with an IMU and ``cfg.yaw_gauge``, pose 0 free); ``imu`` None in VO.
     With ``cfg.with_relo`` the relo pose is optimized alongside (an
-    inactive ``relo`` when none is given), free only where it is active."""
+    inactive ``relo`` when none is given), free only where it is active.
+    ``td_free`` (B,) gates td per sequence (``free_mask``)."""
     dtype = x0.P.dtype
     B, M = vis.start.shape
     dev = x0.P.device
-    fm = free_mask(cfg, vis, dtype)
+    fm = free_mask(cfg, vis, dtype, td_free)
     fmp, fml = fm[:, :NX], fm[:, NX:]
     if cfg.with_relo:
         if relo is None:

@@ -130,6 +130,9 @@ class BatchedVioRunner:
         if not ecfg.use_imu or not tcfg.use_imu_prediction:
             raise NotImplementedError("the batched runner runs VIO only; VO mode (no IMU) "
                                       "runs on the latency pipeline, VinsPipeline")
+        if not ecfg.static_init:
+            raise NotImplementedError("the batched runner warms by static initialization; "
+                                      "dynamic init runs on the latency pipeline")
         # the batched envelope: LK capped at 12 fine / 6 coarse iterations;
         # "auto" is the whole-level kernel K2, as JAX picks on TPU
         eng = "pallas3" if tcfg.lk_engine == "auto" else tcfg.lk_engine

@@ -25,6 +25,12 @@ waits for IMU samples, the tracker runs cold LK from the previous positions
 on 4 pyramid levels, the estimator initialises each new pose by PnP and the
 pose graph is the 6-DoF one.
 
+The estimator runs the rig's initialization (static, or dynamic with the
+monocular fallback), its online td estimation (the td the host pairs IMU
+intervals with is refreshed from the state every ``max(failure_check_
+interval, 4)`` frames, on both paths) and its extrinsic calibration
+(``estimate_extrinsic`` 2: on the unfused path only, as in JAX).
+
 RANSAC draws come from one ``torch.Generator`` per pipeline, or from a
 ``ransac_uniforms(fused, index)`` callable (tests inject the JAX draws:
 ``index`` is the frame counter on the unfused path and the fused-step
@@ -32,7 +38,9 @@ counter on the fused one, as JAX keys them); the VO pose init's PnP draws
 from the estimator's generator or ``vo_pnp_uniforms(fused, index)``
 (``index``: the estimator's step unfused, the fused-step counter fused); a
 loop check's PnP draws from the pose graph's generator or
-``pnp_uniforms(keyframe index, n)``.
+``pnp_uniforms(keyframe index, n)``; the initializations' and the hand-eye
+calibration's from the estimator's generator or ``init_uniforms(step)``
+and ``ex_uniforms(step, n)`` (``VinsEstimator``).
 """
 
 from __future__ import annotations
@@ -64,7 +72,9 @@ class VinsPipeline:
                  ransac_uniforms: Optional[Callable] = None,
                  pose_graph_config: Optional[PoseGraphConfig] = None,
                  pnp_uniforms: Optional[Callable] = None,
-                 vo_pnp_uniforms: Optional[Callable] = None):
+                 vo_pnp_uniforms: Optional[Callable] = None,
+                 init_uniforms: Optional[Callable] = None,
+                 ex_uniforms: Optional[Callable] = None):
         if vcfg.equalize or vcfg.fisheye:
             raise NotImplementedError("the port's tracker has no CLAHE and no fisheye mask")
         self.vcfg = vcfg
@@ -82,7 +92,8 @@ class VinsPipeline:
             vcfg, self.device, dtype, eager_outputs=eager_outputs,
             failure_check_interval=failure_check_interval,
             pnp_uniforms=(None if vo_pnp_uniforms is None
-                          else (lambda step: vo_pnp_uniforms(False, step))))
+                          else (lambda step: vo_pnp_uniforms(False, step))),
+            init_uniforms=init_uniforms, ex_uniforms=ex_uniforms)
         self.tracker_state = ft.init_state(self.tcfg, 1, self.device, dtype)
         self.pairer = io_stream.StreamPairer(frontend_freq=vcfg.frontend_freq,
                                              publish_freq=vcfg.freq)
@@ -282,6 +293,7 @@ class VinsPipeline:
         of ``VinsEstimator.process_features`` (NON_LINEAR arm)."""
         est_ = self.estimator
         maxi = est_.cfg.max_imu
+        est_.refresh_td_cache()
         cur_time = t + est_._td_cache
         if est_.cfg.use_imu:
             dts, acc, gyr = est_._collect_interval_np(
@@ -315,6 +327,7 @@ class VinsPipeline:
             return None
         out = est_._emit(step_out, t)
         est_._step += 1
+        est_.stage_td_copy()
         return out
 
     # ------------------------------------------------------------------

@@ -78,6 +78,19 @@ def so3_exp(theta: torch.Tensor) -> torch.Tensor:
     return torch.cat([w, k * theta], dim=-1)
 
 
+def so3_log(q: torch.Tensor) -> torch.Tensor:
+    """Exact log map: unit quaternion -> rotation vector."""
+    q = qpositify(q)
+    w = torch.clamp(q[..., 0:1], -1.0, 1.0)
+    v = q[..., 1:4]
+    vn = torch.linalg.norm(v, dim=-1, keepdim=True)
+    angle = 2.0 * torch.atan2(vn, w)
+    small = vn < 1e-8
+    scale = torch.where(small, 2.0 / torch.clamp(w, min=1e-3),
+                        angle / torch.clamp(vn, min=torch.finfo(q.dtype).tiny))
+    return scale * v
+
+
 def qboxplus(q: torch.Tensor, dtheta: torch.Tensor) -> torch.Tensor:
     """q ⊞ δθ = normalize(q ⊗ [1, δθ/2])."""
     return qnormalize(qmul(q, dq_small(dtheta)))
