@@ -106,7 +106,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
      stamps 5 ms ahead, rolling shutter with tr 0.033 (the renderer has a
      global shutter: the term is exercised, not matched), the extrinsic
      refined online), the failure check and td refresh every 4th frame;
-     16 warm-up + 96 timed frames fused, 4 profiled: ATE under its bound, td
+     16 warm-up + 48 timed frames fused (96 before the replay phases
+     14-14b took the script's time), 4 profiled: ATE under its bound, td
      finite within 50 ms, K1 once and K3 twice per frame, K2 never, and at
      most the td read and the failure check as host waits on the frame
      thread; 12b. the same stream calibrating the extrinsic rotation
@@ -114,16 +115,42 @@ Phases (each prints one line; any failure raises and exits non-zero):
      bound, and an error under 4° if the calibration ends;
  13. the OpenLORIS rig's knobs (848×480 at 30 Hz, grid 7×8, ``max_cnt``
      130, ``static_init`` 0, depth to 3 m) over a stream moving from frame
-     0: ``init_dynamic`` initializes by frame 15, the relative motion from
-     the first output to the last within max(0.1·d, 0.08 m) of the truth,
-     K1 once and K3 twice per frame, K2 never, 3 profiled frames with no
+     0, 16 + 48 frames (96 timed before phase 14): ``init_dynamic``
+     initializes by frame 15, the relative motion from the first output to
+     the last within max(0.1·d, 0.08 m) of the truth, K1 once and K3 twice
+     per frame, K2 never, 3 profiled frames with no
      host wait on the frame thread; 13b. that stream with no depth over
      its first 12 frames: ``init_dynamic`` fails, ``init_mono`` runs, the
      window initializes by frame 23, the relative motion within
-     max(0.15·d, 0.1 m).
-Phases 5, 7, 9, 10, 11, 12 and 13 each zero the kernels' launch counters
-just before their path and read them just after; the ``kernels`` line sums
-the seven.  A line before the card's lists each phase's wall seconds.
+     max(0.15·d, 0.1 m);
+ 14. real-data formats through the port's entry point: phase 12's
+     RealSense scene (16 warm-up + 48 frames, 640×480, 200 Hz IMU 5 ms
+     ahead) written by the port's writers to a chunked rosbag v2.0 (colour
+     as raw ``bgr8``, depth as "16UC1; compressedDepth png" millimetres,
+     the IMU on ``/camera/imu``) with an OpenCV-FileStorage rig file of
+     phase 12's knobs, ``equalize`` 1 and the three topics; ``python3 -m
+     vins_rgbd_fast_torch.run_vio --config --bag --output`` in a child
+     process must exit 0 with one CSV row per odometry output and the ATE
+     under max(0.05·travelled, 0.08 m); the bag again in this process
+     through ``replay_into_pipeline`` (phase 12's settings, 3 more frames
+     profiled): td finite within 50 ms, the tracker's level 0 the CLAHE of
+     the raw frame, K1 once and K3 twice per tracked frame, K2 never, at
+     most phase 12's two host waits on the frame thread; ms per frame
+     split into bag decode and ``spin_once``; 14b. phase 11's VO rig
+     (``imu`` 0, ``loop_closure`` 1, ``max_cnt`` 250) on phase 9's revisit
+     scene at 30 Hz, 64 frames written as a TUM directory with its ground
+     truth; ``run_vio --tum`` must exit 0 with the ATE it prints and the
+     one recomputed from ``stamped_traj_estimate.txt`` under the bound and
+     a ``vins_result_loop.csv``; the first 32 frames in this process as
+     run_vio reads them (2 more profiled): K3 four times per frame, K2
+     never, no host wait on the frame thread; the PNG decode ms per frame,
+     and of one 640×480 RGB PNG of Paeth rows; 14c. 8 frames of the
+     latency tracker with ``fisheye`` on, with the analytic circle and with
+     a mask file of a non-circular field of view: no live point outside
+     the mask, read on the device.
+Phases 5, 7, 9, 10, 11, 12, 13, 14 and 14b each zero the kernels' launch
+counters just before their path and read them just after; the ``kernels``
+line sums the nine.  A line before the card's lists each phase's wall seconds.
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA it exits
 non-zero before printing any result.
 """
@@ -134,6 +161,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1143,6 +1171,511 @@ def check_batched_loop_path(res, on_gpu: bool = True) -> None:
                 ("no host wait on the frame thread", res["profile"]["host_sync_calls"]))
 
 
+# ---------------------------------------------------------------------------
+# phases 14-14c: real-data formats through the port's run_vio entry point
+# ---------------------------------------------------------------------------
+
+# the RealSense D435i bag's topics (colour, the depth aligned to it, the IMU)
+REALSENSE_TOPICS = ("/camera/color/image_raw", "/camera/aligned_depth_to_color/image_raw",
+                    "/camera/imu")
+
+
+def rig_yaml(cfg: VinsConfig) -> str:
+    """The OpenCV-FileStorage rig file that ``load_config`` reads back as
+    ``cfg`` (every field a rig file carries; ``cfg`` keeps the defaults of
+    the others: ``focal_length``, ``max_features``, ``max_imu_per_frame``)."""
+    def b(v):
+        return str(int(bool(v)))
+
+    f = repr
+    keys = [("imu", b(cfg.imu)), ("static_init", b(cfg.static_init)),
+            ("image_topic", f'"{cfg.image_topic}"'), ("depth_topic", f'"{cfg.depth_topic}"'),
+            ("imu_topic", f'"{cfg.imu_topic}"'), ("model_type", cfg.model_type),
+            ("image_width", str(cfg.image_width)), ("image_height", str(cfg.image_height)),
+            ("depth_min_dist", f(cfg.depth_min_dist)), ("depth_max_dist", f(cfg.depth_max_dist)),
+            ("fix_depth", b(cfg.fix_depth)), ("frontend_freq", f(cfg.frontend_freq)),
+            ("freq", f(cfg.freq)), ("num_grid_rows", str(cfg.num_grid_rows)),
+            ("num_grid_cols", str(cfg.num_grid_cols)), ("max_cnt", str(cfg.max_cnt)),
+            ("min_dist", str(cfg.min_dist)), ("F_threshold", f(cfg.f_threshold)),
+            ("equalize", b(cfg.equalize)), ("fisheye", b(cfg.fisheye)),
+            ("max_num_iterations", str(cfg.max_num_iterations)),
+            ("keyframe_parallax", f(cfg.keyframe_parallax)), ("acc_n", f(cfg.acc_n)),
+            ("gyr_n", f(cfg.gyr_n)), ("acc_w", f(cfg.acc_w)), ("gyr_w", f(cfg.gyr_w)),
+            ("g_norm", f(cfg.g_norm)), ("estimate_extrinsic", str(cfg.estimate_extrinsic)),
+            ("estimate_td", b(cfg.estimate_td)), ("td", f(cfg.td)),
+            ("rolling_shutter", b(cfg.rolling_shutter)),
+            ("rolling_shutter_tr", f(cfg.rolling_shutter_tr)),
+            ("fast_threshold", str(cfg.fast_threshold)), ("loop_closure", b(cfg.loop_closure)),
+            ("fast_relocalization", b(cfg.fast_relocalization)), ("skip_dis", f(cfg.skip_dis)),
+            ("skip_cnt", str(cfg.skip_cnt))]
+    if cfg.fisheye_mask:
+        keys.append(("fisheye_mask", f'"{cfg.fisheye_mask}"'))
+    lines = ["%YAML:1.0", "---"] + [f"{k}: {v}" for k, v in keys]
+    fx, fy, cx, cy = cfg.intrinsics
+    k1, k2, p1, p2 = cfg.distortion
+    lines += ["distortion_parameters:"] + [f"   {k}: {f(v)}" for k, v in
+                                           (("k1", k1), ("k2", k2), ("p1", p1), ("p2", p2))]
+    lines += ["projection_parameters:"] + [f"   {k}: {f(v)}" for k, v in
+                                           (("fx", fx), ("fy", fy), ("cx", cx), ("cy", cy))]
+    for name, vals, rows in (("extrinsicRotation", cfg.ric, 3),
+                             ("extrinsicTranslation", cfg.tic, 3)):
+        lines += [f"{name}: !!opencv-matrix", f"   rows: {rows}",
+                  f"   cols: {len(vals) // rows}", "   dt: d",
+                  "   data: [" + ", ".join(f(v) for v in vals) + "]"]
+    return "\n".join(lines) + "\n"
+
+
+def quantize_frame(img) -> np.ndarray:
+    """A rendered grey frame (float in [0, 255]) as the 8-bit image a camera gives."""
+    return np.clip(np.round(np.asarray(img, np.float64)), 0, 255).astype(np.uint8)
+
+
+def depth_mm(depth) -> np.ndarray:
+    """A rendered depth map (metres) as 16UC1 millimetres."""
+    return np.clip(np.round(np.asarray(depth, np.float64) * 1000.0), 0, 65535).astype(np.uint16)
+
+
+def write_realsense_bag(path: str, seq, ts, imgs, deps, imu_shift: float = 0.0,
+                        topics=REALSENSE_TOPICS) -> int:
+    """Phase 14's bag, written by the port's writers: each frame as raw
+    ``bgr8`` (the 8-bit grey level in three channels), its depth as
+    ``sensor_msgs/CompressedImage`` "16UC1; compressedDepth png" in
+    millimetres on ``<depth topic>/compressedDepth``, the IMU at its stamps
+    shifted by ``imu_shift``; time-ordered (a stable sort: at one stamp the
+    IMU, then the image, then the depth).  Returns the bag's bytes."""
+    from vins_rgbd_fast_torch.io import writers
+
+    img_topic, dep_topic, imu_topic = topics
+    msgs = [(imu_topic, "sensor_msgs/Imu", t + imu_shift,
+             writers.serialize_imu(t + imu_shift, a, g, j)) for j, (t, a, g) in enumerate(seq.imu)]
+    for k, t in enumerate(ts):
+        gray = quantize_frame(imgs[k].cpu())
+        msgs.append((img_topic, "sensor_msgs/Image", float(t), writers.serialize_image(
+            float(t), np.repeat(gray[:, :, None], 3, axis=2), "bgr8", k)))
+        msgs.append((dep_topic + "/compressedDepth", "sensor_msgs/CompressedImage", float(t),
+                     writers.serialize_compressed_image(float(t), depth_mm(deps[k].cpu()), k,
+                                                        depth_transport=True)))
+    msgs.sort(key=lambda m: m[2])
+    writers.write_rosbag(path, msgs)
+    return os.path.getsize(path)
+
+
+def write_tum_dir(root: str, seq, ts, imgs, deps) -> None:
+    """Phase 14b's TUM directory (the port's ``write_tum_sequence``):
+    8-bit grey PNGs, 16-bit depth PNGs at 1/5000 m and the ground truth."""
+    from vins_rgbd_fast_torch.io import writers
+
+    writers.write_tum_sequence(
+        root, ((float(t), quantize_frame(imgs[k].cpu()), deps[k].cpu().numpy())
+               for k, t in enumerate(ts)),
+        gt=[(float(seq.times[k]), seq.P[k], seq.Q[k]) for k in range(len(ts))])
+
+
+class BagWindow:
+    """The messages of a ``BagReader`` whose stamps lie in [t0, t1): a bag
+    replayed in parts (warm-up, timed, profiled) through
+    ``replay_into_pipeline``."""
+
+    def __init__(self, bag, t0: float, t1: float):
+        self.bag, self.t0, self.t1 = bag, t0, t1
+
+    def topics(self):
+        return self.bag.topics()
+
+    def messages(self):
+        return (m for m in self.bag.messages() if self.t0 <= m[1] < self.t1)
+
+
+def run_entry_point(args, timeout: int = 600) -> dict:
+    """``python3 -m vins_rgbd_fast_torch.run_vio <args>`` in a child process
+    started in this checkout: its exit code, standard error, the odometry
+    count and the ATE it printed."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "vins_rgbd_fast_torch.run_vio", *args],
+                         cwd=root, capture_output=True, text=True, timeout=timeout)
+    n = re.search(r"(\d+) odometry outputs", res.stderr)
+    ate = re.search(r"ATE RMSE vs ground truth: ([0-9.naninf]+) m", res.stderr)
+    return dict(rc=res.returncode, wall_s=time.perf_counter() - t0, stderr=res.stderr[-4000:],
+                n_outputs=int(n.group(1)) if n else None,
+                printed_ate_m=float(ate.group(1)) if ate else None)
+
+
+def read_result_csv(path: str) -> np.ndarray:
+    """``vins_result_*.csv`` rows as (t, x, y, z, qw, qx, qy, qz, vx, vy, vz)."""
+    rows = []
+    with open(path) as f:
+        for line in f:
+            vals = [float(v) for v in line.strip().rstrip(",").split(",")]
+            rows.append([vals[0] * 1e-9] + vals[1:])
+    return np.asarray(rows).reshape(-1, 11)
+
+
+def run_bag_path(device, n_frames: int = 64, warmup: int = 16, W: int = 640, H: int = 480,
+                 profile: int = 3, workdir: str = OUT_DIR, imu_shift: float = TD_TRUE):
+    """Phase 14: phase 12's RealSense scene written to a rosbag
+    (``write_realsense_bag``) with its rig file (``rig_yaml`` of phase 12's
+    knobs with ``equalize`` 1 and the bag's topics), then (a) ``python3 -m
+    vins_rgbd_fast_torch.run_vio --config --bag --output`` in a child
+    process and (b) the bag replayed in this process through
+    ``replay_into_pipeline`` into a ``VinsPipeline`` with phase 12's
+    settings (fused, no read-back but the failure check and td refresh
+    every 4th frame, the envelope), in three windows: the warm-up, the
+    timed frames (launch counters from the start of the warm-up, ``decode``
+    and ``spin_once`` host time) and ``profile`` frames under the profiler.
+    The bag and rig file go to ``workdir/replay`` and are deleted after."""
+    from vins_rgbd_fast_torch.config import load_config
+    from vins_rgbd_fast_torch.io.rosbag import BagReader, replay_into_pipeline
+
+    rig, seq, cfg = realsense_scene(n_frames + profile, W, H)
+    img_t, dep_t, imu_t = REALSENSE_TOPICS
+    cfg = dataclasses.replace(cfg, equalize=True, image_topic=img_t, depth_topic=dep_t,
+                              imu_topic=imu_t)
+    ts, imgs, deps = syn.render_sequence(seq, rig, device)
+    work = os.path.join(workdir, "replay")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    bag_path, yaml_path = os.path.join(work, "realsense.bag"), os.path.join(work, "rig.yaml")
+    t0 = time.perf_counter()
+    bag_bytes = write_realsense_bag(bag_path, seq, ts, imgs, deps, imu_shift=imu_shift)
+    write_s = time.perf_counter() - t0
+    with open(yaml_path, "w") as f:
+        f.write(rig_yaml(cfg))
+    require(load_config(yaml_path) == cfg, "the rig file reads back as phase 14's config")
+    out_dir = os.path.join(workdir, "run_vio_bag")
+    try:
+        entry = run_entry_point(["--config", yaml_path, "--bag", bag_path, "--output", out_dir,
+                                 "--device", torch.device(device).type])
+        csv = (read_result_csv(os.path.join(out_dir, "vins_result_no_loop.csv"))
+               if entry["rc"] == 0 else np.zeros((0, 11)))
+
+        pipe = envelope(VinsPipeline(load_config(yaml_path), device, eager_outputs=False,
+                                     failure_check_interval=4, fused_steady_state=True))
+        spin = pipe.spin_once
+        spin_s = [0.0]
+
+        def timed_spin():
+            t = time.perf_counter()
+            out = spin()
+            spin_s[0] += time.perf_counter() - t
+            return out
+
+        pipe.spin_once = timed_spin
+        bag = BagReader(bag_path)
+        edge = [-np.inf] + [(ts[k - 1] + ts[k]) / 2 for k in range(1, len(ts))] + [np.inf]
+
+        def replay(k0, k1):
+            replay_into_pipeline(BagWindow(bag, edge[k0], edge[k1]), pipe, cfg.image_topic,
+                                 cfg.depth_topic, cfg.imu_topic)
+
+        def sync():
+            if torch.device(device).type == "cuda":
+                torch.cuda.synchronize()
+
+        reset_counts()
+        replay(0, warmup)
+        flag = pipe.estimator.solver_flag
+        sync()
+        dec0, spin_s[0], tracked0 = pipe.timer.total["decode"], 0.0, pipe._frame_idx
+        t0 = time.perf_counter()
+        replay(warmup, n_frames)
+        sync()
+        elapsed = time.perf_counter() - t0
+        counts, tracked = read_counts(), pipe._frame_idx
+        n_timed = tracked - tracked0
+        decode_ms = 1e3 * (pipe.timer.total["decode"] - dec0) / n_timed
+        spin_ms = 1e3 * spin_s[0] / n_timed
+        prof = None
+        if profile:
+            prof = profile_span(lambda: replay(n_frames, n_frames + profile), SPIN_SPAN, profile,
+                                os.path.join(workdir, "profile_bag.txt"), 1e3 * elapsed / n_timed)
+        pipe.run()
+        pipe.close()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    # the tracker's stored level-0 image against the raw frame it tracked last
+    k_last = int(np.argmin(np.abs(ts - float(pipe.tracker_state.prev_time[0]))))
+    raw = torch.as_tensor(quantize_frame(imgs[k_last].cpu()), dtype=torch.float32,
+                          device=device)[None]
+    level0 = pipe.tracker_state.pyramid[0]
+    e = pipe.estimator
+    travelled = float(np.sum(np.linalg.norm(np.diff(seq.P[:n_frames], axis=0), axis=1)))
+    csv_in = csv[csv[:, 0] <= ts[n_frames - 1] + 1e-6] if len(csv) else csv
+    return dict(
+        frames=n_frames, warmup=warmup, bag_mb=bag_bytes / 1e6, write_s=write_s, entry=entry,
+        csv_rows=len(csv), run_vio_ate_m=(ate_rmse(csv_in[:, 0], csv_in[:, 1:4], seq.times,
+                                                   seq.P, align=False)
+                                          if len(csv_in) >= 5 else float("nan")),
+        bound=max(0.05 * travelled, 0.08), solver_flag_after_warmup=flag, counts=counts,
+        tracked=tracked, timed=n_timed, latency_ms_per_frame=1e3 * elapsed / n_timed,
+        decode_ms_per_frame=decode_ms, spin_ms_per_frame=spin_ms,
+        td=float(e.state.x.td[0]), clahe_changed=not torch.equal(level0, raw),
+        clahe_err=float((level0 - image.clahe(raw)).abs().max()), profile=prof,
+        timer=pipe.timer.summary())
+
+
+def check_bag_path(res, on_gpu: bool = True) -> None:
+    """Phase 14's checks: run_vio exits 0 with one CSV row per odometry
+    output and the ATE bound; the in-process replay initialized in the
+    warm-up with td finite within 50 ms, the tracker's level 0 is the
+    CLAHE of the raw frame (and not the raw frame); on the card K1 once and
+    K3 twice per tracked frame, K2 never, and at most phase 12's two host
+    waits (the failure check and the td read) on the frame thread."""
+    ent = res["entry"]
+    require(ent["rc"] == 0, ("run_vio --bag exit code", ent["rc"], ent["stderr"]))
+    require(ent["n_outputs"] is not None and res["csv_rows"] == ent["n_outputs"] > 0,
+            ("one CSV row per odometry output", res["csv_rows"], ent["n_outputs"]))
+    require(np.isfinite(res["run_vio_ate_m"]) and res["run_vio_ate_m"] < res["bound"],
+            ("run_vio bag ATE", res["run_vio_ate_m"], res["bound"]))
+    require(res["solver_flag_after_warmup"] == est.VinsEstimator.NON_LINEAR,
+            "NON_LINEAR after the warm-up")
+    require(np.isfinite(res["td"]) and abs(res["td"]) < 0.05, ("td", res["td"]))
+    require(res["clahe_changed"] and res["clahe_err"] <= 1e-3,
+            ("CLAHE ran on the tracked frame", res["clahe_changed"], res["clahe_err"]))
+    if on_gpu:
+        n = res["tracked"]
+        require(n >= res["frames"] - 2 and res["counts"] == {
+            "fast_nms": n, "lk_level": 0, "lk_iterate": 2 * n}, ("launches", res["counts"], n))
+        require(res["profile"]["host_syncs"] <= 2,
+                ("host waits on the frame thread", res["profile"]))
+
+
+def run_tum_path(device, n_frames: int = 64, warmup: int = 16, W: int = 640, H: int = 480,
+                 max_cnt: int = 250, inproc_frames: int = 32, profile: int = 2,
+                 workdir: str = OUT_DIR):
+    """Phase 14b: phase 11's VO rig (``vo_config``: ``imu`` 0, ``loop_closure``
+    1) on phase 9's revisit scene at 30 Hz, written as a TUM directory
+    (``write_tum_dir``) with its rig file, then (a) ``python3 -m
+    vins_rgbd_fast_torch.run_vio --config --tum --output`` in a child
+    process and (b) the directory's first ``inproc_frames`` frames in this
+    process as run_vio feeds them (``TumSequence.frames``), into a
+    ``VinsPipeline`` with phase 11's settings (fused, no read-back, the pose
+    graph on the worker): ``warmup`` frames, the rest timed with the launch
+    counters zeroed before the first frame and the PNG decode timed apart,
+    then ``profile`` more frames under the profiler.  The directory goes to
+    ``workdir/replay`` and is deleted after."""
+    from vins_rgbd_fast_torch.config import load_config
+    from vins_rgbd_fast_torch.io.tum import TumSequence
+
+    rig, _, _, _ = slice_config(W, H, max_cnt)
+    rig = dataclasses.replace(rig, frame_rate=30.0)
+    seq = revisit_scene(rig, n_frames)
+    cfg, pg_cfg = vo_config(rig, seq, max_cnt)
+    ts, imgs, deps = syn.render_sequence(seq, rig, device)
+    work = os.path.join(workdir, "replay")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    root, yaml_path = os.path.join(work, "tum"), os.path.join(work, "rig.yaml")
+    t0 = time.perf_counter()
+    write_tum_dir(root, seq, ts, imgs, deps)
+    write_s = time.perf_counter() - t0
+    with open(yaml_path, "w") as f:
+        f.write(rig_yaml(cfg))
+    require(load_config(yaml_path) == cfg, "the rig file reads back as phase 14b's config")
+    out_dir = os.path.join(workdir, "run_vio_tum")
+    try:
+        entry = run_entry_point(["--config", yaml_path, "--tum", root, "--output", out_dir,
+                                 "--device", torch.device(device).type])
+        est_rows = (np.loadtxt(os.path.join(out_dir, "stamped_traj_estimate.txt"), ndmin=2)
+                    if entry["rc"] == 0 else np.zeros((0, 8)))
+        loop_csv = os.path.join(out_dir, "vins_result_loop.csv")
+        loop_rows = len(read_result_csv(loop_csv)) if os.path.exists(loop_csv) else 0
+        tum = TumSequence(root)
+        gt = tum.groundtruth
+
+        pipe = envelope(VinsPipeline(load_config(yaml_path), device, eager_outputs=False,
+                                     failure_check_interval=10 ** 9, fused_steady_state=True,
+                                     pose_graph_config=pg_cfg))
+        frames = tum.frames()
+        decode_s = [0.0]
+
+        def feed(n):
+            for _ in range(n):
+                t = time.perf_counter()
+                ti, img, depth = next(frames)
+                decode_s[0] += time.perf_counter() - t
+                pipe.push_image(ti, img)
+                pipe.push_depth(ti, depth)
+                pipe.spin_once()
+
+        def sync():
+            if torch.device(device).type == "cuda":
+                torch.cuda.synchronize()
+
+        reset_counts()
+        feed(warmup)
+        flag = pipe.estimator.solver_flag
+        pipe.drain()
+        sync()
+        decode_s[0] = 0.0
+        t0 = time.perf_counter()
+        feed(inproc_frames - warmup)
+        pipe.drain()
+        sync()
+        elapsed = time.perf_counter() - t0
+        counts, tracked = read_counts(), pipe._frame_idx
+        n_timed = inproc_frames - warmup
+        decode_ms = 1e3 * decode_s[0] / n_timed
+        prof = None
+        if profile:
+            prof = profile_span(lambda: feed(profile), SPIN_SPAN, profile,
+                                os.path.join(workdir, "profile_tum.txt"), 1e3 * elapsed / n_timed)
+        pipe.close()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    travelled = float(np.sum(np.linalg.norm(np.diff(seq.P[:n_frames], axis=0), axis=1)))
+    return dict(
+        frames=n_frames, inproc_frames=inproc_frames, warmup=warmup, write_s=write_s,
+        entry=entry, est_rows=len(est_rows),
+        file_ate_m=(ate_rmse(est_rows[:, 0], est_rows[:, 1:4], gt[:, 0], gt[:, 1:4])
+                    if len(est_rows) >= 5 else float("nan")),
+        loop_rows=loop_rows, bound=max(0.05 * travelled, 0.08),
+        solver_flag_after_warmup=flag, counts=counts, tracked=tracked, timed=n_timed,
+        latency_ms_per_frame=1e3 * elapsed / n_timed, decode_ms_per_frame=decode_ms,
+        profile=prof, timer=pipe.timer.summary())
+
+
+def check_tum_path(res, on_gpu: bool = True) -> None:
+    """Phase 14b's checks: run_vio exits 0; the ATE it printed and the one
+    recomputed from ``stamped_traj_estimate.txt`` (both aligned, as run_vio
+    prints it) under the bound; ``vins_result_loop.csv`` has a row or more;
+    the in-process run initialized in the warm-up; on the card K3 four
+    times per frame, K1 at least once per frame (and once per keyframe the
+    worker extracts), K2 never, no host wait on the frame thread."""
+    ent = res["entry"]
+    require(ent["rc"] == 0, ("run_vio --tum exit code", ent["rc"], ent["stderr"]))
+    for k, v in (("printed", ent["printed_ate_m"]), ("from the file", res["file_ate_m"])):
+        require(v is not None and np.isfinite(v) and v < res["bound"],
+                (f"run_vio TUM ATE {k}", v, res["bound"]))
+    require(res["loop_rows"] >= 1, ("vins_result_loop.csv rows", res["loop_rows"]))
+    require(res["solver_flag_after_warmup"] == est.VinsEstimator.NON_LINEAR,
+            "NON_LINEAR after the warm-up")
+    if on_gpu:
+        n = res["tracked"]
+        c = res["counts"]
+        require(n == res["inproc_frames"] and c["lk_iterate"] == 4 * n and c["lk_level"] == 0
+                and c["fast_nms"] >= n, ("launches", c, n))
+        require(res["profile"]["host_syncs"] == 0,
+                ("host waits on the frame thread", res["profile"]))
+
+
+def run_fisheye(device, n_frames: int = 8, W: int = 640, H: int = 480, max_cnt: int = 130,
+                workdir: str = OUT_DIR):
+    """Phase 14c: the latency tracker (B = 1, K1, K3) over ``n_frames``
+    rendered frames of the latency stream with ``fisheye`` on, once with
+    the analytic circle and once with a mask file (``write_png``: a
+    non-circular field of view, a diamond cut by a bar); after every frame
+    the mask is read on the device at each live point's rounded position.
+    Returns per mask the live points per frame and how many lay outside."""
+    from vins_rgbd_fast_torch.io.writers import write_png
+
+    rig, tcfg, _, cam = slice_config(W, H, max_cnt)
+    seq = syn.make_trajectory(n_frames, rig, seed=7, omega_scale=0.15, acc_scale=0.3)
+    ts, imgs, _ = syn.render_sequence(seq, rig, device)
+    yy, xx = np.mgrid[0:H, 0:W]
+    hole = ((np.abs(xx - W / 2) / W + np.abs(yy - H / 2) / H < 0.45)
+            & ~((yy > 0.45 * H) & (yy < 0.55 * H) & (xx > 0.5 * W)))
+    os.makedirs(workdir, exist_ok=True)
+    mask_path = os.path.join(workdir, "fisheye_mask.png")
+    write_png(mask_path, np.where(hole, 255, 0).astype(np.uint8))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    out = {}
+    for name, path in (("circle", ""), ("file", mask_path)):
+        cfg = dataclasses.replace(tcfg, fisheye=True, fisheye_mask_path=path,
+                                  fisheye_radius_frac=0.45)
+        mask = ft.fisheye_mask(cfg, device)
+        st = ft.init_state(cfg, 1, device)
+        eye = torch.eye(3, device=device)[None]
+        live, outside = [], 0
+        for k in range(n_frames):
+            u = torch.rand((1, cfg.ransac_trials, cfg.maxc), generator=gen, device=device)
+            st, _ = ft.track_frame(cfg, cam, st, imgs[k:k + 1].contiguous(),
+                                   torch.tensor([float(ts[k])], device=device), eye, u)
+            ok = st.ids[0] >= 0
+            px = torch.clamp(torch.round(st.pts[0, :, 0]).long(), 0, W - 1)
+            py = torch.clamp(torch.round(st.pts[0, :, 1]).long(), 0, H - 1)
+            outside += int((ok & ~mask[py, px]).sum())
+            live.append(int(ok.sum()))
+        out[name] = dict(live=live, outside=outside, fov_share=float(mask.float().mean()))
+    return out
+
+
+def check_fisheye(res) -> None:
+    for name, r in res.items():
+        require(r["outside"] == 0, (f"points outside the {name} mask", r))
+        require(min(r["live"][1:]) >= 20, (f"points tracked inside the {name} mask", r))
+
+
+def encode_png_rows(img: np.ndarray, filt: int) -> bytes:
+    """An 8-bit grey or RGB (or 16-bit grey) PNG whose every row uses PNG
+    filter type ``filt`` (0-4), or the types 0-4 in turn when ``filt`` is
+    -1: test data for a decoder (the port's writers use type 0 only)."""
+    import struct
+    import zlib
+
+    h, w = img.shape[:2]
+    ch = 1 if img.ndim == 2 else img.shape[2]
+    if img.dtype == np.uint16:
+        rows = img.astype(">u2").view(np.uint8).reshape(h, -1).astype(np.int32)
+        depth, bpp = 16, 2 * ch
+    else:
+        rows = img.astype(np.uint8).reshape(h, -1).astype(np.int32)
+        depth, bpp = 8, ch
+    out = []
+    prev = np.zeros_like(rows[0])
+    for y in range(h):
+        cur = rows[y]
+        a = np.concatenate([np.zeros(bpp, np.int32), cur[:-bpp]])
+        c = np.concatenate([np.zeros(bpp, np.int32), prev[:-bpp]])
+        f = (y % 5) if filt < 0 else filt
+        if f == 0:
+            pred = np.zeros_like(cur)
+        elif f == 1:
+            pred = a
+        elif f == 2:
+            pred = prev
+        elif f == 3:
+            pred = (a + prev) >> 1
+        else:
+            p = a + prev - c
+            pa, pb, pc = np.abs(p - a), np.abs(p - prev), np.abs(p - c)
+            pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, prev, c))
+        out.append(bytes([f]) + ((cur - pred) & 0xFF).astype(np.uint8).tobytes())
+        prev = cur
+
+    def chunk(ctype: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + ctype + data
+                + struct.pack(">I", zlib.crc32(ctype + data) & 0xFFFFFFFF))
+
+    ctype = {1: 0, 2: 4, 3: 2, 4: 6}[ch]
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype,
+                                                               0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(b"".join(out), 6)) + chunk(b"IEND", b""))
+
+
+def png_decode_ms(decode=None, H: int = 480, W: int = 640, filt: int = 4, reps: int = 5) -> dict:
+    """Host ms to decode one H×W RGB PNG of ``filt`` rows (Paeth by
+    default; the median of ``reps``), by ``decode`` (bytes -> array; the
+    port's ``decode_png`` by default)."""
+    from vins_rgbd_fast_torch.io.images import decode_png
+
+    decode = decode or decode_png
+    rng = np.random.default_rng(0)
+    yy, xx = np.mgrid[0:H, 0:W]
+    img = np.stack([(127 + 100 * np.sin(xx / (17.0 + 5 * c)) * np.cos(yy / 23.0)
+                     + rng.normal(0, 6, (H, W))) for c in range(3)], -1)
+    img = np.clip(img, 0, 255).astype(np.uint8)
+    data = encode_png_rows(img, filt)
+    require(np.array_equal(decode(data), img), "the PNG decodes to its image")
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        decode(data)
+        times.append(1e3 * (time.perf_counter() - t0))
+    return dict(ms=statistics.median(times), bytes=len(data), shape=(H, W, 3), filter=filt)
+
+
 def jsonable(res) -> dict:
     """A loop-path result without its pose graph and scene."""
     return {k: v for k, v in res.items() if k not in ("graph", "scene")}
@@ -1836,8 +2369,8 @@ def main() -> int:
     # against IMU stamps 5 ms ahead, rolling shutter (the renderer's global
     # shutter: the term is exercised, not matched), the extrinsic refined;
     # the failure check and the td refresh every 4th frame
-    rig_r, seq_r, cfg_r = realsense_scene(112 + 4)
-    td = run_rig_path(dev, cfg_r, rig_r, seq_r, profile=4, failure_check_interval=4,
+    rig_r, seq_r, cfg_r = realsense_scene(64 + 4)
+    td = run_rig_path(dev, cfg_r, rig_r, seq_r, n_frames=64, profile=4, failure_check_interval=4,
                       imu_shift=TD_TRUE, path=os.path.join(OUT_DIR, "profile_td.txt"))
     check_rig_path(td, dynamic=False, waits=2)
     print(f"[12 td] RealSense rig 640x480, max_cnt 30 ({cfg_r.feature_capacity} slots), td "
@@ -1854,7 +2387,7 @@ def main() -> int:
 
     # 12b. the same stream calibrating the extrinsic rotation online from
     # 5 degrees off (unfused: JAX's fused steady state does not calibrate)
-    cal = run_rig_path(dev, calib_config(cfg_r, seq_r), rig_r, seq_r, fused=False,
+    cal = run_rig_path(dev, calib_config(cfg_r, seq_r), rig_r, seq_r, n_frames=64, fused=False,
                        failure_check_interval=4, imu_shift=TD_TRUE)
     check_rig_path(cal, dynamic=False)
     if cal["calib_frame"] is not None:
@@ -1871,8 +2404,8 @@ def main() -> int:
 
     # 13. the OpenLORIS rig (848x480, 30 Hz, max_cnt 130) initializing in
     # motion (static_init 0)
-    rig_o, seq_o, cfg_o = openloris_scene(112 + 3)
-    dyn = run_rig_path(dev, cfg_o, rig_o, seq_o, profile=3,
+    rig_o, seq_o, cfg_o = openloris_scene(64 + 3)
+    dyn = run_rig_path(dev, cfg_o, rig_o, seq_o, n_frames=64, profile=3,
                        path=os.path.join(OUT_DIR, "profile_dyn.txt"))
     check_rig_path(dyn, dynamic=True)
     require(("init_dynamic", True) in dyn["attempts"], ("init_dynamic", dyn["attempts"]))
@@ -1900,11 +2433,61 @@ def main() -> int:
 
     done("13b")
 
+    # 14. a RealSense bag (bgr8 colour, compressedDepth PNG depth, the IMU)
+    # and a rig file with equalize 1 through run_vio in a child process, then
+    # replayed in this process through replay_into_pipeline (its own launch
+    # counts, zeroed just before it)
+    bagr = run_bag_path(dev, profile=3)
+    check_bag_path(bagr)
+    ent = bagr["entry"]
+    print(f"[14 bag] RealSense rig 640x480 with CLAHE, {bagr['frames']} frames in a "
+          f"{bagr['bag_mb']:.1f} MB rosbag (written in {bagr['write_s']:.1f} s): run_vio exit "
+          f"{ent['rc']} in {ent['wall_s']:.1f} s, {ent['n_outputs']} odometry outputs = "
+          f"{bagr['csv_rows']} CSV rows, ATE {bagr['run_vio_ate_m']:.4f} m (bound "
+          f"{bagr['bound']:.3f}); in-process replay, warm {bagr['warmup']} + {bagr['timed']} "
+          f"timed tracked frames, fused: latency_ms_per_frame "
+          f"{bagr['latency_ms_per_frame']:.3f} = bag decode {bagr['decode_ms_per_frame']:.3f} "
+          f"+ spin_once {bagr['spin_ms_per_frame']:.3f} + the rest (phase 12 in this run: "
+          f"{td['latency_ms_per_frame']:.3f}); td {bagr['td']:.5f} s; CLAHE on level 0 "
+          f"(max |level 0 - clahe(raw)| {bagr['clahe_err']:.2e}); launches {bagr['counts']} "
+          f"over {bagr['tracked']} tracked frames; profile {bagr['profile']}", flush=True)
+
+    done("14")
+
+    # 14b. a TUM directory (VO rig, loop closure) through run_vio in a child
+    # process, then its first frames in this process as run_vio feeds them
+    tumr = run_tum_path(dev)
+    check_tum_path(tumr)
+    ent = tumr["entry"]
+    png = png_decode_ms()
+    print(f"[14b TUM] VO rig 640x480 30 Hz, loop closure, {tumr['frames']} frames written in "
+          f"{tumr['write_s']:.1f} s: run_vio exit {ent['rc']} in {ent['wall_s']:.1f} s, "
+          f"{ent['n_outputs']} odometry outputs, printed ATE {ent['printed_ate_m']:.4f} m, from "
+          f"stamped_traj_estimate.txt {tumr['file_ate_m']:.4f} m (bound {tumr['bound']:.3f}), "
+          f"{tumr['loop_rows']} rows in vins_result_loop.csv; in-process, warm "
+          f"{tumr['warmup']} + {tumr['timed']} timed frames, fused, the pose graph on the "
+          f"worker: latency_ms_per_frame {tumr['latency_ms_per_frame']:.3f} (phase 11 in this "
+          f"run: {vo['latency_ms_per_frame']:.3f}), PNG decode {tumr['decode_ms_per_frame']:.3f} "
+          f"ms per frame (grey + depth); launches {tumr['counts']} over {tumr['tracked']} "
+          f"frames; profile {tumr['profile']}; one 640x480 RGB PNG of Paeth rows decodes in "
+          f"{png['ms']:.2f} ms on the host", flush=True)
+
+    done("14b")
+
+    # 14c. the fisheye mask: the analytic circle and a mask file
+    fish = run_fisheye(dev)
+    check_fisheye(fish)
+    print(f"[14c fisheye] 8 frames of the latency tracker 640x480, live points per frame and "
+          f"points outside the mask (read on the device): {fish}", flush=True)
+
+    done("14c")
+
     # the kernels line: per launch at the main path's shapes (K1 8x480x640,
     # K2 8x200 averaged over its two levels) and K3 at the latency path's
     # 1x200 (it never runs on the main path)
     paths = {"batched": res, "latency": lat, "latency_loop": loop, "batched_loop": bl,
-             "latency_vo": vo, "latency_td": td, "latency_dyn": dyn}
+             "latency_vo": vo, "latency_td": td, "latency_dyn": dyn, "bag_replay": bagr,
+             "tum_replay": tumr}
     counts = {k: sum(r["counts"][k] for r in paths.values()) for k in KERNELS}
     errs = {"fast_nms": k1_err, "lk_level": k2_err, "lk_iterate": k3_err}
     main_shape = {"fast_nms": f"{B}x480x640 rendered", "lk_level": f"{B}x{N} level",
@@ -1937,7 +2520,8 @@ def main() -> int:
             worker_cost=worker_cost, latency_loop_eager=jsonable(eager),
             batched_loop={k: v for k, v in bl.items() if k != "cost"}, latency_vo=jsonable(vo),
             vo_map=mp, vo_checkpoint=ck, latency_td=td, latency_td_calib=cal,
-            latency_dyn=dyn, latency_mono=mono, phase_s=phase_s), f, indent=1, default=float)
+            latency_dyn=dyn, latency_mono=mono, bag_replay=bagr, tum_replay=tumr,
+            png_decode=png, fisheye=fish, phase_s=phase_s), f, indent=1, default=float)
     print(f"[phases] wall seconds {phase_s}, {sum(phase_s.values()):.1f} in all", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -263,17 +263,19 @@ def test_load_config_matches_jax(tmp_path):
 
 
 def test_unported_options_raise(stream):
-    """What the port still refuses: CLAHE and the fisheye mask, the Mei
-    camera, and VO or dynamic initialization on the batched runner.
-    Dynamic init, td and extrinsic estimation run on the latency pipeline
-    (``tests/test_torch_init.py``, ``tests/test_torch_td_ex.py``,
+    """What the port still refuses: the Mei camera, and VO or dynamic
+    initialization on the batched runner.  CLAHE and the fisheye mask now
+    build into the latency pipeline's tracker (``tests/test_torch_clahe.py``
+    runs them).  Dynamic init, td and extrinsic estimation run on the
+    latency pipeline (``tests/test_torch_init.py``, ``tests/test_torch_td_ex.py``,
     ``tests/test_torch_td_pipeline.py``); VO mode there, its 6-DoF graph and
     the map's save and load too (``tests/test_torch_vo.py``,
     ``tests/test_torch_persistence.py``)."""
     tcfg = stream[4]
-    for change in (dict(equalize=True), dict(fisheye=True)):
-        with pytest.raises(NotImplementedError):
-            TPipeline(dataclasses.replace(tcfg, **change), "cpu")
+    for change, field in ((dict(equalize=True), "equalize"), (dict(fisheye=True), "fisheye"),
+                          (dict(fisheye=True, fisheye_mask="mask.png"), "fisheye_mask_path")):
+        pipe = TPipeline(dataclasses.replace(tcfg, **change), "cpu")
+        assert getattr(pipe.tcfg, field) == list(change.values())[-1], field
     for change in (dict(static_init=False), dict(estimate_td=True, rolling_shutter=True),
                    dict(estimate_extrinsic=2), dict(estimate_extrinsic=1)):
         cfg = TPipeline(dataclasses.replace(tcfg, **change), "cpu").estimator.cfg
@@ -281,6 +283,9 @@ def test_unported_options_raise(stream):
     with pytest.raises(NotImplementedError):
         dataclasses.replace(tcfg, model_type="MEI").camera()
     rig, btcfg, becfg, bcam = chip_smoke.slice_config(W, H, MAX_CNT)
+    runner = tbp.BatchedVioRunner(dataclasses.replace(btcfg, equalize=True), bcam, becfg,
+                                  "cpu", 1)
+    assert runner.tcfg.equalize  # the batched tracker equalizes too
     with pytest.raises(NotImplementedError, match="VO"):
         tbp.BatchedVioRunner(btcfg, bcam, dataclasses.replace(becfg, use_imu=False), "cpu", 1)
     with pytest.raises(NotImplementedError, match="static"):
@@ -329,7 +334,10 @@ def test_port_imports_nothing_of_jax():
             "import vins_rgbd_fast_torch.pipeline, chip_smoke; "
             "import vins_rgbd_fast_torch.loop.pose_graph, "
             "vins_rgbd_fast_torch.parallel.loop_closer, vins_rgbd_fast_torch.loop.interop, "
-            "vins_rgbd_fast_torch.io.checkpoint, vins_rgbd_fast_torch.backend.initialization; "
+            "vins_rgbd_fast_torch.io.checkpoint, vins_rgbd_fast_torch.backend.initialization, "
+            "vins_rgbd_fast_torch.runtime, vins_rgbd_fast_torch.io.rosbag, "
+            "vins_rgbd_fast_torch.io.tum, vins_rgbd_fast_torch.io.images, "
+            "vins_rgbd_fast_torch.io.writers, vins_rgbd_fast_torch.run_vio; "
             "bad = [m for m in sys.modules if m.startswith('vins_rgbd_fast_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)

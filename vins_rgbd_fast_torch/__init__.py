@@ -11,7 +11,10 @@ counterpart, so a reader finds each twin by its path.  Idiom differences:
   * the three TPU kernels (FAST+NMS, one LK pyramid level, the LK
     iteration loop) are hand-written CUDA kernels for Hopper (``csrc/``),
     each with a plain PyTorch version beside its wrapper that runs for CPU
-    tensors.
+    tensors;
+  * the host runtime's C++ (``runtime/csrc/``: the rosbag reader, the
+    stream runtime, PNG unfiltering) is built with ``g++`` at first use,
+    and a failed build raises.
 """
 
 __version__ = "0.1.0"

@@ -6,14 +6,16 @@ VinsConfig``/``load_config``, ``frontend/feature_tracker.TrackerConfig``,
 config built from a ``VinsConfig`` drives both packages identically.  Only
 the options the ported slices run are kept: pinhole camera, IMU on (VIO)
 or off (VO), static or dynamic initialization (with its monocular
-fallback), online td and extrinsic estimation, rolling shutter; no fisheye
-mask, no CLAHE.  The JAX ``config.py`` imports jax, so the port cannot
-import it on a machine without JAX.
+fallback), online td and extrinsic estimation, rolling shutter, CLAHE
+(``equalize``) and the fisheye mask, and the bag topics replay reads.
+The JAX ``config.py`` imports jax, so the port cannot import it on a
+machine without JAX.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import re
 from typing import Tuple
 
@@ -35,6 +37,10 @@ class TrackerConfig:
     grid_cols: int = 6
     f_threshold: float = 1.0
     fast_threshold: float = 10.0
+    equalize: bool = False  # CLAHE before the pyramid (ops/image.clahe)
+    fisheye: bool = False  # field-of-view mask on detection and tracks
+    fisheye_radius_frac: float = 0.5  # the analytic circle's radius (no mask file)
+    fisheye_mask_path: str = ""  # mask image; "" -> the analytic circle
     pyr_levels_predicted: int = 2
     pyr_levels_cold: int = 4
     ransac_trials: int = 64
@@ -136,6 +142,9 @@ class VinsConfig:
 
     imu: bool = True
     static_init: bool = True
+    image_topic: str = "/camera/color/image_raw"
+    depth_topic: str = "/camera/aligned_depth_to_color/image_raw"
+    imu_topic: str = "/imu"
     depth_min_dist: float = 0.3
     depth_max_dist: float = 6.0
     fix_depth: bool = True
@@ -173,6 +182,7 @@ class VinsConfig:
     skip_dis: float = 0.0  # pose graph: min travel between admitted keyframes
     skip_cnt: int = 0      # pose graph: admit every skip_cnt-th keyframe
     focal_length: float = 460.0
+    fisheye_mask: str = ""  # mask image path; "" + fisheye -> the analytic circle
     max_features: int = 0  # 0 -> derived from max_cnt
     max_imu_per_frame: int = 32
 
@@ -269,6 +279,9 @@ def load_config(path: str) -> VinsConfig:
     kwargs = dict(
         imu=bool(get("imu", 1)),
         static_init=bool(get("static_init", 0)),
+        image_topic=str(get("image_topic", "/camera/color/image_raw")),
+        depth_topic=str(get("depth_topic", "/camera/depth/image_raw")),
+        imu_topic=str(get("imu_topic", "/imu")),
         depth_min_dist=float(get("depth_min_dist", 0.3)),
         depth_max_dist=float(get("depth_max_dist", 6.0)),
         fix_depth=bool(get("fix_depth", 1)),
@@ -281,6 +294,7 @@ def load_config(path: str) -> VinsConfig:
         f_threshold=float(get("F_threshold", 1.0)),
         equalize=bool(get("equalize", 0)),
         fisheye=bool(get("fisheye", 0)),
+        fisheye_mask=str(get("fisheye_mask", "")),
         model_type=str(get("model_type", "PINHOLE")),
         image_width=int(get("image_width", 640)),
         image_height=int(get("image_height", 480)),
@@ -309,6 +323,14 @@ def load_config(path: str) -> VinsConfig:
             break
     if dist:
         kwargs["distortion"] = tuple(float(dist.get(k, 0)) for k in ("k1", "k2", "p1", "p2"))
+    if kwargs["fisheye"] and not kwargs["fisheye_mask"]:
+        # the reference's fisheye_mask.jpg beside the rig file or one directory up
+        d = os.path.dirname(os.path.abspath(path))
+        for cand in (os.path.join(d, "fisheye_mask.jpg"),
+                     os.path.join(os.path.dirname(d), "fisheye_mask.jpg")):
+            if os.path.exists(cand):
+                kwargs["fisheye_mask"] = cand
+                break
     if raw.get("estimate_extrinsic", 0) != 2:
         if "extrinsicRotation" in raw:
             kwargs["ric"] = tuple(_as_matrix(raw["extrinsicRotation"]).ravel().tolist())

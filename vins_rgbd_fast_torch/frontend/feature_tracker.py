@@ -2,18 +2,20 @@
 ``track_frame``/``lookup_depth`` in
 ``vins_rgbd_fast_tpu/frontend/feature_tracker.py``).
 
-pipeline per frame: pyramid → IMU-predicted pyramidal LK on
+pipeline per frame: CLAHE (``equalize``) → pyramid → IMU-predicted
+pyramidal LK on
 ``pyr_levels_predicted`` levels, or without IMU prediction (VO) LK from the
 previous positions on ``pyr_levels_cold`` levels (K3 by default, K2 in the
 batched runner: ``TrackerConfig.lk_engine``) →
-border/status cull → F-RANSAC → FAST + 3×3 NMS (K1) → per-grid top-k →
-min-distance admission (long tracks first) → compaction → undistortion
-and per-id velocities.  No CLAHE and no fisheye mask (the slice's
-configuration runs neither).
+border/status cull → F-RANSAC → FAST + 3×3 NMS (K1) → the fisheye mask
+(``fisheye``: scores and tracks outside the field of view dropped) →
+per-grid top-k → min-distance admission (long tracks first) → compaction
+→ undistortion and per-id velocities.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
@@ -27,6 +29,28 @@ from ..ops import lk as lk_ops
 from ..ops import ransac as ransac_ops
 
 BORDER_SIZE = 1
+
+
+@functools.lru_cache(maxsize=8)
+def _fisheye_mask(path: str, height: int, width: int, radius_frac: float,
+                  device: torch.device) -> torch.Tensor:
+    """The (H, W) bool field-of-view mask, built once per configuration and
+    device: the mask image at ``path`` (the reference's FISHEYE_MASK,
+    intersected in setMask, feature_tracker.cpp:173-208) or, with no path,
+    a centred circle of radius ``radius_frac``·min(H, W)."""
+    if path:
+        from ..io.images import load_mask
+
+        return torch.from_numpy(load_mask(path, height, width)).to(device)
+    yy = torch.arange(height, dtype=torch.float32)[:, None] - height / 2.0
+    xx = torch.arange(width, dtype=torch.float32)[None, :] - width / 2.0
+    rad = radius_frac * min(height, width)
+    return ((yy * yy + xx * xx) < rad * rad).to(device)
+
+
+def fisheye_mask(cfg: TrackerConfig, device) -> torch.Tensor:
+    return _fisheye_mask(cfg.fisheye_mask_path, cfg.height, cfg.width,
+                         cfg.fisheye_radius_frac, torch.device(device))
 
 
 class TrackerState(NamedTuple):
@@ -136,6 +160,8 @@ def track_frame(cfg: TrackerConfig, cam: PinholeCamera, state: TrackerState,
     dtype = img.dtype
     maxc = cfg.maxc
     B = img.shape[0]
+    if cfg.equalize:  # the pyramid, LK and FAST all see the equalized frame
+        img = image_ops.clahe(img).to(dtype)
     pyr = tuple(image_ops.build_pyramid(img, cfg.pyr_levels))
     active = state.ids >= 0
 
@@ -173,6 +199,12 @@ def track_frame(cfg: TrackerConfig, cam: PinholeCamera, state: TrackerState,
 
     # ---- FAST over the whole image, per-grid top-k ----
     score = fast_ops.fast_nms(img, cfg.fast_threshold)
+    if cfg.fisheye:  # no detection and no track outside the field of view
+        in_fov = fisheye_mask(cfg, img.device)
+        score = torch.where(in_fov, score, torch.zeros_like(score))
+        px = torch.clamp(torch.round(cur_pts[..., 0]).to(torch.int64), 0, cfg.width - 1)
+        py = torch.clamp(torch.round(cur_pts[..., 1]).to(torch.int64), 0, cfg.height - 1)
+        tracked = tracked & in_fov[py, px]
     cand_xy, cand_resp = fast_ops.grid_topk(score, cfg.grid_rows, cfg.grid_cols,
                                             cfg.cand_per_grid)
     ncand = cand_xy.shape[1]

@@ -1,6 +1,8 @@
-"""The sensor-stream runtime of the host shell and trajectory evaluation
-(twins of ``ImageMsg``, ``DepthMsg``, ``RgbdFrame``, ``StreamPairer`` and
-``ate_rmse`` in ``vins_rgbd_fast_tpu/io/stream.py``).
+"""The sensor-stream runtime of the host shell, trajectory files and
+trajectory evaluation (twins of ``ImuMsg``, ``ImageMsg``, ``DepthMsg``,
+``RgbdFrame``, ``decode_depth``, ``StreamPairer``, ``write_trajectory_csv``,
+``write_tum_trajectory`` and ``ate_rmse`` in
+``vins_rgbd_fast_tpu/io/stream.py``).
 
 The JAX module is numpy only, but the port's entry points import nothing
 of the JAX package (the machine with the card has no JAX, and
@@ -14,9 +16,15 @@ backwards time) for a tracker + estimator reset.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+from typing import Iterable, NamedTuple, Optional, Tuple
 
 import numpy as np
+
+
+class ImuMsg(NamedTuple):
+    t: float
+    acc: np.ndarray
+    gyr: np.ndarray
 
 
 class ImageMsg(NamedTuple):
@@ -34,6 +42,16 @@ class RgbdFrame(NamedTuple):
     image: np.ndarray
     depth: np.ndarray
     publish: bool  # PUB_THIS_FRAME
+
+
+def decode_depth(raw: np.ndarray, encoding: str) -> np.ndarray:
+    """Depth image to metres (estimator_nodelet.cpp:511-533): mono16/16UC1
+    millimetres or 32FC1 metres."""
+    if encoding in ("mono16", "16UC1"):
+        return raw.astype(np.float32) / 1000.0
+    if encoding == "32FC1":
+        return raw.astype(np.float32)
+    raise ValueError(f"unsupported depth encoding {encoding}")
 
 
 @dataclasses.dataclass
@@ -122,6 +140,27 @@ class StreamPairer:
         self.reset_flag = False
         return r
 
+
+def write_trajectory_csv(path: str, trajectory: Iterable[dict]):
+    """The reference's ``vins_result_no_loop.csv`` (visualization.cpp:215-225):
+    stamp_ns,x,y,z,qw,qx,qy,qz,vx,vy,vz,"""
+    with open(path, "w") as f:
+        for rec in trajectory:
+            Q, P, V = rec["Q"], rec["P"], rec["V"]
+            f.write(
+                f"{rec['t'] * 1e9:.0f},{P[0]:.5f},{P[1]:.5f},{P[2]:.5f},"
+                f"{Q[0]:.5f},{Q[1]:.5f},{Q[2]:.5f},{Q[3]:.5f},"
+                f"{V[0]:.5f},{V[1]:.5f},{V[2]:.5f},\n")
+
+
+def write_tum_trajectory(path: str, trajectory: Iterable[dict]):
+    """The TUM / rpg_trajectory_evaluation format, t x y z qx qy qz qw (the
+    reference's ``stamped_traj_estimate``, pose_graph.cpp:855-864)."""
+    with open(path, "w") as f:
+        for rec in trajectory:
+            Q, P = rec["Q"], rec["P"]
+            f.write(f"{rec['t']:.6f} {P[0]:.6f} {P[1]:.6f} {P[2]:.6f} "
+                    f"{Q[1]:.6f} {Q[2]:.6f} {Q[3]:.6f} {Q[0]:.6f}\n")
 
 
 def ate_rmse(est_t, est_P, gt_t, gt_P, align: bool = True) -> float:

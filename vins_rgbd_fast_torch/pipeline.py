@@ -10,7 +10,9 @@ B = 1 (on-device gyro prediction → tracker → depth lookup → ``vio_step``)
 with one small upload: the timestamp and IMU interval packed into one
 buffer, staged through a ring of pinned host buffers so the copy does not
 wait on the host; with fast relocalization the buffer also carries the
-pending relocalization constraint (inactive when none is pending).
+pending relocalization constraint (inactive when none is pending).  Frames
+pushed as numpy arrays (decoded bag or TUM frames) go to the card the same
+way, through a ring of their own for the images and one for the depths.
 
 With ``loop_closure`` the pipeline owns a ``PoseGraph``.  With
 ``eager_outputs`` every keyframe goes to it inline, in the frame's
@@ -24,6 +26,10 @@ Without an IMU (``vcfg.imu`` off, VO mode: the TUM RGB-D rig) no frame
 waits for IMU samples, the tracker runs cold LK from the previous positions
 on 4 pyramid levels, the estimator initialises each new pose by PnP and the
 pose graph is the 6-DoF one.
+
+With ``equalize`` the tracker runs CLAHE before its pyramid and with
+``fisheye`` it masks detections and tracks (``frontend/feature_tracker``);
+the pose graph's keyframe images stay the raw frames, as in JAX.
 
 The estimator runs the rig's initialization (static, or dynamic with the
 monocular fallback), its online td estimation (the td the host pairs IMU
@@ -75,8 +81,6 @@ class VinsPipeline:
                  vo_pnp_uniforms: Optional[Callable] = None,
                  init_uniforms: Optional[Callable] = None,
                  ex_uniforms: Optional[Callable] = None):
-        if vcfg.equalize or vcfg.fisheye:
-            raise NotImplementedError("the port's tracker has no CLAHE and no fisheye mask")
         self.vcfg = vcfg
         self.device = torch.device(device)
         self.dtype = dtype
@@ -86,7 +90,8 @@ class VinsPipeline:
             capacity=vcfg.feature_capacity, min_dist=vcfg.min_dist,
             grid_rows=vcfg.num_grid_rows, grid_cols=vcfg.num_grid_cols,
             f_threshold=vcfg.f_threshold, fast_threshold=float(vcfg.fast_threshold),
-            use_imu_prediction=bool(vcfg.imu))
+            equalize=bool(vcfg.equalize), fisheye=bool(vcfg.fisheye),
+            fisheye_mask_path=vcfg.fisheye_mask, use_imu_prediction=bool(vcfg.imu))
         self._vo_pnp_uniforms = vo_pnp_uniforms
         self.estimator = est.VinsEstimator(
             vcfg, self.device, dtype, eager_outputs=eager_outputs,
@@ -108,8 +113,7 @@ class VinsPipeline:
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(0)
         self._ransac_uniforms = ransac_uniforms
-        self._ring: list = []  # (pinned packed buffer, copy-done event)
-        self._ring_pos = 0
+        self._rings: dict = {}  # name -> [(pinned buffer, copy-done event)], next slot
 
         # loop closure (the reference's pose-graph nodelet)
         self.pose_graph: Optional[PoseGraph] = None
@@ -211,7 +215,8 @@ class VinsPipeline:
 
         if (self._fused_enabled and frame.publish
                 and self.estimator.solver_flag == est.VinsEstimator.NON_LINEAR):
-            img, depth = self._on_device(frame.image), self._on_device(frame.depth)
+            img = self._frame_on_device(frame.image, "image")
+            depth = self._frame_on_device(frame.depth, "depth")
             out = self._spin_fused(img, depth, t)  # gyro prediction on the device
             if self.pose_graph is not None and out is not None:
                 if isinstance(out, dict):
@@ -224,7 +229,7 @@ class VinsPipeline:
         rel_R = (self._predict_relative_R(t_last if t_last else t - 1e-3, t) if self.vcfg.imu
                  else np.eye(3))
         with self.timer.stage("frontend"):
-            img = self._on_device(frame.image)
+            img = self._frame_on_device(frame.image, "image")
             self.tracker_state, tout = ft.track_frame(
                 self.tcfg, self.cam, self.tracker_state, img,
                 self._on_device(t), self._on_device(rel_R),
@@ -234,7 +239,7 @@ class VinsPipeline:
             return None
 
         with self.timer.stage("depth_lookup"):
-            depth = self._on_device(frame.depth)
+            depth = self._frame_on_device(frame.depth, "depth")
             feats = tout.features
             feats = feats._replace(depth=ft.lookup_depth(depth, feats.uv, feats.ids >= 0))
 
@@ -246,23 +251,33 @@ class VinsPipeline:
         return out
 
     # ------------------------------------------------------------------
-    def _packed_upload(self, packed: np.ndarray) -> torch.Tensor:
-        """Copy the packed frame inputs to the device without a host wait:
-        a ring of pinned buffers, each reused only once its last copy has
-        completed."""
+    def _pinned_upload(self, arr: np.ndarray, ring: str) -> torch.Tensor:
+        """Copy a host array to the device without a host wait: through the
+        named ring of pinned buffers, each reused only once its last copy
+        has completed."""
         if self.device.type != "cuda":
-            return torch.from_numpy(packed.copy()).to(self.device)
-        if not self._ring:
-            self._ring = [(torch.empty(packed.shape, dtype=torch.float32).pin_memory(),
-                           torch.cuda.Event()) for _ in range(_RING)]
-        buf, done = self._ring[self._ring_pos]
-        self._ring_pos = (self._ring_pos + 1) % _RING
+            return torch.from_numpy(arr.copy()).to(self.device)
+        bufs, pos = self._rings.get(ring, (None, 0))
+        if bufs is None or bufs[0][0].shape != arr.shape or bufs[0][0].numpy().dtype != arr.dtype:
+            bufs, pos = [(torch.from_numpy(np.empty(arr.shape, arr.dtype)).pin_memory(),
+                          torch.cuda.Event()) for _ in range(_RING)], 0
+        buf, done = bufs[pos]
+        self._rings[ring] = (bufs, (pos + 1) % _RING)
         if not done.query():
             done.synchronize()
-        buf.numpy()[:] = packed
+        buf.numpy()[:] = arr
         dev = buf.to(self.device, non_blocking=True)
         done.record()
         return dev
+
+    def _frame_on_device(self, a, ring: str) -> torch.Tensor:
+        """A (H, W) frame as a (1, H, W) device tensor of the pipeline's
+        dtype: a numpy frame (a decoded bag or TUM frame) goes to the card
+        through its own pinned ring."""
+        if isinstance(a, torch.Tensor) or self.device.type != "cuda":
+            return self._on_device(a)
+        np_dtype = torch.empty((), dtype=self.dtype).numpy().dtype
+        return self._pinned_upload(np.asarray(a, np_dtype), ring)[None]
 
     @staticmethod
     def _pack_relo(relo: Optional[dict], maxf: int) -> np.ndarray:
@@ -305,7 +320,7 @@ class VinsPipeline:
         parts = [[t], dts, acc.ravel(), gyr.ravel()]
         if est_.cfg.fast_relo:
             parts.append(self._pack_relo(est_.take_relo(), est_.cfg.maxf))
-        dev = self._packed_upload(np.concatenate(parts).astype(np.float32))
+        dev = self._pinned_upload(np.concatenate(parts).astype(np.float32), "packed")
         imu = est.ImuInterval(dts=dev[None, 1:1 + maxi],
                               acc=dev[1 + maxi:1 + maxi + 3 * (maxi + 1)].reshape(1, maxi + 1, 3),
                               gyr=dev[1 + maxi + 3 * (maxi + 1):n_imu].reshape(1, maxi + 1, 3))
