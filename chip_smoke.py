@@ -26,6 +26,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
   4c. the OpenLORIS rig's shapes: K1 bit-exact on one rendered 848×480
      frame (its last 64-wide output tile is 16 wide) and K3 at 1 × 200 on
      levels 1 and 0 of an 848×480 pyramid, with the K3 bounds;
+  4d. K2 at the batched VO path's shapes: B = 8 × 376 cold tracks (each
+     frame's 376 strongest corners, started at their own positions) on 4
+     levels, 80×60 to 640×480 (at 80×60 the 38-wide search window clamps),
+     with the K2 bounds;
   5. the main path: B = 8 sequences at 640×480 rendered on the device,
      ``BatchedVioRunner.warm`` (11 window-filling frames + static init) and
      ``run`` over T steady frames; finite costs, every kernel launched by
@@ -49,7 +53,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
      more frames that must show no host wait inside ``spin_once``;
   8. K3 timings per level at 1×200 and 8×200, as in phase 6, at the
      VO shape 1×376 on levels 3..0 and at 1×200 on the 848×480 levels 1
-     and 0; K1 at 1×480×848;
+     and 0; K1 at 1×480×848; K2 per level at phase 4d's 8×376 cold tracks;
   9. the latency path with loop closure (the bench's default
      ``run_latency``): the revisit scene with a gyro pulse, ``VinsPipeline
      (loop_closure, fast_relocalization)`` with the pose graph on the
@@ -147,10 +151,48 @@ Phases (each prints one line; any failure raises and exits non-zero):
      and of one 640×480 RGB PNG of Paeth rows; 14c. 8 frames of the
      latency tracker with ``fisheye`` on, with the analytic circle and with
      a mask file of a non-circular field of view: no live point outside
-     the mask, read on the device.
-Phases 5, 7, 9, 10, 11, 12, 13, 14 and 14b each zero the kernels' launch
-counters just before their path and read them just after; the ``kernels``
-line sums the nine.  A line before the card's lists each phase's wall seconds.
+     the mask, read on the device;
+ 15. batched VO (the TUM RGB-D rig's knobs on ``BatchedVioRunner``: no IMU,
+     ``max_cnt`` 250 = 376 slots, cold LK on 4 levels through K2, the PnP
+     pose init from each sequence's own draws): phase 5's B = 8 sequences,
+     warm 11 + 40 steady frames; finite costs, per-sequence ATE under
+     max(0.05·travelled, 0.08 m), K1 once and K2 four times per frame, K3
+     never; step ms beside phase 5's and sequence-frames/s (CUDA events);
+     a profile of 3 more frames with no host wait inside ``run``;
+     15b. phase 10's scene with phase 15's rig and 6-DoF graphs through
+     ``ThreadedLoopCloser``: 14 warm-up frames, the warm segment and 5
+     timed segments of 18, drain-inclusive; the clean sequences' ATE under
+     its bound, at least one loop and one 6-DoF solve, the loop-corrected
+     keyframe ATE at most 5 mm above the VO keyframes', K1 per frame and
+     per extraction chunk, K2 four times per frame;
+ 16. a Kannala-Brandt rig (mu = mv = 300, u0 = 320, v0 = 240, k2..k5 =
+     -0.01, 0.002, 0, 0) written by ``rig_yaml`` and read back by
+     ``load_config`` as its config, through phase 7's latency path on
+     frames rendered through the fisheye's rays (``camera_ray_grid``):
+     16 + 48 frames, ATE under its bound, K1 once and K3 twice per frame,
+     K2 never, 2 profiled frames with no host wait; 16b. 8 frames of the
+     latency tracker with a Mei and a Scaramuzza camera on frames rendered
+     through their own rays: at least 20 live points per frame; each
+     non-pinhole model's ``lift`` and ``project`` at 10k pixels on the card
+     within 1e-5 of the CPU's (rays relative to their size, pixels to the
+     image width); 16c. a Mei and a Scaramuzza rig file (``camera_config``)
+     each through phase 16's path: 16 + 12 frames, ATE under its bound, K1
+     once and K3 twice per frame, K2 never, 1 profiled frame with no host
+     wait; 16d. phase 5's batched VIO with phase 16's Kannala-Brandt camera
+     on frames rendered through its rays: B = 8, warm 11 + 16 steady
+     frames, per-sequence ATE under its bound, K1 once and K2 twice per
+     frame, K3 never;
+ 17. phase 7's stream through ``frames_degraded`` with ``bench.py``'s harsh
+     preset (the moving sphere, depth noise, block and edge holes, exposure
+     drift, read noise, a rolling-shutter shear): 16 + 48 frames, ATE under
+     max(0.08·travelled, 0.12 m) (``tests/test_dynamic_scene.py``'s bound),
+     a feature flagged dynamic on at least one frame, K1 once and K3 twice
+     per frame, 2 profiled frames with no host wait.
+Phases 5, 7, 9, 10, 11, 12, 13, 14, 14b, 15, 15b, 16, 16c (once per
+camera), 16d and 17 each zero the kernels' launch counters just before
+their path and read them just after; the ``kernels`` line sums the
+sixteen.  A line before the card's lists each
+phase's wall seconds.
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA it exits
 non-zero before printing any result.
 """
@@ -174,7 +216,7 @@ import torch
 from vins_rgbd_fast_torch import native
 from vins_rgbd_fast_torch.backend import estimator as est
 from vins_rgbd_fast_torch.backend.estimator import ImuIntervalBuffer
-from vins_rgbd_fast_torch.config import EstimatorConfig, TrackerConfig, VinsConfig
+from vins_rgbd_fast_torch.config import EstimatorConfig, TrackerConfig, VinsConfig, load_config
 from vins_rgbd_fast_torch.frontend import feature_tracker as ft
 from vins_rgbd_fast_torch.io import synthetic as syn
 from vins_rgbd_fast_torch.io.stream import ate_rmse
@@ -196,6 +238,9 @@ TD_TRUE = 0.005  # phase 12's IMU clock runs 5 ms ahead of the image stamps
 HOST_SYNC_CALLS = ("cudaStreamSynchronize", "cudaEventSynchronize", "cudaDeviceSynchronize",
                    "cudaMemcpy")
 KERNELS = ("fast_nms", "lk_level", "lk_iterate")  # launch counters, and <name>_kernel on the card
+# bench.py's BENCH_DEGRADE=harsh preset (phase 17)
+HARSH = syn.SensorDegradation(depth_sigma=0.006, hole_p=0.10, edge_hole=True, exposure_amp=0.3,
+                              read_noise=3.0, rs_shear_px=2.0, dyn_radius=0.5)
 
 # H100 SXM peaks (NVIDIA's data sheet): device memory, and float32 outside
 # the tensor cores
@@ -346,12 +391,76 @@ def slice_config(W: int = 640, H: int = 480, max_cnt: int = 130):
     return rig, tcfg, ecfg, cam
 
 
-def make_sequences(rig, B: int, n_frames: int, device):
-    """B synthetic sequences (seeds 100+b, the bench's), rendered on device,
-    with per-sequence host IMU buffers."""
+def vo_batched_config(W: int = 640, H: int = 480, max_cnt: int = 250):
+    """``slice_config`` with the TUM RGB-D rig's VO knobs: no IMU (the
+    estimator's and the tracker's prediction), ``max_cnt`` 250 (376 feature
+    slots), cold LK on ``pyr_levels_cold`` = 4 levels."""
+    rig, tcfg, ecfg, cam = slice_config(W, H, max_cnt)
+    return (rig, dataclasses.replace(tcfg, use_imu_prediction=False),
+            dataclasses.replace(ecfg, use_imu=False), cam)
+
+
+def camera_ray_grid(cam, W: int, H: int, device="cpu") -> torch.Tensor:
+    """(H, W, 3) z = 1 rays of a camera model: its ``lift`` of the pixel grid
+    (the renderer's own grid is the pinhole rig's)."""
+    yy, xx = torch.meshgrid(torch.arange(H, dtype=torch.float32, device=device),
+                            torch.arange(W, dtype=torch.float32, device=device), indexing="ij")
+    return cam.lift(torch.stack([xx, yy], dim=-1))
+
+
+def render_camera(seq, cam, device, k0: int = 0, k1=None):
+    """``seq``'s frames [k0, k1) rendered through ``cam``'s ray grid:
+    (times, images (T, H, W), depths (T, H, W)) on ``device``."""
+    rig = syn.SyntheticRig(width=cam.width, height=cam.height)
+    return syn.render_sequence(seq, rig, device, k0, k1,
+                               rays=camera_ray_grid(cam, cam.width, cam.height, device))
+
+
+def ocam_polys(W: int, H: int, f: float, curve: float = 4e-4, deg: int = 9):
+    """A Scaramuzza (OCAM) forward polynomial z(φ) = -f + curve·φ² over the
+    W×H image, and its inverse polynomial ρ(θ) fitted to it by least squares
+    (θ = atan2(-z_ray, r), as ``project`` reads it)."""
+    poly = (-f, 0.0, curve, 0.0, 0.0)
+    phi = np.linspace(0.0, 1.1 * np.hypot(W / 2.0, H / 2.0), 400)
+    theta = np.arctan2(-(f - curve * phi ** 2), phi)
+    inv = np.polynomial.polynomial.polyfit(theta, phi, deg)
+    return poly, tuple(float(c) for c in inv)
+
+
+def camera_config(model_type: str, cfg: VinsConfig) -> VinsConfig:
+    """``cfg`` with one of the three non-pinhole cameras at its size: a
+    Kannala-Brandt fisheye (mu = mv = 300 at 640 wide, k2..k5 = (-0.01,
+    0.002, 0, 0)), a Mei camera (xi 0.8, gamma 400 at 640 wide, a small
+    radtan) or a Scaramuzza camera (``ocam_polys``, f 300 at 640 wide, the
+    centre off the image's; no affine stretch: JAX's OCAM lift un-stretches
+    only the radius it evaluates the polynomial at, so with a stretch
+    ``project`` does not invert ``lift`` exactly)."""
+    W, H = cfg.image_width, cfg.image_height
+    s = W / 640.0
+    mt = model_type.upper()
+    if mt == "KANNALA_BRANDT":
+        return dataclasses.replace(cfg, model_type=mt, intrinsics=(300.0 * s, 300.0 * s,
+                                                                   W / 2.0, H / 2.0),
+                                   kb_distortion=(-0.01, 0.002, 0.0, 0.0))
+    if mt == "MEI":
+        return dataclasses.replace(cfg, model_type=mt, mirror_xi=0.8,
+                                   intrinsics=(400.0 * s, 400.0 * s, W / 2.0, H / 2.0),
+                                   distortion=(-0.05, 0.01, 1e-4, -1e-4))
+    if mt == "SCARAMUZZA":
+        poly, inv = ocam_polys(W, H, 300.0 * s, 4e-4 / s)
+        return dataclasses.replace(cfg, model_type=mt, ocam_poly=poly, ocam_inv_poly=inv,
+                                   ocam_affine=(1.0, 0.0, 0.0, W / 2.0 + 1.5, H / 2.0 - 2.0))
+    raise ValueError(f"camera_config: {model_type!r} is not a non-pinhole model")
+
+
+def make_sequences(rig, B: int, n_frames: int, device, cam=None):
+    """B synthetic sequences (seeds 100+b, the bench's), rendered on device
+    (through ``cam``'s ray grid when given), with per-sequence host IMU
+    buffers."""
     seqs = [syn.make_trajectory(n_frames, rig, seed=100 + b, omega_scale=0.15,
                                 acc_scale=0.3) for b in range(B)]
-    rendered = [syn.render_sequence(s, rig, device) for s in seqs]
+    rendered = [syn.render_sequence(s, rig, device) if cam is None
+                else render_camera(s, cam, device) for s in seqs]
     bufs = []
     for s in seqs:
         buf = ImuIntervalBuffer(32)
@@ -362,12 +471,19 @@ def make_sequences(rig, B: int, n_frames: int, device):
 
 
 def run_main_path(device, B: int, T: int, W: int = 640, H: int = 480, max_cnt: int = 130,
-                  extra: int = 0, timer=None):
-    """Self-warmed batched VIO over B sequences and T steady frames.
+                  extra: int = 0, timer=None, vo: bool = False, camera: str = ""):
+    """Self-warmed batched VIO over B sequences and T steady frames (with
+    ``vo``, batched VO with ``vo_batched_config``: no IMU interval staged;
+    with ``camera``, a non-pinhole model type, the runner takes that camera
+    of ``camera_config`` and the frames are rendered through its rays).
     Returns a dict of results (and the runner state for more frames)."""
-    rig, tcfg, ecfg, cam = slice_config(W, H, max_cnt)
+    rig, tcfg, ecfg, cam = (vo_batched_config if vo else slice_config)(W, H, max_cnt)
+    if camera:
+        cam = camera_config(camera, VinsConfig(image_width=W, image_height=H)).camera()
     n = bp.WINDOW_SIZE + 1 + T + extra
-    seqs, rendered, bufs = make_sequences(rig, B, n, device)
+    seqs, rendered, bufs = make_sequences(rig, B, n, device, cam if camera else None)
+    if vo:
+        bufs = None
     ts = [r[0] for r in rendered]
     imgs = [r[1] for r in rendered]
     deps = [r[2] for r in rendered]
@@ -401,7 +517,9 @@ def run_main_path(device, B: int, T: int, W: int = 640, H: int = 480, max_cnt: i
         bounds.append(max(0.05 * travelled, 0.08))
     return dict(P=P, cost=cost, ates=ates, bounds=bounds, counts=counts, run_ms=run_ms,
                 wall_s=wall, frames=k_w + T, runner=runner, state=(trk, st),
-                extra_batch=extra_batch, n_features=outs.n_features.cpu().numpy())
+                extra_batch=extra_batch, n_features=outs.n_features.cpu().numpy(),
+                camera=type(cam).__name__,
+                levels=runner.tcfg.pyr_levels_cold if vo else runner.tcfg.pyr_levels_predicted)
 
 
 def check_main_path(res, B: int, T: int, on_gpu: bool = True) -> None:
@@ -409,7 +527,7 @@ def check_main_path(res, B: int, T: int, on_gpu: bool = True) -> None:
     frames = res["frames"]
     if on_gpu:  # K1 runs once per frame over all B images; K2 once per level
         require(res["counts"]["fast_nms"] == frames, res["counts"])
-        require(res["counts"]["lk_level"] == 2 * frames, res["counts"])
+        require(res["counts"]["lk_level"] == res["levels"] * frames, res["counts"])
         require(res["counts"]["lk_iterate"] == 0, res["counts"])
     for b in range(1, B):
         require(not np.allclose(res["P"][:, 0], res["P"][:, b], atol=1e-3),
@@ -452,14 +570,23 @@ def envelope(pipe: VinsPipeline) -> VinsPipeline:
 
 def run_latency_path(device, n_frames: int = 112, warmup: int = 16, W: int = 640,
                      H: int = 480, max_cnt: int = 130, profile: int = 0, path=None,
-                     revisit: bool = False):
+                     revisit: bool = False, camera: str = "", degrade=None,
+                     workdir: str = OUT_DIR):
     """bench.py run_latency with BENCH_LAT_LOOP=0 on the port: one stream
     (make_trajectory seed 7), frames rendered on the device first, the
     fused steady state with no read-back per frame (eager_outputs off,
     failure check every 10**9 frames) and the envelope (LM 2 iterations,
     LK 12/6).  ``profile`` more frames run under the profiler afterwards.
     With ``revisit``, the loop cell's scene and configuration but no pose
-    graph: fast relocalization on, its constraint never active."""
+    graph: fast relocalization on, its constraint never active.  With
+    ``camera`` (a non-pinhole model type), the rig of ``camera_config``
+    written to a rig file by ``rig_yaml`` and read back by ``load_config``,
+    the frames rendered through its ray grid.  With ``degrade`` (a
+    ``SensorDegradation``), the frames of ``frames_degraded`` (seed 1), the
+    bound of ``tests/test_dynamic_scene.py`` (max(0.08·travelled, 0.12 m))
+    and the features flagged dynamic after each frame (``n_dynamic``: the
+    estimator's own per-step count, read once at the end, so the timed
+    frames run what phase 7's run)."""
     rig, _, _, _ = slice_config(W, H, max_cnt)
     if revisit:
         seq = revisit_scene(rig, n_frames, profile)
@@ -468,7 +595,25 @@ def run_latency_path(device, n_frames: int = 112, warmup: int = 16, W: int = 640
         seq = syn.make_trajectory(n_frames + profile, rig, seed=7, omega_scale=0.15,
                                   acc_scale=0.3)
         cfg = latency_config(rig, seq, max_cnt)
-    ts, imgs, deps = syn.render_sequence(seq, rig, device)
+    rig_file = None
+    if camera:
+        cfg = camera_config(camera, cfg)
+        os.makedirs(workdir, exist_ok=True)
+        rig_file = os.path.join(workdir, f"rig_{camera.lower()}.yaml")
+        with open(rig_file, "w") as f:
+            f.write(rig_yaml(cfg))
+        loaded = load_config(rig_file)
+        require(loaded == cfg, ("the rig file reads back as its config", loaded, cfg))
+        cfg = loaded
+        ts, imgs, deps = render_camera(seq, cfg.camera(), device)
+    elif degrade is not None:
+        frames = list(syn.frames_degraded(seq, rig, degrade, device, seed=1))
+        ts = np.asarray([f[0] for f in frames])
+        imgs = torch.stack([f[1] for f in frames])
+        deps = torch.stack([f[2] for f in frames])
+        del frames
+    else:
+        ts, imgs, deps = syn.render_sequence(seq, rig, device)
     pipe = envelope(VinsPipeline(cfg, device, eager_outputs=False,
                                  failure_check_interval=10 ** 9, fused_steady_state=True))
     for (t, a, g) in seq.imu:
@@ -502,10 +647,15 @@ def run_latency_path(device, n_frames: int = 112, warmup: int = 16, W: int = 640
                    align=False) if len(traj) >= 5 else float("nan")
     travelled = float(np.sum(np.linalg.norm(np.diff(seq.P[:n_frames], axis=0), axis=1)))
     n_timed = n_frames - warmup
+    bound = max(0.08 * travelled, 0.12) if degrade is not None else max(0.05 * travelled, 0.08)
+    n_dyn = ([o.n_dynamic[0] for _, o in pipe.estimator._pending] if degrade is not None
+             else None)
     return dict(latency_fps=n_timed / elapsed, latency_ms_per_frame=1e3 * elapsed / n_timed,
-                latency_ate_m=ate, bound=max(0.05 * travelled, 0.08), frames=n_frames,
+                latency_ate_m=ate, bound=bound, frames=n_frames,
                 n_records=len(traj), solver_flag_after_warmup=flag, counts=counts,
-                profile=prof, timer=pipe.timer.summary())
+                profile=prof, timer=pipe.timer.summary(), rig_file=rig_file,
+                camera=type(pipe.cam).__name__,
+                n_dynamic=torch.stack(n_dyn).cpu().tolist() if n_dyn else None)
 
 
 def check_latency_path(res, on_gpu: bool = True) -> None:
@@ -1009,7 +1159,8 @@ def batched_loop_scene(rig, B: int, n_frames: int, n_revisit: int):
 def run_batched_loop_path(device, B: int = 8, n_frames: int = 212, seg_len: int = 18,
                           W: int = 640, H: int = 480, max_cnt: int = 130, max_kp: int = 192,
                           k_pad: int = 32, profile: int = 0, path=None,
-                          mode: str = "threaded"):
+                          mode: str = "threaded", vo: bool = False,
+                          keep_segments: bool = False):
     """bench.py run_batched with BENCH_LOOP=1 on the port: B sequences (half
     of them revisits with a gyro pulse) rendered on the device, the runner's
     warm-up on frames 0-10, an unrecorded run of frames 11-13, then segments
@@ -1024,20 +1175,25 @@ def run_batched_loop_path(device, B: int = 8, n_frames: int = 212, seg_len: int 
     the earlier segments submitted to it just before.  ``mode`` exists for the reproducibility
     probe (``batched_loop_repro.py``): "inline" runs the closer's serial
     ``consume`` after each ``run`` on the frame thread, "none" runs no
-    closer (no loop metrics)."""
-    rig, tcfg, ecfg, cam = slice_config(W, H, max_cnt)
+    closer (no loop metrics).  With ``vo`` the runner runs batched VO
+    (``vo_batched_config``: no IMU staged, cold LK on 4 levels) and the
+    closer the 6-DoF graphs.  ``keep_segments`` returns every segment's
+    (FrameBatch, ScanOutputs) too, the warm one first."""
+    rig, tcfg, ecfg, cam = (vo_batched_config if vo else slice_config)(W, H, max_cnt)
     n_revisit = B // 2
     seqs = batched_loop_scene(rig, B, n_frames, n_revisit)
     rendered = [syn.render_sequence(s, rig, device) for s in seqs]
     ts = [r[0] for r in rendered]
     imgs = [r[1] for r in rendered]
     deps = [r[2] for r in rendered]
-    bufs = []
-    for s in seqs:
-        buf = ImuIntervalBuffer(32)
-        for (t, a, g) in s.imu:
-            buf.push(t, a, g)
-        bufs.append(buf)
+    bufs = None  # VO: empty intervals
+    if not vo:
+        bufs = []
+        for s in seqs:
+            buf = ImuIntervalBuffer(32)
+            for (t, a, g) in s.imu:
+                buf.push(t, a, g)
+            bufs.append(buf)
     warmup, k_w = 14, bp.WINDOW_SIZE + 1
     n_seg = (n_frames - warmup) // seg_len
 
@@ -1052,7 +1208,7 @@ def run_batched_loop_path(device, B: int = 8, n_frames: int = 212, seg_len: int 
     trk, st = runner.init_states(np.stack([s.ric for s in seqs]), np.stack([s.tic for s in seqs]))
     pg_cfg = PoseGraphConfig(max_kp=max_kp, max_wp=ecfg.maxf, recency_exclusion=8,
                              score_best=0.08, score_second=0.02, pad_nodes_min=128,
-                             pad_edges_min=1024)
+                             pad_edges_min=1024, use_6dof=vo)
     closer = BatchedLoopCloser(cam, seqs[0].ric, seqs[0].tic, B, device, pg_cfg, skip_dis=0.0,
                                k_pad=k_pad, seq_pad=32, db_capacity=128, pgo_period=2.0)
 
@@ -1148,22 +1304,31 @@ def run_batched_loop_path(device, B: int = 8, n_frames: int = 212, seg_len: int 
                 segments_with_keyframes=len(stats),
                 loops=[[(lp["cur"], lp["old"], lp["n_inliers"]) for lp in g.loops]
                        for g in closer.graphs],
-                keyframes=[len(g.keyframes) for g in closer.graphs], profile=prof)
+                keyframes=[len(g.keyframes) for g in closer.graphs], profile=prof, vo=vo,
+                levels=runner.tcfg.pyr_levels_cold if vo else runner.tcfg.pyr_levels_predicted,
+                solves_6dof=sum(g.n_solves_6dof for g in closer.graphs),
+                segments=list(zip(batches, outs_all)) if keep_segments else None)
 
 
 def check_batched_loop_path(res, on_gpu: bool = True) -> None:
+    """Phase 10's checks, and phase 15b's with VO: there the loop-corrected
+    keyframe ATE within 5 mm above the VO keyframes' (VO on clean frames
+    barely drifts), at least one 6-DoF solve and K2 on 4 levels."""
     require(np.all(np.isfinite(res["cost"])), "non-finite cost")
     for b, (ate, bound) in enumerate(zip(res["ates"], res["bounds"])):
         require(np.isfinite(ate) and ate < bound, ("clean-sequence ATE", b, ate, bound))
     require(res["loops_found"] >= 1, ("loops found in the timed segments", res["loops"]))
     for k in ("loop_ate_m", "loop_vio_ate_m"):
         require(np.isfinite(res[k]), (k, res[k]))
-    require(res["loop_ate_m"] <= res["loop_vio_ate_m"],
+    slack = 0.005 if res["vo"] else 0.0
+    require(res["loop_ate_m"] <= res["loop_vio_ate_m"] + slack,
             ("loop-corrected keyframe ATE above the VIO one", res["loop_ate_m"],
              res["loop_vio_ate_m"]))
+    if res["vo"]:
+        require(res["solves_6dof"] >= 1, ("6-DoF solves", res["solves_6dof"]))
     if on_gpu:  # K1 per frame and per extraction chunk, K2 per level, never K3
         n = res["n_timed"]
-        require(res["counts"] == {"fast_nms": n + res["chunks"], "lk_level": 2 * n,
+        require(res["counts"] == {"fast_nms": n + res["chunks"], "lk_level": res["levels"] * n,
                                   "lk_iterate": 0}, ("batched-loop launches", res["counts"],
                                                      res["chunks"]))
     if res["profile"] is not None:
@@ -1182,8 +1347,9 @@ REALSENSE_TOPICS = ("/camera/color/image_raw", "/camera/aligned_depth_to_color/i
 
 def rig_yaml(cfg: VinsConfig) -> str:
     """The OpenCV-FileStorage rig file that ``load_config`` reads back as
-    ``cfg`` (every field a rig file carries; ``cfg`` keeps the defaults of
-    the others: ``focal_length``, ``max_features``, ``max_imu_per_frame``)."""
+    ``cfg`` (every field a rig file carries, the camera's in its model's
+    keys; ``cfg`` keeps the defaults of the others: ``focal_length``,
+    ``max_features``, ``max_imu_per_frame``)."""
     def b(v):
         return str(int(bool(v)))
 
@@ -1211,12 +1377,31 @@ def rig_yaml(cfg: VinsConfig) -> str:
     if cfg.fisheye_mask:
         keys.append(("fisheye_mask", f'"{cfg.fisheye_mask}"'))
     lines = ["%YAML:1.0", "---"] + [f"{k}: {v}" for k, v in keys]
-    fx, fy, cx, cy = cfg.intrinsics
-    k1, k2, p1, p2 = cfg.distortion
-    lines += ["distortion_parameters:"] + [f"   {k}: {f(v)}" for k, v in
-                                           (("k1", k1), ("k2", k2), ("p1", p1), ("p2", p2))]
-    lines += ["projection_parameters:"] + [f"   {k}: {f(v)}" for k, v in
-                                           (("fx", fx), ("fy", fy), ("cx", cx), ("cy", cy))]
+
+    def node(name, items):
+        return [f"{name}:"] + [f"   {k}: {f(v)}" for k, v in items]
+
+    mt = cfg.model_type.upper()
+    lines += node("distortion_parameters", zip(("k1", "k2", "p1", "p2"), cfg.distortion))
+    if mt == "PINHOLE":
+        lines += node("projection_parameters", zip(("fx", "fy", "cx", "cy"), cfg.intrinsics))
+    elif mt in ("KANNALA_BRANDT", "EQUIDISTANT"):
+        lines += node("projection_parameters",
+                      list(zip(("k2", "k3", "k4", "k5"), cfg.kb_distortion))
+                      + list(zip(("mu", "mv", "u0", "v0"), cfg.intrinsics)))
+    elif mt == "MEI":
+        lines += node("mirror_parameters", [("xi", cfg.mirror_xi)])
+        lines += node("projection_parameters",
+                      zip(("gamma1", "gamma2", "u0", "v0"), cfg.intrinsics))
+    elif mt == "SCARAMUZZA":  # the config's unused pinhole intrinsics too, to read back
+        lines += node("projection_parameters", zip(("fx", "fy", "cx", "cy"), cfg.intrinsics))
+        lines += node("poly_parameters", ((f"p{i}", v) for i, v in enumerate(cfg.ocam_poly)))
+        lines += node("inv_poly_parameters",
+                      ((f"p{i}", v) for i, v in enumerate(cfg.ocam_inv_poly)))
+        lines += node("affine_parameters", zip(("ac", "ad", "ae", "cx", "cy"),
+                                               cfg.ocam_affine))
+    else:
+        raise ValueError(f"rig_yaml: unknown model_type {cfg.model_type!r}")
     for name, vals, rows in (("extrinsicRotation", cfg.ric, 3),
                              ("extrinsicTranslation", cfg.tic, 3)):
         lines += [f"{name}: !!opencv-matrix", f"   rows: {rows}",
@@ -1324,7 +1509,6 @@ def run_bag_path(device, n_frames: int = 64, warmup: int = 16, W: int = 640, H: 
     timed frames (launch counters from the start of the warm-up, ``decode``
     and ``spin_once`` host time) and ``profile`` frames under the profiler.
     The bag and rig file go to ``workdir/replay`` and are deleted after."""
-    from vins_rgbd_fast_torch.config import load_config
     from vins_rgbd_fast_torch.io.rosbag import BagReader, replay_into_pipeline
 
     rig, seq, cfg = realsense_scene(n_frames + profile, W, H)
@@ -1454,7 +1638,6 @@ def run_tum_path(device, n_frames: int = 64, warmup: int = 16, W: int = 640, H: 
     counters zeroed before the first frame and the PNG decode timed apart,
     then ``profile`` more frames under the profiler.  The directory goes to
     ``workdir/replay`` and is deleted after."""
-    from vins_rgbd_fast_torch.config import load_config
     from vins_rgbd_fast_torch.io.tum import TumSequence
 
     rig, _, _, _ = slice_config(W, H, max_cnt)
@@ -1605,6 +1788,73 @@ def check_fisheye(res) -> None:
     for name, r in res.items():
         require(r["outside"] == 0, (f"points outside the {name} mask", r))
         require(min(r["live"][1:]) >= 20, (f"points tracked inside the {name} mask", r))
+
+
+# ---------------------------------------------------------------------------
+# phases 16-17: the other camera models and the degraded stream
+# ---------------------------------------------------------------------------
+
+def run_cameras(device, models=("MEI", "SCARAMUZZA"), n_frames: int = 8, W: int = 640,
+                H: int = 480, max_cnt: int = 130, n_px: int = 10000):
+    """Phase 16b: the latency tracker (B = 1, K1, K3, LK 12/6) with each
+    camera of ``camera_config`` over ``n_frames`` frames of the latency
+    stream rendered through that camera's ray grid, the true relative
+    rotation as the IMU prediction (``lift``, rotate, ``project``); and each
+    non-pinhole model's ``lift`` and ``project`` at ``n_px`` pixels on
+    ``device`` against the CPU.  Returns per model the live points per frame
+    and the largest relative differences (rays relative to their size, at
+    least 1; pixels relative to the larger of their value and the image
+    width: a pixel near 0 is a difference of two numbers near the centre)."""
+    rig, _, _, _ = slice_config(W, H, max_cnt)
+    seq = syn.make_trajectory(n_frames, rig, seed=7, omega_scale=0.15, acc_scale=0.3)
+    base = latency_config(rig, seq, max_cnt)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    uv = torch.rand((n_px, 2), generator=torch.Generator().manual_seed(1)) * torch.tensor(
+        [W - 1.0, H - 1.0])
+    out = {}
+    for m in ("KANNALA_BRANDT",) + tuple(models):
+        cam = camera_config(m, base).camera()
+        rays = {d: cam.lift(uv.to(d)) for d in ("cpu", device)}
+        back = {d: cam.project(rays["cpu"].to(d)) for d in ("cpu", device)}
+
+        def rel(a, b, scale):  # relative to max(|b|, scale)
+            return float(((a.cpu() - b) / torch.clamp(b.abs(), min=scale)).abs().max())
+
+        # rays relative to their size (at least 1), pixels to the image width
+        r = dict(lift_rel_err=rel(rays[device], rays["cpu"], 1.0),
+                 project_rel_err=rel(back[device], back["cpu"], float(W)))
+        if m in models:
+            tcfg = envelope(VinsPipeline(camera_config(m, base), device)).tcfg
+            ts, imgs, _ = render_camera(seq, cam, device)
+            st = ft.init_state(tcfg, 1, device)
+            live = []
+            for k in range(n_frames):
+                (_, q0), (_, q1) = syn.camera_pose(seq, max(k - 1, 0)), syn.camera_pose(seq, k)
+                R = torch.as_tensor(syn._q2R(q1).T @ syn._q2R(q0), dtype=torch.float32)
+                u = torch.rand((1, tcfg.ransac_trials, tcfg.maxc), generator=gen, device=device)
+                st, _ = ft.track_frame(tcfg, cam, st, imgs[k:k + 1].contiguous(),
+                                       torch.tensor([float(ts[k])], device=device),
+                                       R.to(device)[None], u)
+                live.append(st.ids[0] >= 0)
+            r["live"] = torch.stack(live).sum(1).cpu().tolist()
+        out[type(cam).__name__] = r
+    return out
+
+
+def check_cameras(res) -> None:
+    for name, r in res.items():
+        require(r["lift_rel_err"] <= 1e-5 and r["project_rel_err"] <= 1e-5,
+                (f"{name} lift/project on the card against the CPU", r))
+        if "live" in r:
+            require(min(r["live"]) >= 20, (f"{name}: live points per frame", r))
+
+
+def check_degraded_path(res, on_gpu: bool = True) -> None:
+    """Phase 17: phase 7's checks under the degraded stream's bound, and a
+    feature flagged dynamic on at least one frame."""
+    check_latency_path(res, on_gpu)
+    require(max(res["n_dynamic"]) > 0, ("no feature ever flagged dynamic", res["n_dynamic"]))
 
 
 def encode_png_rows(img: np.ndarray, filt: int) -> bytes:
@@ -1827,11 +2077,14 @@ def level_inputs(prev_pyr, cur_pyr, pts, flow, l: int):
 
 
 def compare_k2(prev_pyr, cur_pyr, pts, init, active, tcfg):
-    """Both levels, kernel and plain version on identical inputs."""
+    """Every level of the pyramids, coarse to fine, kernel and plain version
+    on identical inputs (each level starts at the flow the plain version
+    carried down)."""
     win, sm, eps, min_eig = LK["win"], LK["sm"], LK["eps"], LK["min_eig"]
     report = []
-    flow = (init - pts) / 2.0
-    for l in (1, 0):
+    levels = len(prev_pyr)
+    flow = (init - pts) / 2.0 ** (levels - 1)
+    for l in range(levels - 1, -1, -1):
         iters = tcfg.lk_max_iters if l == 0 else tcfg.lk_coarse_iters
         prev, cur, pts_l, flow, ax, ay = level_inputs(prev_pyr, cur_pyr, pts, flow, l)
         H, W = prev.shape[-2:]
@@ -2126,6 +2379,16 @@ def main() -> int:
 
     done("4c")
 
+    # 4d. K2 at the batched VO path's shapes: B x 376 cold tracks (the 376
+    # strongest corners of each frame, started at their own positions) on 4
+    # levels down to 80x60, where the 38-wide search window clamps
+    k2_vo = k3_vo_inputs(frame0, frame1, tcfg.fast_threshold, NV)
+    rep2_vo = compare_k2(*k2_vo, tcfg_run)
+    print(f"[4d K2 VO] {B}x{NV}, {len(k2_vo[0])} levels, cold: " + summary(rep2_vo), flush=True)
+    k2_err = max(k2_err, check_parity("K2", rep2_vo))
+
+    done("4d")
+
     # 5. the main path
     res = run_main_path(dev, B, T, extra=EXTRA, timer=CudaTimer())
     check_main_path(res, B, T)
@@ -2238,6 +2501,22 @@ def main() -> int:
             timings[-1]["points_by_step"] = steps
             if b == "vo":
                 flow = 2.0 * lk.lk_iterate_plain(*args)[0]
+    # K2 at the batched VO shapes, each level from the flow the plain version
+    # carried down
+    prev_pyr, cur_pyr, pts, init, active = k2_vo
+    flow = (init - pts) / 2.0 ** (len(prev_pyr) - 1)
+    for l in range(len(prev_pyr) - 1, -1, -1):
+        iters = tcfg_run.lk_max_iters if l == 0 else tcfg_run.lk_coarse_iters
+        prev, cur, pts_l, flow, ax, ay = level_inputs(prev_pyr, cur_pyr, pts, flow, l)
+        args = (prev, cur, pts_l, flow, active, ax, ay, LK["win"], LK["sm"], iters,
+                LK["eps"], LK["min_eig"])
+        steps = gn_steps(lambda k: lk.lk_level_plain(*args[:9], k, *args[10:])[0], iters)
+        timing("lk_level", f"{B}x{NV} level {l} VO", lambda: lk._lk_level_cuda(*args),
+               lambda: lk.lk_level_plain(*args),
+               kernel_bounds(B, *prev.shape[-2:], NV, iters, footprint=k2_footprint(
+                   prev, pts_l, ax, ay), steps=sum(steps))["lk_level"], phase=8)
+        timings[-1]["points_by_step"] = steps
+        flow = 2.0 * lk.lk_level_plain(*args)[0]
 
     done("8")
 
@@ -2482,12 +2761,125 @@ def main() -> int:
 
     done("14c")
 
+    # 15. batched VO: the TUM rig's knobs on BatchedVioRunner (its own launch
+    # counts), and a profile of 3 more steady frames
+    vob = run_main_path(dev, B, T, max_cnt=250, extra=6, timer=CudaTimer(), vo=True)
+    check_main_path(vob, B, T)
+    step15 = vob["run_ms"] / T
+    prof15 = profile_frames(vob, os.path.join(OUT_DIR, "profile_batched_vo.txt"), step15)
+    require(prof15["host_syncs"] == 0, ("no host wait inside run()", prof15))
+    vob["profile"] = prof15
+    print(f"[15 batched VO] B={B} 640x480, no IMU, max_cnt 250 "
+          f"({vob['runner'].ecfg.maxf} slots), cold LK on {vob['levels']} levels, warm 11 + "
+          f"{T} steady frames: {step15:.2f} ms/step (phase 5 in this run: "
+          f"{res['run_ms'] / T:.2f}) = {B * T / (vob['run_ms'] / 1e3):.2f} sequence-frames/s "
+          f"(CUDA events); launches {vob['counts']} over {vob['frames']} frames; ATE m "
+          f"{[round(a, 4) for a in vob['ates']]} (bounds "
+          f"{[round(b, 3) for b in vob['bounds']]}); features/seq "
+          f"{vob['n_features'][-1].tolist()}; profile {prof15}", flush=True)
+
+    done("15")
+
+    # 15b. batched VO with the 6-DoF closer on the worker (its own launch
+    # counts): 14 warm-up frames, the warm segment and 5 timed ones of 18
+    bvl = run_batched_loop_path(dev, n_frames=14 + 6 * 18, max_cnt=250, vo=True)
+    check_batched_loop_path(bvl)
+    print(f"[15b batched VO loop] B={bvl['B']} 640x480, {bvl['n_revisit']} revisit sequences, "
+          f"no IMU, 6-DoF graphs, {bvl['n_timed']} timed lock-step frames through the threaded "
+          f"closer: {bvl['seq_frames_per_s']:.2f} seq-frames/s drain-inclusive, "
+          f"{bvl['ms_per_frame']:.3f} ms per lock-step frame (phase 15 in this run: "
+          f"{step15:.3f}); drain tail {bvl['drain_tail_ms']:.1f} ms; loop_kf {bvl['loop_kf']}, "
+          f"loops_found {bvl['loops_found']}, 6-DoF solves {bvl['solves_6dof']}; loop_ate_m "
+          f"{bvl['loop_ate_m']:.4f}, vo_kf_ate_m {bvl['loop_vio_ate_m']:.4f}; ate_m "
+          f"{bvl['ate_m']:.4f}, ate_max_m {bvl['ate_max_m']:.4f} (bounds "
+          f"{[round(b, 3) for b in bvl['bounds']]}); closer stage ms {bvl['stage_ms']}; "
+          f"launches {bvl['counts']} ({bvl['chunks']} extraction chunks)", flush=True)
+
+    done("15b")
+
+    # 16. a Kannala-Brandt rig file through the latency pipeline (its own
+    # launch counts), frames rendered through the fisheye's rays
+    kb = run_latency_path(dev, n_frames=64, profile=2, camera="KANNALA_BRANDT",
+                          path=os.path.join(OUT_DIR, "profile_kb.txt"))
+    check_latency_path(kb)
+    require(kb["camera"] == "EquidistantCamera", ("the KB rig's camera", kb["camera"]))
+    print(f"[16 KB] Kannala-Brandt rig 640x480 (mu = mv = 300, k2..k5 = -0.01, 0.002, 0, 0) "
+          f"from {kb['rig_file']}, warm 16 + {kb['frames'] - 16} timed frames, fused: "
+          f"latency_ms_per_frame {kb['latency_ms_per_frame']:.3f} (phase 7 in this run: "
+          f"{lat['latency_ms_per_frame']:.3f}), latency_ate_m {kb['latency_ate_m']:.4f} (bound "
+          f"{kb['bound']:.3f}); launches {kb['counts']}; profile {kb['profile']}", flush=True)
+
+    done("16")
+
+    # 16b. the Mei and Scaramuzza cameras in the latency tracker; the three
+    # models' lift and project on the card against the CPU
+    cams = run_cameras(dev)
+    check_cameras(cams)
+    print(f"[16b cameras] 8 frames of the latency tracker 640x480 per model, live points per "
+          f"frame, and lift/project at 10k pixels on the card against the CPU (largest "
+          f"relative difference): {cams}", flush=True)
+
+    done("16b")
+
+    # 16c. Mei and Scaramuzza rig files through the latency pipeline (each
+    # its own launch counts)
+    rigs = {}
+    for m in ("MEI", "SCARAMUZZA"):
+        r = run_latency_path(dev, n_frames=28, profile=1, camera=m,
+                             path=os.path.join(OUT_DIR, f"profile_{m.lower()}.txt"))
+        check_latency_path(r)
+        rigs[m] = r
+        print(f"[16c {m}] {r['camera']} rig 640x480 from {r['rig_file']}, warm 16 + "
+              f"{r['frames'] - 16} timed frames, fused: latency_ms_per_frame "
+              f"{r['latency_ms_per_frame']:.3f} (phase 7 in this run: "
+              f"{lat['latency_ms_per_frame']:.3f}), latency_ate_m {r['latency_ate_m']:.4f} "
+              f"(bound {r['bound']:.3f}); launches {r['counts']}; profile {r['profile']}",
+              flush=True)
+    require(rigs["MEI"]["camera"] == "MeiCamera"
+            and rigs["SCARAMUZZA"]["camera"] == "ScaramuzzaCamera",
+            ("the rigs' cameras", [r["camera"] for r in rigs.values()]))
+
+    done("16c")
+
+    # 16d. phase 16's Kannala-Brandt camera on the batched runner (its own
+    # launch counts)
+    T_KB = 16
+    kbb = run_main_path(dev, B, T_KB, timer=CudaTimer(), camera="KANNALA_BRANDT")
+    check_main_path(kbb, B, T_KB)
+    require(kbb["camera"] == "EquidistantCamera", ("the batched camera", kbb["camera"]))
+    kbb["profile"] = None
+    print(f"[16d batched KB] B={B} 640x480 Kannala-Brandt, warm 11 + {T_KB} steady frames: "
+          f"{kbb['run_ms'] / T_KB:.2f} ms/step (phase 5 in this run: {res['run_ms'] / T:.2f}); "
+          f"launches {kbb['counts']} over {kbb['frames']} frames; ATE m "
+          f"{[round(a, 4) for a in kbb['ates']]} (bounds "
+          f"{[round(b, 3) for b in kbb['bounds']]})", flush=True)
+
+    done("16d")
+
+    # 17. phase 7's stream with bench.py's harsh degradations (its own launch
+    # counts): the moving sphere, depth noise and holes, exposure drift, read
+    # noise, a rolling-shutter shear
+    harsh = run_latency_path(dev, n_frames=64, profile=2, degrade=HARSH,
+                             path=os.path.join(OUT_DIR, "profile_harsh.txt"))
+    check_degraded_path(harsh)
+    print(f"[17 harsh] phase 7's stream 640x480 with BENCH_DEGRADE=harsh, warm 16 + "
+          f"{harsh['frames'] - 16} timed frames, fused: latency_ms_per_frame "
+          f"{harsh['latency_ms_per_frame']:.3f} (phase 7 in this run: "
+          f"{lat['latency_ms_per_frame']:.3f}), latency_ate_m {harsh['latency_ate_m']:.4f} "
+          f"(bound {harsh['bound']:.3f}); features flagged dynamic per frame "
+          f"{harsh['n_dynamic']}; launches {harsh['counts']}; profile {harsh['profile']}",
+          flush=True)
+
+    done("17")
+
     # the kernels line: per launch at the main path's shapes (K1 8x480x640,
     # K2 8x200 averaged over its two levels) and K3 at the latency path's
     # 1x200 (it never runs on the main path)
     paths = {"batched": res, "latency": lat, "latency_loop": loop, "batched_loop": bl,
              "latency_vo": vo, "latency_td": td, "latency_dyn": dyn, "bag_replay": bagr,
-             "tum_replay": tumr}
+             "tum_replay": tumr, "batched_vo": vob, "batched_vo_loop": bvl, "latency_kb": kb,
+             "latency_mei": rigs["MEI"], "latency_scaramuzza": rigs["SCARAMUZZA"],
+             "batched_kb": kbb, "latency_harsh": harsh}
     counts = {k: sum(r["counts"][k] for r in paths.values()) for k in KERNELS}
     errs = {"fast_nms": k1_err, "lk_level": k2_err, "lk_iterate": k3_err}
     main_shape = {"fast_nms": f"{B}x480x640 rendered", "lk_level": f"{B}x{N} level",
@@ -2511,17 +2903,27 @@ def main() -> int:
             launches_by_path={p: r["counts"][name] for p, r in paths.items()},
             host_us=mean("host_us"), profile_ms_per_frame={
                 p: (prof if p == "batched" else r["profile"])["by_kernel"][name][
-                    "device_ms_per_frame"] for p, r in paths.items()}))
+                    "device_ms_per_frame"] for p, r in paths.items()
+                if p == "batched" or r["profile"] is not None}))
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi, kernels=kernels, timings=timings, k2=rep, k3=rep3, main={
             k: res[k] for k in ("ates", "bounds", "counts", "run_ms", "wall_s", "frames")},
             stages=stages, profile=prof, extraction=ext, latency=lat,
             latency_loop=jsonable(loop), latency_loop_no_graph=alone, abba_ms=ms,
             worker_cost=worker_cost, latency_loop_eager=jsonable(eager),
-            batched_loop={k: v for k, v in bl.items() if k != "cost"}, latency_vo=jsonable(vo),
-            vo_map=mp, vo_checkpoint=ck, latency_td=td, latency_td_calib=cal,
-            latency_dyn=dyn, latency_mono=mono, bag_replay=bagr, tum_replay=tumr,
-            png_decode=png, fisheye=fish, phase_s=phase_s), f, indent=1, default=float)
+            batched_loop={k: v for k, v in bl.items() if k not in ("cost", "segments")},
+            latency_vo=jsonable(vo), vo_map=mp, vo_checkpoint=ck, latency_td=td,
+            latency_td_calib=cal, latency_dyn=dyn, latency_mono=mono, bag_replay=bagr,
+            tum_replay=tumr, png_decode=png, fisheye=fish, k2_vo=rep2_vo,
+            batched_vo={k: vob[k] for k in ("ates", "bounds", "counts", "run_ms", "wall_s",
+                                            "frames", "profile")},
+            batched_vo_loop={k: v for k, v in bvl.items() if k not in ("cost", "segments")},
+            latency_kb=kb, cameras=cams, latency_mei=rigs["MEI"],
+            latency_scaramuzza=rigs["SCARAMUZZA"],
+            batched_kb={k: kbb[k] for k in ("ates", "bounds", "counts", "run_ms", "wall_s",
+                                            "frames")},
+            latency_harsh=harsh, phase_s=phase_s), f, indent=1,
+                  default=float)
     print(f"[phases] wall seconds {phase_s}, {sum(phase_s.values()):.1f} in all", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -37,6 +37,7 @@ from vins_rgbd_fast_torch import config as tconfig
 from vins_rgbd_fast_torch.backend import estimator as tes
 from vins_rgbd_fast_torch.io import stream as tstream
 from vins_rgbd_fast_torch.io import synthetic as tsyn
+from vins_rgbd_fast_torch.models.camera import MeiCamera
 from vins_rgbd_fast_torch.pipeline import VinsPipeline as TPipeline
 from vins_rgbd_fast_torch.loop import pose_graph as tpg
 from vins_rgbd_fast_torch.parallel import batched_pipeline as tbp
@@ -263,14 +264,16 @@ def test_load_config_matches_jax(tmp_path):
 
 
 def test_unported_options_raise(stream):
-    """What the port still refuses: the Mei camera, and VO or dynamic
-    initialization on the batched runner.  CLAHE and the fisheye mask now
-    build into the latency pipeline's tracker (``tests/test_torch_clahe.py``
-    runs them).  Dynamic init, td and extrinsic estimation run on the
-    latency pipeline (``tests/test_torch_init.py``, ``tests/test_torch_td_ex.py``,
+    """What the port still refuses: dynamic initialization on the batched
+    runner.  CLAHE and the fisheye mask build into the latency pipeline's
+    tracker (``tests/test_torch_clahe.py`` runs them).  Dynamic init, td and
+    extrinsic estimation run on the latency pipeline
+    (``tests/test_torch_init.py``, ``tests/test_torch_td_ex.py``,
     ``tests/test_torch_td_pipeline.py``); VO mode there, its 6-DoF graph and
     the map's save and load too (``tests/test_torch_vo.py``,
-    ``tests/test_torch_persistence.py``)."""
+    ``tests/test_torch_persistence.py``).  The Mei camera now builds
+    (``tests/test_torch_camera.py``), and the batched runner runs VO
+    (``tests/test_torch_vo.py::test_batched_runner_refuses_vo``)."""
     tcfg = stream[4]
     for change, field in ((dict(equalize=True), "equalize"), (dict(fisheye=True), "fisheye"),
                           (dict(fisheye=True, fisheye_mask="mask.png"), "fisheye_mask_path")):
@@ -280,14 +283,12 @@ def test_unported_options_raise(stream):
                    dict(estimate_extrinsic=2), dict(estimate_extrinsic=1)):
         cfg = TPipeline(dataclasses.replace(tcfg, **change), "cpu").estimator.cfg
         assert cfg == tes.EstimatorConfig.from_vins(dataclasses.replace(tcfg, **change))
-    with pytest.raises(NotImplementedError):
-        dataclasses.replace(tcfg, model_type="MEI").camera()
+    mei = chip_smoke.camera_config("MEI", tcfg)
+    assert isinstance(TPipeline(mei, "cpu").cam, MeiCamera)
     rig, btcfg, becfg, bcam = chip_smoke.slice_config(W, H, MAX_CNT)
     runner = tbp.BatchedVioRunner(dataclasses.replace(btcfg, equalize=True), bcam, becfg,
                                   "cpu", 1)
     assert runner.tcfg.equalize  # the batched tracker equalizes too
-    with pytest.raises(NotImplementedError, match="VO"):
-        tbp.BatchedVioRunner(btcfg, bcam, dataclasses.replace(becfg, use_imu=False), "cpu", 1)
     with pytest.raises(NotImplementedError, match="static"):
         tbp.BatchedVioRunner(btcfg, bcam, dataclasses.replace(becfg, static_init=False), "cpu", 1)
     pipe = TPipeline(dataclasses.replace(tcfg, imu=False, loop_closure=True,
@@ -337,7 +338,9 @@ def test_port_imports_nothing_of_jax():
             "vins_rgbd_fast_torch.io.checkpoint, vins_rgbd_fast_torch.backend.initialization, "
             "vins_rgbd_fast_torch.runtime, vins_rgbd_fast_torch.io.rosbag, "
             "vins_rgbd_fast_torch.io.tum, vins_rgbd_fast_torch.io.images, "
-            "vins_rgbd_fast_torch.io.writers, vins_rgbd_fast_torch.run_vio; "
+            "vins_rgbd_fast_torch.io.writers, vins_rgbd_fast_torch.run_vio, "
+            "vins_rgbd_fast_torch.models.camera, vins_rgbd_fast_torch.io.synthetic, "
+            "vins_rgbd_fast_torch.io.viz, vins_rgbd_fast_torch.parallel.batched_pipeline; "
             "bad = [m for m in sys.modules if m.startswith('vins_rgbd_fast_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)

@@ -441,12 +441,20 @@ def test_batched_closer_with_6dof_graphs_matches_jax(segments):  # noqa: F811
 
 
 def test_batched_runner_refuses_vo():
-    rig, tcfg, ecfg, cam = chip_smoke.slice_config(160, 120, 32)
-    with pytest.raises(NotImplementedError, match="VO"):
-        tbp.BatchedVioRunner(tcfg, cam, dataclasses.replace(ecfg, use_imu=False), "cpu", 1)
-    with pytest.raises(NotImplementedError, match="VO"):
-        tbp.BatchedVioRunner(dataclasses.replace(tcfg, use_imu_prediction=False), cam, ecfg,
-                             "cpu", 1)
+    """What the batched runner refuses now that it runs VO
+    (``tests/test_torch_batched_vo.py``): only dynamic init, since it warms
+    by static init.  A VO config (``use_imu=False``) keeps the 12/6 LK
+    envelope on K2 (engine "pallas3") and draws PnP uniforms per sequence;
+    a VIO config draws none."""
+    rig, tcfg, ecfg, cam = chip_smoke.vo_batched_config(160, 120, 32)
+    r = tbp.BatchedVioRunner(tcfg, cam, ecfg, "cpu", 3)
+    assert (r.tcfg.lk_engine, r.tcfg.lk_max_iters, r.tcfg.lk_coarse_iters) == ("pallas3", 12, 6)
+    assert not r.ecfg.use_imu and not r.tcfg.use_imu_prediction and r.tcfg.pyr_levels_cold == 4
+    assert len(r.pnp_generators) == 3 and tuple(r.pnp_uniforms().shape) == (3, 32, ecfg.maxf)
+    _, vtcfg, vecfg, _ = chip_smoke.slice_config(160, 120, 32)
+    assert tbp.BatchedVioRunner(vtcfg, cam, vecfg, "cpu", 1).pnp_uniforms() is None
+    with pytest.raises(NotImplementedError, match="static initialization"):
+        tbp.BatchedVioRunner(tcfg, cam, dataclasses.replace(ecfg, static_init=False), "cpu", 1)
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,8 @@ Field names and derived properties follow the JAX package (``config.
 VinsConfig``/``load_config``, ``frontend/feature_tracker.TrackerConfig``,
 ``backend/estimator.EstimatorConfig``, ``ops/solver.SolverConfig``), so a
 config built from a ``VinsConfig`` drives both packages identically.  Only
-the options the ported slices run are kept: pinhole camera, IMU on (VIO)
+the options the ported slices run are kept: the four camera models
+(pinhole, Kannala-Brandt, Mei, Scaramuzza), IMU on (VIO)
 or off (VO), static or dynamic initialization (with its monocular
 fallback), online td and extrinsic estimation, rolling shutter, CLAHE
 (``equalize``) and the fisheye mask, and the bag topics replay reads.
@@ -21,7 +22,8 @@ from typing import Tuple
 
 import numpy as np
 
-from .models.camera import PinholeCamera
+from .models.camera import (Camera, EquidistantCamera, MeiCamera, PinholeCamera,
+                            ScaramuzzaCamera)
 
 FOCAL_LENGTH = 460.0  # virtual focal length (reference parameters.h:13)
 
@@ -183,6 +185,15 @@ class VinsConfig:
     skip_cnt: int = 0      # pose graph: admit every skip_cnt-th keyframe
     focal_length: float = 460.0
     fisheye_mask: str = ""  # mask image path; "" + fisheye -> the analytic circle
+    # non-pinhole models: KANNALA_BRANDT intrinsics (mu, mv, u0, v0) and
+    # kb_distortion (k2..k5); MEI intrinsics (gamma1, gamma2, u0, v0), the
+    # radtan distortion and mirror_xi; SCARAMUZZA the forward and inverse
+    # polynomials and the affine (ac, ad, ae, cx, cy)
+    kb_distortion: Tuple[float, float, float, float] = (0.0, 0.0, 0.0, 0.0)
+    mirror_xi: float = 0.0
+    ocam_poly: Tuple[float, ...] = ()
+    ocam_inv_poly: Tuple[float, ...] = ()
+    ocam_affine: Tuple[float, ...] = (1.0, 0.0, 0.0, 320.0, 240.0)
     max_features: int = 0  # 0 -> derived from max_cnt
     max_imu_per_frame: int = 32
 
@@ -192,14 +203,30 @@ class VinsConfig:
             return self.max_features
         return max(((int(self.max_cnt * 1.5) + 7) // 8) * 8, 32)
 
-    def camera(self) -> PinholeCamera:
-        if self.model_type.upper() != "PINHOLE":
-            raise NotImplementedError(
-                f"the port has the pinhole camera only, not {self.model_type!r}")
-        fx, fy, cx, cy = self.intrinsics
-        k1, k2, p1, p2 = self.distortion
-        return PinholeCamera(fx=fx, fy=fy, cx=cx, cy=cy, k1=k1, k2=k2, p1=p1, p2=p2,
-                             width=self.image_width, height=self.image_height)
+    def camera(self) -> Camera:
+        """The rig's camera model (JAX ``VinsConfig.camera``)."""
+        mt = self.model_type.upper()
+        a, b, c, d = self.intrinsics
+        size = dict(width=self.image_width, height=self.image_height)
+        if mt == "PINHOLE":
+            k1, k2, p1, p2 = self.distortion
+            return PinholeCamera(fx=a, fy=b, cx=c, cy=d, k1=k1, k2=k2, p1=p1, p2=p2, **size)
+        if mt in ("KANNALA_BRANDT", "EQUIDISTANT"):
+            k2, k3, k4, k5 = self.kb_distortion
+            return EquidistantCamera(mu=a, mv=b, u0=c, v0=d, k2=k2, k3=k3, k4=k4, k5=k5,
+                                     **size)
+        if mt == "MEI":
+            k1, k2, p1, p2 = self.distortion
+            return MeiCamera(xi=self.mirror_xi, gamma1=a, gamma2=b, u1=c, v1=d,
+                             k1=k1, k2=k2, p1=p1, p2=p2, **size)
+        if mt == "SCARAMUZZA":
+            C, D, E, cx, cy = self.ocam_affine
+            return ScaramuzzaCamera(poly=tuple(self.ocam_poly),
+                                    inv_poly=tuple(self.ocam_inv_poly), C=C, D=D, E=E,
+                                    center_x=cx, center_y=cy, **size)
+        raise NotImplementedError(
+            f"unknown model_type {self.model_type!r}; expected PINHOLE, "
+            f"KANNALA_BRANDT, MEI, or SCARAMUZZA")
 
     def ric_matrix(self) -> np.ndarray:
         return np.asarray(self.ric, dtype=np.float64).reshape(3, 3)
@@ -316,13 +343,29 @@ def load_config(path: str) -> VinsConfig:
         skip_dis=float(get("skip_dis", 0.0)),
         skip_cnt=int(get("skip_cnt", 0)),
     )
+    # the projection keys differ per model (camodocal's YAML writers)
     for keys in (("fx", "fy", "cx", "cy"), ("mu", "mv", "u0", "v0"),
                  ("gamma1", "gamma2", "u0", "v0")):
         if keys[0] in proj:
             kwargs["intrinsics"] = tuple(float(proj[k]) for k in keys)
             break
+    if "mu" in proj and "fx" not in proj:  # KANNALA_BRANDT
+        kwargs["kb_distortion"] = tuple(float(proj.get(k, 0)) for k in ("k2", "k3", "k4", "k5"))
     if dist:
         kwargs["distortion"] = tuple(float(dist.get(k, 0)) for k in ("k1", "k2", "p1", "p2"))
+    mirror = raw.get("mirror_parameters", {})
+    if mirror:
+        kwargs["mirror_xi"] = float(mirror.get("xi", 0.0))
+    opoly = raw.get("poly_parameters", {})
+    oinv = raw.get("inv_poly_parameters", {})
+    oaff = raw.get("affine_parameters", {})
+    if opoly and oinv:  # SCARAMUZZA (ScaramuzzaCamera.cc:64-140)
+        kwargs["ocam_poly"] = tuple(float(opoly[f"p{i}"]) for i in range(len(opoly)))
+        kwargs["ocam_inv_poly"] = tuple(float(oinv[f"p{i}"]) for i in range(len(oinv)))
+        kwargs["ocam_affine"] = (
+            float(oaff.get("ac", 1.0)), float(oaff.get("ad", 0.0)), float(oaff.get("ae", 0.0)),
+            float(oaff.get("cx", kwargs["image_width"] / 2.0)),
+            float(oaff.get("cy", kwargs["image_height"] / 2.0)))
     if kwargs["fisheye"] and not kwargs["fisheye_mask"]:
         # the reference's fisheye_mask.jpg beside the rig file or one directory up
         d = os.path.dirname(os.path.abspath(path))

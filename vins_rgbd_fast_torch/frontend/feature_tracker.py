@@ -22,7 +22,7 @@ import torch
 
 from ..backend.feature_table import FrameFeatures
 from ..config import FOCAL_LENGTH, TrackerConfig
-from ..models.camera import PinholeCamera
+from ..models.camera import CameraModel
 from ..ops import fast as fast_ops
 from ..ops import image as image_ops
 from ..ops import lk as lk_ops
@@ -149,7 +149,7 @@ def _take(x, idx):
     return x[torch.arange(x.shape[0], device=x.device)[:, None], idx]
 
 
-def track_frame(cfg: TrackerConfig, cam: PinholeCamera, state: TrackerState,
+def track_frame(cfg: TrackerConfig, cam: CameraModel, state: TrackerState,
                 img: torch.Tensor, t: torch.Tensor, relative_R: torch.Tensor,
                 ransac_u: torch.Tensor) -> Tuple[TrackerState, TrackerOutput]:
     """Process one frame of B sequences.

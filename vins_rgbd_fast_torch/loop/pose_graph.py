@@ -41,7 +41,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..models.camera import PinholeCamera
+from ..models.camera import CameraModel
 from ..ops import fast as fast_ops
 from ..ops import ransac as ransac_ops
 from ..ops.solver import cho_solve, cholesky_nan
@@ -110,7 +110,7 @@ def _on(a, dtype, device) -> torch.Tensor:
 # Keyframe extraction
 # ---------------------------------------------------------------------------
 
-def extract_kf_device(cfg: PoseGraphConfig, cam: PinholeCamera, imgs: torch.Tensor,
+def extract_kf_device(cfg: PoseGraphConfig, cam: CameraModel, imgs: torch.Tensor,
                       wp_uv: torch.Tensor, wp_valid: torch.Tensor,
                       depths: Optional[torch.Tensor] = None, n_real: Optional[int] = None):
     """Features of K keyframes (``_extract_kf_device`` under the vmap of
@@ -148,7 +148,7 @@ def extract_kf_device(cfg: PoseGraphConfig, cam: PinholeCamera, imgs: torch.Tens
     return kp_uv, kp_norm, kp_valid, kp_desc, wp_desc
 
 
-def extract_keyframe_features(cfg: PoseGraphConfig, cam: PinholeCamera, img: torch.Tensor,
+def extract_keyframe_features(cfg: PoseGraphConfig, cam: CameraModel, img: torch.Tensor,
                               wp_world, wp_uv, wp_valid, depth=None):
     """One keyframe's features as host numpy arrays."""
     dev, dt = img.device, img.dtype
@@ -503,7 +503,7 @@ def relo_relative_pose(P_relo, Q_relo, P_cur, Q_cur):
 class PoseGraph:
     """Keyframes, retrieval, loops and optimization on one device."""
 
-    def __init__(self, cfg: PoseGraphConfig, cam: PinholeCamera, ric, tic, device,
+    def __init__(self, cfg: PoseGraphConfig, cam: CameraModel, ric, tic, device,
                  dtype=torch.float32, pnp_uniforms: Optional[Callable] = None):
         self.cfg = cfg
         self.cam = cam

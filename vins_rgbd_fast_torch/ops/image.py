@@ -1,6 +1,7 @@
-"""Gaussian image pyramid and CLAHE (twins of ``pyr_down``/
-``build_pyramid`` and ``clahe`` in ``vins_rgbd_fast_tpu/ops/image.py``) over
-batched images (B, H, W)."""
+"""Gaussian image pyramid, CLAHE and bilinear sampling (twins of
+``pyr_down``/``build_pyramid``, ``clahe`` and ``bilinear_sample`` in
+``vins_rgbd_fast_tpu/ops/image.py``); the pyramid and CLAHE over batched
+images (B, H, W)."""
 
 from __future__ import annotations
 
@@ -8,6 +9,22 @@ import functools
 from typing import List
 
 import torch
+
+
+def bilinear_sample(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """Sample img (H, W) at float coordinates xy (..., 2) = (x, y); the four
+    taps clamp to the border (OpenCV's BORDER_REPLICATE)."""
+    H, W = img.shape
+    x0 = torch.floor(xy[..., 0])
+    y0 = torch.floor(xy[..., 1])
+    fx = xy[..., 0] - x0
+    fy = xy[..., 1] - y0
+    x0i = torch.clamp(x0.to(torch.int64), 0, W - 1)
+    x1i = torch.clamp(x0i + 1, 0, W - 1)
+    y0i = torch.clamp(y0.to(torch.int64), 0, H - 1)
+    y1i = torch.clamp(y0i + 1, 0, H - 1)
+    return (img[y0i, x0i] * (1 - fx) * (1 - fy) + img[y0i, x1i] * fx * (1 - fy)
+            + img[y1i, x0i] * (1 - fx) * fy + img[y1i, x1i] * fx * fy)
 
 
 def _tap5(x: torch.Tensor, dim: int) -> torch.Tensor:

@@ -1,5 +1,6 @@
 """Pyramidal Lucas-Kanade optical flow over a batch of sequences (twin of
-the matmul-sampler path of ``vins_rgbd_fast_tpu/ops/lk.py``).
+``vins_rgbd_fast_tpu/ops/lk.py``: the matmul sampler's level engines, and
+the gather sampler's plain level ``track_level_gather``).
 
 One pyramid level runs by one of three engines, as in JAX:
   * ``"pallas3"``: ``lk_level`` launches kernel K2 (``csrc/lk_level.cu``,
@@ -21,7 +22,15 @@ For CPU tensors every wrapper runs its plain version: ``lk_level_plain``
 bilinear gathers (a selector row has at most two non-zero weights) and the
 while-loop as the fixed-count done-masked loop of ``lk_pallas2``.
 
-Level semantics (shared by every version):
+The gather sampler's level ``track_level_gather`` (JAX's
+``_track_level_gather``) is a plain function on any device: JAX runs it as
+XLA, not as a Pallas kernel, and no pipeline of either package uses it, so
+``pyramidal_lk`` runs the matmul sampler only.  Its level has no
+search window: each step samples a fresh bilinear patch of the level image
+(edge-padded by PS//2 + 2) at ``p + u``, and its status is active & ok_eig
+(& in-border at the finest level).
+
+Level semantics of the matmul sampler (shared by every engine):
   * the level images are edge-padded by WIN = win + 1 + 2·search_margin;
     the template anchor is clamped to [0, Wp−PS−1] and the window anchor
     to [0, Wp−WIN] in padded coordinates — realised here by clamp-to-edge
@@ -351,6 +360,60 @@ def level_status(pts_l, u, ok_eig, active, ax, ay, H: int, W: int, win: int,
         status = status & ((new_pos[..., 0] >= hb) & (new_pos[..., 0] < W - hb)
                            & (new_pos[..., 1] >= hb) & (new_pos[..., 1] < H - hb))
     return status
+
+
+def track_level_gather(prev, cur, pts_l, flow, active, win: int, max_iters: int,
+                       eps: float, min_eig: float, check_border: bool):
+    """The gather sampler's LK level (twin of ``_track_level_gather``):
+    template and gradients from a (win + 2)² bilinear patch of prev, then
+    ``max_iters`` done-masked Gauss-Newton steps, each on a bilinear
+    patch of cur at ``pts_l + u``.  Returns (u (B, N, 2), status, err)."""
+    B, H, W = prev.shape
+    dtype = prev.dtype
+    PS = win + 2
+    pad = PS // 2 + 2
+    half = (PS - 1) // 2
+
+    def patch(img, p):  # (B, N, PS, PS), JAX's _subpix_patch on the padded level
+        base_x, base_y = _floor_int(p[..., 0]), _floor_int(p[..., 1])
+        fx = (p[..., 0] - base_x.to(dtype))[..., None, None]
+        fy = (p[..., 1] - base_y.to(dtype))[..., None, None]
+        x0 = torch.clamp(base_x + pad - half, 0, W + 2 * pad - PS - 1)
+        y0 = torch.clamp(base_y + pad - half, 0, H + 2 * pad - PS - 1)
+        t = _gather_tiles(img, y0, x0, PS + 1, PS + 1, pad)
+        return (t[..., :-1, :-1] * (1 - fy) * (1 - fx) + t[..., :-1, 1:] * (1 - fy) * fx
+                + t[..., 1:, :-1] * fy * (1 - fx) + t[..., 1:, 1:] * fy * fx)
+
+    pe = patch(prev, pts_l)
+    tmpl = pe[..., 1:-1, 1:-1]
+    Ix = (pe[..., 1:-1, 2:] - pe[..., 1:-1, :-2]) * 0.5
+    Iy = (pe[..., 2:, 1:-1] - pe[..., :-2, 1:-1]) * 0.5
+    Gxx = torch.sum(Ix * Ix, dim=(-2, -1))
+    Gxy = torch.sum(Ix * Iy, dim=(-2, -1))
+    Gyy = torch.sum(Iy * Iy, dim=(-2, -1))
+    det = Gxx * Gyy - Gxy * Gxy
+    tr = Gxx + Gyy
+    eig_min = 0.5 * (tr - torch.sqrt(torch.clamp(tr * tr - 4 * det, min=0.0)))
+    ok_eig = eig_min / (win * win) >= min_eig
+    inv_det = 1.0 / torch.where(torch.abs(det) > 1e-12, det, torch.full_like(det, 1e-12))
+
+    u, done = flow, ~(active & ok_eig)
+    for _ in range(max_iters):
+        dI = patch(cur, pts_l + u)[..., 1:-1, 1:-1] - tmpl
+        bx = torch.sum(dI * Ix, dim=(-2, -1))
+        by = torch.sum(dI * Iy, dim=(-2, -1))
+        du = torch.stack([inv_det * (Gyy * bx - Gxy * by),
+                          inv_det * (-Gxy * bx + Gxx * by)], dim=-1)
+        u = torch.where(done[..., None], u, u - du)
+        done = done | (torch.sum(du * du, dim=-1) < eps * eps)
+    err = torch.mean(torch.abs(patch(cur, pts_l + u)[..., 1:-1, 1:-1] - tmpl), dim=(-2, -1))
+    status = active & ok_eig
+    if check_border:
+        new_pos = pts_l + u
+        hb = win // 2
+        status = status & ((new_pos[..., 0] >= hb) & (new_pos[..., 0] < W - hb)
+                           & (new_pos[..., 1] >= hb) & (new_pos[..., 1] < H - hb))
+    return u, status, err
 
 
 def pyramidal_lk(prev_pyr: List[torch.Tensor], cur_pyr: List[torch.Tensor],

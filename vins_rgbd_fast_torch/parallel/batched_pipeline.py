@@ -9,12 +9,19 @@ the static initialization).  ``run`` processes T staged frames with no
 host synchronisation per frame; outputs stay on the device and are
 stacked at the end.  Loop closure rides on the outputs between segments
 (``parallel/loop_closer.BatchedLoopCloser``, ``ThreadedLoopCloser``).
+
+Without an IMU (VO, the TUM RGB-D rig: ``EstimatorConfig.use_imu`` and
+``TrackerConfig.use_imu_prediction`` off) the staged intervals are empty,
+the tracker runs cold LK on ``pyr_levels_cold`` levels (K2 per level) and
+``vio_step`` initialises each new pose by PnP; each sequence then draws its
+PnP uniforms (B, 32, MAXF) from a generator of its own, after its RANSAC
+uniforms, in every step (JAX draws both from one key per sequence and step).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, NamedTuple, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -23,7 +30,7 @@ from ..backend import estimator as est
 from ..backend.state import WINDOW_SIZE
 from ..config import EstimatorConfig, TrackerConfig
 from ..frontend import feature_tracker as ft
-from ..models.camera import PinholeCamera
+from ..models.camera import CameraModel
 from ..ops import ransac as ransac_ops
 from ..utils import quaternion as quat
 
@@ -75,7 +82,7 @@ def gyro_relative_R(dts, gyr, bg, qic) -> torch.Tensor:
     return R_ic.transpose(1, 2) @ R_imu.transpose(1, 2) @ R_ic
 
 
-def fused_frame_step(tcfg: TrackerConfig, cam: PinholeCamera, ecfg: EstimatorConfig,
+def fused_frame_step(tcfg: TrackerConfig, cam: CameraModel, ecfg: EstimatorConfig,
                      trk: ft.TrackerState, st: est.EstimatorState, img, depth, t,
                      imu: est.ImuInterval, ransac_u, relo=None, pnp_u=None):
     """One steady-state frame of B sequences: gyro prediction → tracker →
@@ -91,19 +98,22 @@ def fused_frame_step(tcfg: TrackerConfig, cam: PinholeCamera, ecfg: EstimatorCon
 
 
 def stage_frames(imgs: Sequence[torch.Tensor], depths: Sequence[torch.Tensor],
-                 seq_ts: Sequence[np.ndarray], buffers: Sequence[est.ImuIntervalBuffer],
-                 k0: int, k1: int, device, dtype=torch.float32) -> FrameBatch:
+                 seq_ts: Sequence[np.ndarray],
+                 buffers: Optional[Sequence[est.ImuIntervalBuffer]],
+                 k0: int, k1: int, device, dtype=torch.float32,
+                 max_imu: int = 32) -> FrameBatch:
     """Stage frames [k0, k1) of B sequences: rendered images/depths
     (per-sequence (N, H, W) device stacks) and the IMU interval of each
     frame, paired on the host and uploaded once.  Frame 0's interval is
-    (t0 − 1 ms, t0], as the host estimator pairs it."""
+    (t0 − 1 ms, t0], as the host estimator pairs it.  With ``buffers``
+    None (VO) every interval is empty: ``max_imu`` zero samples."""
     B = len(imgs)
     T = k1 - k0
-    maxi = buffers[0].max_imu
+    maxi = buffers[0].max_imu if buffers is not None else max_imu
     dts = np.zeros((T, B, maxi))
     acc = np.zeros((T, B, maxi + 1, 3))
     gyr = np.zeros((T, B, maxi + 1, 3))
-    for b in range(B):
+    for b in range(B if buffers is not None else 0):
         for i, k in enumerate(range(k0, k1)):
             t_prev = float(seq_ts[b][k - 1]) if k > 0 else float(seq_ts[b][0]) - 1e-3
             dts[i, b], acc[i, b], gyr[i, b] = buffers[b].collect(t_prev, float(seq_ts[b][k]))
@@ -119,17 +129,17 @@ def stage_frames(imgs: Sequence[torch.Tensor], depths: Sequence[torch.Tensor],
 
 
 class BatchedVioRunner:
-    """Batched multi-sequence VIO on one device.
+    """Batched multi-sequence VIO (or VO) on one device.
 
     ``warm`` runs the window-filling frames and the static initialization
     in lock step; ``run`` then processes T steady frames.  RANSAC draws
-    come from one ``torch.Generator`` per sequence, seeded ``seed + b``."""
+    come from one ``torch.Generator`` per sequence, seeded ``seed + b``;
+    in VO mode the PnP draws from another, seeded ``seed + PNP_SEED + b``."""
 
-    def __init__(self, tcfg: TrackerConfig, cam: PinholeCamera, ecfg: EstimatorConfig,
+    PNP_SEED = 1000
+
+    def __init__(self, tcfg: TrackerConfig, cam: CameraModel, ecfg: EstimatorConfig,
                  device, B: int, seed: int = 17):
-        if not ecfg.use_imu or not tcfg.use_imu_prediction:
-            raise NotImplementedError("the batched runner runs VIO only; VO mode (no IMU) "
-                                      "runs on the latency pipeline, VinsPipeline")
         if not ecfg.static_init:
             raise NotImplementedError("the batched runner warms by static initialization; "
                                       "dynamic init runs on the latency pipeline")
@@ -143,15 +153,27 @@ class BatchedVioRunner:
         self.ecfg = ecfg
         self.device = torch.device(device)
         self.B = B
-        self.generators: List[torch.Generator] = []
-        for b in range(B):
+        self.generators = self._generators(seed)
+        self.pnp_generators = None if ecfg.use_imu else self._generators(seed + self.PNP_SEED)
+
+    def _generators(self, seed: int) -> List[torch.Generator]:
+        gens = []
+        for b in range(self.B):
             g = torch.Generator(device=self.device)
             g.manual_seed(seed + b)
-            self.generators.append(g)
+            gens.append(g)
+        return gens
 
     def ransac_uniforms(self):
         return ransac_ops.draw_uniforms(self.generators, self.tcfg.ransac_trials,
                                         self.tcfg.maxc, self.device)
+
+    def pnp_uniforms(self):
+        """(B, 32, MAXF) uniforms of the VO pose init (None with an IMU)."""
+        if self.pnp_generators is None:
+            return None
+        return ransac_ops.draw_uniforms(self.pnp_generators, ransac_ops.PNP_TRIALS,
+                                        self.ecfg.maxf, self.device)
 
     def init_states(self, ric, tic, td: float = 0.0):
         trk = ft.init_state(self.tcfg, self.B, self.device)
@@ -181,9 +203,10 @@ class BatchedVioRunner:
         outs = []
         for k in range(batch.ts.shape[0]):
             imu = est.ImuInterval(batch.imu_dts[k], batch.imu_acc[k], batch.imu_gyr[k])
+            ransac_u = self.ransac_uniforms()
             trk, st, sout = fused_frame_step(self.tcfg, self.cam, self.ecfg, trk, st,
                                              batch.imgs[k], batch.depths[k], batch.ts[k],
-                                             imu, self.ransac_uniforms())
+                                             imu, ransac_u, pnp_u=self.pnp_uniforms())
             outs.append(ScanOutputs(P=sout.P, Q=sout.Q, V=sout.V, cost=sout.cost,
                                     is_keyframe=sout.is_keyframe, n_features=sout.n_features,
                                     wp_world=sout.wp_world, wp_uv=sout.wp_uv,

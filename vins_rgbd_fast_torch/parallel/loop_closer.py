@@ -52,6 +52,7 @@ from ..loop.pose_graph import (KeyframeGate, PoseGraph, PoseGraphConfig, _host, 
                                combine_db_rows, combined_old_rows, db_query_all,
                                db_query_multi, extract_kf_device, optimize_4dof,
                                relo_relative_pose, verify_loops_batch, verify_loops_device)
+from ..models.camera import CameraModel
 from .batched_pipeline import FrameBatch, ScanOutputs
 
 STAGES = ("gating", "extract", "query", "verify", "pgo")
@@ -188,8 +189,8 @@ class BatchedLoopCloser:
 
     CAND_PAD = 64  # loop candidates verified per call (a group never spans two chunks)
 
-    def __init__(self, cam, ric, tic, batch: int, device, pg_cfg: Optional[PoseGraphConfig] = None,
-                 skip_cnt: int = 0, skip_dis: float = 0.0, k_pad: int = 0, seq_pad: int = 0,
+    def __init__(self, cam: CameraModel, ric, tic, batch: int, device,
+                 pg_cfg: Optional[PoseGraphConfig] = None, skip_cnt: int = 0, skip_dis: float = 0.0, k_pad: int = 0, seq_pad: int = 0,
                  db_capacity: int = 0, pgo_period: float = 0.0, pnp_uniforms=None):
         self.cfg = pg_cfg or PoseGraphConfig()
         self.cam = cam
