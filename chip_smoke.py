@@ -427,6 +427,9 @@ def ocam_polys(W: int, H: int, f: float, curve: float = 4e-4, deg: int = 9):
     return poly, tuple(float(c) for c in inv)
 
 
+OCAM_STRETCH = (1.001, 1e-4, -2e-4)  # C, D, E: tests/test_calib.py's affine stretch
+
+
 def camera_config(model_type: str, cfg: VinsConfig) -> VinsConfig:
     """``cfg`` with one of the three non-pinhole cameras at its size: a
     Kannala-Brandt fisheye (mu = mv = 300 at 640 wide, k2..k5 = (-0.01,
@@ -434,7 +437,8 @@ def camera_config(model_type: str, cfg: VinsConfig) -> VinsConfig:
     radtan) or a Scaramuzza camera (``ocam_polys``, f 300 at 640 wide, the
     centre off the image's; no affine stretch: JAX's OCAM lift un-stretches
     only the radius it evaluates the polynomial at, so with a stretch
-    ``project`` does not invert ``lift`` exactly)."""
+    ``project`` does not invert ``lift`` exactly).  "SCARAMUZZA_AFFINE" is
+    that Scaramuzza camera with ``OCAM_STRETCH`` (phase 16f)."""
     W, H = cfg.image_width, cfg.image_height
     s = W / 640.0
     mt = model_type.upper()
@@ -446,10 +450,12 @@ def camera_config(model_type: str, cfg: VinsConfig) -> VinsConfig:
         return dataclasses.replace(cfg, model_type=mt, mirror_xi=0.8,
                                    intrinsics=(400.0 * s, 400.0 * s, W / 2.0, H / 2.0),
                                    distortion=(-0.05, 0.01, 1e-4, -1e-4))
-    if mt == "SCARAMUZZA":
+    if mt in ("SCARAMUZZA", "SCARAMUZZA_AFFINE"):
         poly, inv = ocam_polys(W, H, 300.0 * s, 4e-4 / s)
-        return dataclasses.replace(cfg, model_type=mt, ocam_poly=poly, ocam_inv_poly=inv,
-                                   ocam_affine=(1.0, 0.0, 0.0, W / 2.0 + 1.5, H / 2.0 - 2.0))
+        stretch = OCAM_STRETCH if mt == "SCARAMUZZA_AFFINE" else (1.0, 0.0, 0.0)
+        return dataclasses.replace(cfg, model_type="SCARAMUZZA", ocam_poly=poly,
+                                   ocam_inv_poly=inv,
+                                   ocam_affine=stretch + (W / 2.0 + 1.5, H / 2.0 - 2.0))
     raise ValueError(f"camera_config: {model_type!r} is not a non-pinhole model")
 
 
@@ -706,7 +712,7 @@ def revisit_scene(rig, n_frames: int, extra: int = 0, seed: int = 207, imu_seed:
 
 def run_loop_path(device, n_frames: int = 112, warmup: int = 16, W: int = 640, H: int = 480,
                   max_cnt: int = 130, max_kp: int = 192, profile: int = 0, path=None,
-                  eager: bool = False, vo: bool = False):
+                  eager: bool = False, vo: bool = False, lockstep: bool = False):
     """bench.py run_latency with BENCH_LAT_LOOP=1 on the port: the revisit
     scene rendered on the device first, the fused steady state with no
     read-back per frame, the envelope, and the pose graph on the
@@ -715,8 +721,11 @@ def run_loop_path(device, n_frames: int = 112, warmup: int = 16, W: int = 640, H
     after the warm-up and the stager's warm-up, just before the timed
     frames; ``profile`` frames (async only) run under the profiler after.
     With ``vo``, VO mode (``vo_config``: no IMU pushed, cold LK on 4
-    levels, PnP pose init, the 6-DoF graph).  The result keeps the pose
-    graph (``graph``) and the scene (``scene``)."""
+    levels, PnP pose init, the 6-DoF graph).  With ``lockstep`` the frame
+    thread waits for the worker after each batch of frames it hands over,
+    so a loop's relocalization reaches the estimator at a fixed frame and
+    the run does not depend on thread timing (the CPU rehearsals).  The
+    result keeps the pose graph (``graph``) and the scene (``scene``)."""
     rig, _, _, _ = slice_config(W, H, max_cnt)
     seq = revisit_scene(rig, n_frames, profile)
     ts, imgs, deps = syn.render_sequence(seq, rig, device)
@@ -743,6 +752,8 @@ def run_loop_path(device, n_frames: int = 112, warmup: int = 16, W: int = 640, H
             pipe.push_image(ts[k], imgs[k])
             pipe.push_depth(ts[k], deps[k])
             pipe.spin_once()
+            if lockstep and stager is not None and not stager.pending:
+                stager.drain()  # a batch was just handed over: wait for it
 
     def sync():
         if torch.device(device).type == "cuda":
@@ -1018,11 +1029,13 @@ def angle_deg(R_a, R_b) -> float:
 def run_rig_path(device, cfg: VinsConfig, rig, seq, n_frames: int = 112, warmup: int = 16,
                  profile: int = 0, path=None, fused: bool = True,
                  failure_check_interval: int = 10 ** 9, imu_shift: float = 0.0,
-                 depthless: int = 0):
+                 depthless: bool = False):
     """One stream through ``VinsPipeline`` with a rig's knobs (phases 12,
-    12b, 13 and 13b): frames rendered on the device first (the depth of the
-    first ``depthless`` zeroed), IMU stamps shifted by ``imu_shift`` (a
-    known td), ``warmup`` frames, then the timed ones (CUDA-synchronised
+    12b, 13 and 13b): frames rendered on the device first (with
+    ``depthless``, every depth image before the estimator initializes is
+    withheld as zeros, so only the monocular program can), IMU stamps
+    shifted by ``imu_shift`` (a known td), ``warmup`` frames, then the
+    timed ones (CUDA-synchronised
     wall time) with the launch counters zeroed before the warm-up, then
     ``profile`` frames under the profiler.  The envelope, no read-back per
     frame but the failure check every ``failure_check_interval`` frames
@@ -1030,8 +1043,7 @@ def run_rig_path(device, cfg: VinsConfig, rig, seq, n_frames: int = 112, warmup:
     ``init_dynamic``/``init_mono`` succeeded, and the frame the extrinsic
     calibration ended, if it did."""
     ts, imgs, deps = syn.render_sequence(seq, rig, device)
-    if depthless:
-        deps[:depthless] = 0.0
+    no_depth = torch.zeros_like(deps[0])
     pipe = envelope(VinsPipeline(cfg, device, eager_outputs=False,
                                  failure_check_interval=failure_check_interval,
                                  fused_steady_state=fused))
@@ -1053,7 +1065,8 @@ def run_rig_path(device, cfg: VinsConfig, rig, seq, n_frames: int = 112, warmup:
     def feed(k0, k1):
         for k in range(k0, k1):
             pipe.push_image(ts[k], imgs[k])
-            pipe.push_depth(ts[k], deps[k])
+            withheld = depthless and e.solver_flag != e.NON_LINEAR
+            pipe.push_depth(ts[k], no_depth if withheld else deps[k])
             pipe.spin_once()
             if marks["init_frame"] is None and e.solver_flag == e.NON_LINEAR:
                 marks["init_frame"] = k
@@ -1855,6 +1868,327 @@ def check_degraded_path(res, on_gpu: bool = True) -> None:
     feature flagged dynamic on at least one frame."""
     check_latency_path(res, on_gpu)
     require(max(res["n_dynamic"]) > 0, ("no feature ever flagged dynamic", res["n_dynamic"]))
+
+
+def lift_project_px(cam, device, step: int = 8, margin: int = 40) -> float:
+    """The largest |project(lift(uv)) - uv| in pixels over a grid of the
+    camera's pixels ``margin`` inside its border (phase 16f: under an OCAM
+    affine stretch the two do not invert each other exactly, in JAX too)."""
+    vs, us = torch.meshgrid(torch.arange(margin, cam.height - margin, step, device=device),
+                            torch.arange(margin, cam.width - margin, step, device=device),
+                            indexing="ij")
+    uv = torch.stack([us, vs], dim=-1).reshape(-1, 2).to(torch.float64)
+    return float((cam.project(cam.lift(uv)) - uv).abs().max())
+
+
+def run_camera_entry(device, camera: str = "KANNALA_BRANDT", n_frames: int = 32,
+                     W: int = 640, H: int = 480, max_cnt: int = 130, workdir: str = OUT_DIR):
+    """Phase 14d: phase 16's rig file (the latency stream's knobs with the
+    ``camera_config`` camera) with the RealSense topics, its frames rendered
+    through the camera's rays and written to a rosbag by the port's writers
+    (``write_realsense_bag``), then ``python3 -m vins_rgbd_fast_torch.run_vio
+    --config --bag --output`` in a child process.  The bag and rig file go
+    to ``workdir/replay_<camera>`` and are deleted after."""
+    rig, _, _, _ = slice_config(W, H, max_cnt)
+    seq = syn.make_trajectory(n_frames, rig, seed=7, omega_scale=0.15, acc_scale=0.3)
+    img_t, dep_t, imu_t = REALSENSE_TOPICS
+    cfg = dataclasses.replace(camera_config(camera, latency_config(rig, seq, max_cnt)),
+                              image_topic=img_t, depth_topic=dep_t, imu_topic=imu_t)
+    ts, imgs, deps = render_camera(seq, cfg.camera(), device)
+    work = os.path.join(workdir, f"replay_{camera.lower()}")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    bag_path, yaml_path = os.path.join(work, "rig.bag"), os.path.join(work, "rig.yaml")
+    out_dir = os.path.join(work, "out")
+    try:
+        bag_bytes = write_realsense_bag(bag_path, seq, ts, imgs, deps)
+        with open(yaml_path, "w") as f:
+            f.write(rig_yaml(cfg))
+        require(load_config(yaml_path) == cfg, "the rig file reads back as its config")
+        entry = run_entry_point(["--config", yaml_path, "--bag", bag_path, "--output", out_dir,
+                                 "--device", torch.device(device).type])
+        csv = (read_result_csv(os.path.join(out_dir, "vins_result_no_loop.csv"))
+               if entry["rc"] == 0 else np.zeros((0, 11)))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    travelled = float(np.sum(np.linalg.norm(np.diff(seq.P, axis=0), axis=1)))
+    return dict(frames=n_frames, camera=type(cfg.camera()).__name__, bag_mb=bag_bytes / 1e6,
+                entry=entry, csv_rows=len(csv),
+                run_vio_ate_m=(ate_rmse(csv[:, 0], csv[:, 1:4], seq.times, seq.P, align=False)
+                               if len(csv) >= 5 else float("nan")),
+                bound=max(0.05 * travelled, 0.08))
+
+
+def check_camera_entry(res) -> None:
+    """Phase 14d's checks: run_vio exits 0 with one CSV row per odometry
+    output and the ATE bound."""
+    ent = res["entry"]
+    require(ent["rc"] == 0, ("run_vio exit code", ent["rc"], ent["stderr"]))
+    require(ent["n_outputs"] is not None and res["csv_rows"] == ent["n_outputs"] > 0,
+            ("one CSV row per odometry output", res["csv_rows"], ent["n_outputs"]))
+    require(np.isfinite(res["run_vio_ate_m"]) and res["run_vio_ate_m"] < res["bound"],
+            ("run_vio ATE", res["run_vio_ate_m"], res["bound"]))
+
+
+# ---------------------------------------------------------------------------
+# phase 18: intrinsic calibration (tests/test_calib.py's boards and bounds)
+# ---------------------------------------------------------------------------
+
+BOARD = (6, 8, 0.03)  # inner corner rows, columns, square (m)
+
+
+def board_view_poses(n: int = 8, seed: int = 3, z=(0.45, 0.7), xy=(0.04, 0.03),
+                     tilt: float = 0.5):
+    """Board-to-camera poses (R, t) of ``tests/test_calib.py``'s
+    ``_view_poses``: the board centred, tilted and turned at random."""
+    rows, cols, sq = BOARD
+
+    def rot(i, j, a, sign=1.0):  # the rotation by a in the (i, j) plane
+        R = np.eye(3)
+        c, s_ = np.cos(a), sign * np.sin(a)
+        R[i, i], R[i, j], R[j, i], R[j, j] = c, -s_, s_, c
+        return R
+
+    rng = np.random.default_rng(seed)
+    centre = np.array([(cols - 1) * sq / 2, (rows - 1) * sq / 2, 0.0])
+    poses = []
+    for _ in range(n):
+        R = (rot(1, 2, rng.uniform(-tilt, tilt)) @ rot(0, 2, rng.uniform(-tilt, tilt), -1.0)
+             @ rot(0, 1, rng.uniform(-0.4, 0.4)))
+        zc = rng.uniform(*z)
+        t = np.array([rng.uniform(-xy[0], xy[0]), rng.uniform(-xy[1], xy[1]), zc])
+        poses.append((R, t - R @ centre))
+    return poses
+
+
+def render_board(cam, R, t, device, ss: int = 2) -> torch.Tensor:
+    """``tests/test_calib.py``'s analytic chessboard view through ``cam`` on
+    ``device``: every supersampled pixel lifted, intersected with the board
+    plane and checker-coloured (235/25 on a 128 background), then averaged
+    ``ss``×``ss`` -> (H, W) float64."""
+    rows, cols, sq = BOARD
+    W, H = cam.width, cam.height
+    f64 = torch.float64
+    us = (torch.arange(W * ss, dtype=f64, device=device) + 0.5) / ss - 0.5
+    vs = (torch.arange(H * ss, dtype=f64, device=device) + 0.5) / ss - 0.5
+    vv, uu = torch.meshgrid(vs, us, indexing="ij")
+    rays = cam.lift(torch.stack([uu.reshape(-1), vv.reshape(-1)], dim=-1))
+    Rt = torch.as_tensor(R, dtype=f64, device=device)
+    d_b = rays @ Rt
+    o_b = -torch.as_tensor(t, dtype=f64, device=device) @ Rt
+    dz = torch.where(torch.abs(d_b[:, 2]) > 1e-9, d_b[:, 2], torch.full_like(d_b[:, 2], 1e-9))
+    lam = -o_b[2] / dz
+    xb = o_b[0] + lam * d_b[:, 0]
+    yb = o_b[1] + lam * d_b[:, 1]
+    on = (lam > 0) & (xb > -sq) & (xb < cols * sq) & (yb > -sq) & (yb < rows * sq)
+    par = torch.remainder(torch.floor(xb / sq) + torch.floor(yb / sq), 2)
+    img = torch.where(on, torch.where(par > 0.5, 235.0, 25.0), torch.full_like(xb, 128.0))
+    return img.reshape(H, ss, W, ss).mean(dim=(1, 3))
+
+
+def ocam_project_exact(poly, affine, center, Pc) -> np.ndarray:
+    """``tests/test_calib.py``'s ground-truth OCAM projection: per point the
+    exact quartic root of f(ρ) + (z/r)·ρ = 0 (``np.roots``), then the
+    affine stretch [[C, D], [E, 1]] and the centre."""
+    C, D, E = affine
+    out = np.zeros((len(Pc), 2))
+    for i, (x, y, z) in enumerate(Pc):
+        r = np.hypot(x, y)
+        roots = np.roots([poly[4], poly[3], poly[2], z / r, poly[0]])
+        rho = min((float(rt.real) for rt in roots if abs(rt.imag) < 1e-9 and rt.real > 0),
+                  default=np.nan)
+        u, v = x / r * rho, y / r * rho
+        out[i] = (C * u + D * v + center[0], E * u + v + center[1])
+    return out
+
+
+def run_calibration(device, W: int = 640, H: int = 480, n_views: int = 8,
+                    workdir: str = OUT_DIR):
+    """Phase 18: (a) ``n_views`` 6×8 boards rendered on ``device`` through a
+    radtan pinhole (``tests/test_calib.py``'s truth), ``find_chessboard``
+    and ``calibrate("pinhole")`` on ``device``; (b) ``calibrate`` for the
+    Kannala-Brandt, Mei and stretched Scaramuzza truths of
+    ``tests/test_calib.py`` on exact projections with its noise; (c) the
+    CLI (``python3 -m vins_rgbd_fast_torch.calib``) in a child on the
+    views written as PNGs, its YAML read by ``load_config``."""
+    from vins_rgbd_fast_torch.calib import board_points, calibrate, find_chessboard
+    from vins_rgbd_fast_torch.io import writers
+    from vins_rgbd_fast_torch.models.camera import EquidistantCamera, MeiCamera
+
+    rows, cols, sq = BOARD
+    truth = PinholeCamera(fx=462.0, fy=458.5, cx=316.0, cy=243.5, k1=-0.12, k2=0.04, p1=5e-4,
+                          p2=-3e-4, width=W, height=H)
+    obj = board_points(rows, cols, sq)
+    out = {}
+    t0 = time.perf_counter()
+    imgs = [render_board(truth, R, t, device) for R, t in board_view_poses(n_views, seed=21)]
+    views = [find_chessboard(im, rows, cols, device=device) for im in imgs]
+    out["found"] = sum(v is not None for v in views)
+    res = calibrate("pinhole", [v for v in views if v is not None], rows, cols, sq, W, H,
+                    device=device)
+    out["pinhole"] = dict(rms_px=res.rms_px, fx=res.params.fx, fy=res.params.fy,
+                          fx_err=abs(res.params.fx - truth.fx) / truth.fx)
+    out["detect_s"] = time.perf_counter() - t0
+
+    def noisy(project, poses, rng):
+        return [project(obj @ R.T + t) + rng.normal(0, 0.05, (len(obj), 2)) for R, t in poses]
+
+    def cam_project(cam):
+        return lambda Pc: cam.project(torch.as_tensor(Pc)).numpy()
+
+    kb = EquidistantCamera(mu=365.0, mv=363.0, u0=322.0, v0=238.0, k2=0.02, k3=-0.005,
+                           k4=0.002, k5=-0.0005, width=W, height=H)
+    mei = MeiCamera(xi=0.9, gamma1=860.0, gamma2=856.0, u1=318.0, v1=242.0, k1=-0.05, k2=0.01,
+                    width=W, height=H)
+    ocam = ((-180.0, 0.0, 1.8e-3, -2.0e-6, 8.0e-9), OCAM_STRETCH, (322.0, 238.0))
+    cases = {
+        "kannala-brandt": (cam_project(kb), board_view_poses(10, 9, (0.3, 0.55), (0.14, 0.1)), 1),
+        "mei": (cam_project(mei), board_view_poses(12, 13, (0.3, 0.55), (0.14, 0.1)), 2),
+        "scaramuzza": (lambda Pc: ocam_project_exact(*ocam, Pc),
+                       board_view_poses(12, 17, (0.25, 0.5), (0.16, 0.12)), 4)}
+    for model, (project, poses, seed) in cases.items():
+        t1 = time.perf_counter()
+        r = calibrate(model, noisy(project, poses, np.random.default_rng(seed)), rows, cols, sq,
+                      W, H, device=device)
+        p = r.params
+        row = dict(rms_px=r.rms_px, s=time.perf_counter() - t1)
+        if model == "kannala-brandt":
+            row["rel_err"] = float(np.max(np.abs(np.array([p.mu, p.mv, p.u0, p.v0])
+                                                 / np.array([kb.mu, kb.mv, kb.u0, kb.v0]) - 1)))
+        if model == "scaramuzza":
+            row["center_err_px"] = float(np.max(np.abs(np.array([p.center_x, p.center_y])
+                                                       - np.array(ocam[2]))))
+            row["a0_rel_err"] = abs(p.poly[0] / ocam[0][0] - 1)
+        out[model] = row
+
+    work = os.path.abspath(os.path.join(workdir, "calib"))
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(os.path.join(work, "views"))
+    try:
+        for i, im in enumerate(imgs):
+            writers.write_png(os.path.join(work, "views", f"left-{i:02d}.png"),
+                              im.cpu().numpy().astype(np.uint8))
+        t1 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-m", "vins_rgbd_fast_torch.calib", "-w", str(cols), "--bh",
+             str(rows), "-s", str(sq), "-i", os.path.join(work, "views"), "-p", "left-",
+             "--camera-model", "pinhole", "--camera-name", "cam0", "--device",
+             torch.device(device).type],
+            cwd=work, capture_output=True, text=True, timeout=300,
+            env=dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__))))
+        yml = os.path.join(work, "cam0_camera_calib.yaml")
+        cam = load_config(yml).camera() if child.returncode == 0 else None
+        out["cli"] = dict(rc=child.returncode, s=time.perf_counter() - t1,
+                          stderr=child.stderr[-2000:],
+                          fx=None if cam is None else cam.fx)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["truth_fx"] = truth.fx
+    return out
+
+
+def check_calibration(res, n_views: int = 8) -> None:
+    """Phase 18's checks: at least all but two of the rendered boards found
+    (on the CPU 7 of 8: one steep view does not order into the grid); the
+    pinhole rms below 0.1 px and fx within 2 %; ``tests/test_calib.py``'s
+    bounds for the other three models; the CLI exits 0 and its YAML loads,
+    fx within 2 %."""
+    require(res["found"] >= n_views - 2, ("boards found", res["found"]))
+    ph = res["pinhole"]
+    require(ph["rms_px"] < 0.1 and ph["fx_err"] < 0.02, ("pinhole calibration", ph))
+    kb, mei, oc = res["kannala-brandt"], res["mei"], res["scaramuzza"]
+    require(kb["rms_px"] < 0.08 and kb["rel_err"] < 5e-3, ("kannala-brandt calibration", kb))
+    require(mei["rms_px"] < 0.1, ("mei calibration", mei))
+    require(oc["rms_px"] < 0.1 and oc["center_err_px"] <= 1.0 and oc["a0_rel_err"] <= 1e-2,
+            ("scaramuzza calibration", oc))
+    cli = res["cli"]
+    require(cli["rc"] == 0 and cli["fx"] is not None
+            and abs(cli["fx"] - res["truth_fx"]) / res["truth_fx"] < 0.02, ("calib CLI", cli))
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the runner's sharded and chained API, stack_states, the graft twins
+# ---------------------------------------------------------------------------
+
+def _equal_trees(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(bp.leaves(a), bp.leaves(b)))
+
+
+def run_runner_api(device, B: int = 2, T: int = 4, W: int = 640, H: int = 480,
+                   max_cnt: int = 130):
+    """Phase 19 (a): the main path warmed (``run_main_path``, B sequences),
+    then T more frames through ``run``, ``run_chained`` and ``run_sharded``
+    (after ``put_states``/``put_batch``) from the same states and the same
+    RANSAC generator states: the three outputs and end states bit for bit."""
+    res = run_main_path(device, B, 1, W=W, H=H, max_cnt=max_cnt, extra=2 * T)
+    runner, (trk, st) = res["runner"], res["state"]
+    batch = res["extra_batch"][0]
+    gens = [g.get_state() for g in runner.generators]
+
+    def from_start(fn, *args):
+        for g, s_ in zip(runner.generators, gens):
+            g.set_state(s_)
+        return fn(*args)
+
+    a = from_start(runner.run, trk, st, batch)
+    b = from_start(runner.run_chained, trk, st, batch)
+    c = from_start(runner.run_sharded, runner.put_states(trk), runner.put_states(st),
+                   runner.put_batch(batch))
+    refused = False
+    try:
+        runner.run_sharded(trk, st, bp.map_tree(lambda x: x.to("meta"), batch))
+    except ValueError:
+        refused = True
+    return dict(chained_equal=_equal_trees(a, b), sharded_equal=_equal_trees(a, c),
+                misplaced_refused=refused, frames=batch.ts.shape[0],
+                cost_finite=bool(torch.isfinite(a[2].cost).all()))
+
+
+def run_stack_states(device, W: int = 640, H: int = 480, max_cnt: int = 130,
+                     n_frames: int = 14):
+    """Phase 19 (b): two ``VinsPipeline``s warmed on two sequences of the
+    latency stream (seeds 7 and 8, static initialization) and
+    ``stack_states``: lane b holds pipeline b's tracker and estimator state
+    exactly; the batched runner then takes one more frame of each.  The
+    result keeps the pipelines (``pipes``)."""
+    rig, _, _, _ = slice_config(W, H, max_cnt)
+    seqs = [syn.make_trajectory(n_frames + 1, rig, seed=7 + b, omega_scale=0.15,
+                                acc_scale=0.3) for b in range(2)]
+    pipes, rendered = [], []
+    for s_ in seqs:
+        cfg = latency_config(rig, s_, max_cnt)
+        ts, imgs, deps = syn.render_sequence(s_, rig, device)
+        pipe = VinsPipeline(cfg, device, eager_outputs=False, failure_check_interval=10 ** 9)
+        for (t, a, g) in s_.imu:
+            pipe.push_imu(t, a, g)
+        for k in range(n_frames):
+            pipe.push_image(float(ts[k]), imgs[k])
+            pipe.push_depth(float(ts[k]), deps[k])
+            pipe.spin_once()
+        pipe.close()
+        pipes.append(pipe)
+        rendered.append((ts, imgs, deps))
+    trk, st = bp.stack_states(pipes)
+    lanes_equal = all(
+        _equal_trees(bp.map_tree(lambda x: x[b:b + 1], tree), own)
+        for b, p in enumerate(pipes)
+        for tree, own in ((trk, p.tracker_state), (st, p.estimator.state)))
+    runner = bp.BatchedVioRunner(pipes[0].tcfg, pipes[0].cam, pipes[0].estimator.cfg, device, 2)
+    batch = bp.stage_frames_arrays(pipes, [r[0] for r in rendered], [r[1] for r in rendered],
+                                   [r[2] for r in rendered], n_frames, n_frames + 1)
+    _, _, outs = runner.run(trk, st, batch)
+    P = outs.P[0].cpu().numpy()
+    err = [float(np.linalg.norm(P[b] - seqs[b].P[n_frames])) for b in range(2)]
+    return dict(initialized=[p.estimator.solver_flag == est.VinsEstimator.NON_LINEAR
+                             for p in pipes], lanes_equal=lanes_equal, next_frame_err_m=err,
+                pipes=pipes)
+
+
+def check_runner_api(api, stacked) -> None:
+    require(api["chained_equal"] and api["sharded_equal"], ("bit-equal to run", api))
+    require(api["misplaced_refused"] and api["cost_finite"], ("run_sharded checks", api))
+    require(all(stacked["initialized"]) and stacked["lanes_equal"], ("stack_states", stacked))
+    require(max(stacked["next_frame_err_m"]) < 0.08, ("the stacked lanes track", stacked))
 
 
 def encode_png_rows(img: np.ndarray, filt: int) -> bytes:
@@ -2698,14 +3032,14 @@ def main() -> int:
 
     done("13")
 
-    # 13b. the same stream with no depth over its first 12 frames: dynamic
-    # initialization fails, the monocular one runs
-    mono = run_rig_path(dev, cfg_o, rig_o, seq_o, n_frames=64, depthless=12)
+    # 13b. the same stream with its depth withheld until the estimator
+    # initializes: dynamic initialization cannot, the monocular one must
+    mono = run_rig_path(dev, cfg_o, rig_o, seq_o, n_frames=64, depthless=True)
     check_rig_path(mono, dynamic=True, rel_frac=0.15, rel_min=0.1, init_by=24)
-    require(any(name == "init_mono" for name, _ in mono["attempts"]), ("init_mono ran",
-                                                                       mono["attempts"]))
-    print(f"[13b monocular init] phase 13's stream, depth zeroed over frames 0-11: initialized "
-          f"at frame {mono['init_frame']} by {mono['attempts']}; relative motion "
+    require(mono["attempts"][-1] == ("init_mono", True), ("init_mono initialized",
+                                                          mono["attempts"]))
+    print(f"[13b monocular init] phase 13's stream, depth withheld until initialization: "
+          f"initialized at frame {mono['init_frame']} by {mono['attempts']}; relative motion "
           f"{mono['d_est']:.4f} m against {mono['d_gt']:.4f} m; aligned ATE "
           f"{mono['aligned_ate_m']:.4f} m; latency_ms_per_frame "
           f"{mono['latency_ms_per_frame']:.3f}", flush=True)
@@ -2760,6 +3094,18 @@ def main() -> int:
           f"points outside the mask (read on the device): {fish}", flush=True)
 
     done("14c")
+
+    # 14d. phase 16's Kannala-Brandt rig file through run_vio in a child
+    # process, on a bag of frames rendered through the fisheye's rays
+    kbe = run_camera_entry(dev)
+    check_camera_entry(kbe)
+    ent = kbe["entry"]
+    print(f"[14d KB run_vio] {kbe['camera']} rig 640x480, {kbe['frames']} frames in a "
+          f"{kbe['bag_mb']:.1f} MB rosbag: run_vio exit {ent['rc']} in {ent['wall_s']:.1f} s, "
+          f"{ent['n_outputs']} odometry outputs = {kbe['csv_rows']} CSV rows, ATE "
+          f"{kbe['run_vio_ate_m']:.4f} m (bound {kbe['bound']:.3f})", flush=True)
+
+    done("14d")
 
     # 15. batched VO: the TUM rig's knobs on BatchedVioRunner (its own launch
     # counts), and a profile of 3 more steady frames
@@ -2856,6 +3202,43 @@ def main() -> int:
 
     done("16d")
 
+    # 16e. phase 16c's Mei and Scaramuzza cameras on phase 16d's batched
+    # runner (each its own launch counts)
+    bcams = {}
+    for m in ("MEI", "SCARAMUZZA"):
+        r = run_main_path(dev, B, T_KB, timer=CudaTimer(), camera=m)
+        check_main_path(r, B, T_KB)
+        r["profile"] = None
+        bcams[m] = r
+        print(f"[16e batched {m}] B={B} 640x480 {r['camera']}, warm 11 + {T_KB} steady frames: "
+              f"{r['run_ms'] / T_KB:.2f} ms/step (phase 16d in this run: "
+              f"{kbb['run_ms'] / T_KB:.2f}); launches {r['counts']} over {r['frames']} frames; "
+              f"ATE m {[round(a, 4) for a in r['ates']]} (bounds "
+              f"{[round(b, 3) for b in r['bounds']]})", flush=True)
+    require(bcams["MEI"]["camera"] == "MeiCamera"
+            and bcams["SCARAMUZZA"]["camera"] == "ScaramuzzaCamera",
+            ("the batched cameras", [r["camera"] for r in bcams.values()]))
+
+    done("16e")
+
+    # 16f. the Scaramuzza rig with an affine stretch through the latency
+    # pipeline (its own launch counts), frames rendered through its lift
+    ocs = run_latency_path(dev, n_frames=28, profile=1, camera="SCARAMUZZA_AFFINE",
+                           path=os.path.join(OUT_DIR, "profile_ocam_affine.txt"))
+    check_latency_path(ocs)
+    cam_s = camera_config("SCARAMUZZA_AFFINE", VinsConfig(image_width=640,
+                                                          image_height=480)).camera()
+    require((cam_s.C, cam_s.D, cam_s.E) == OCAM_STRETCH, ("the stretch", cam_s))
+    ocs["lift_project_px"] = lift_project_px(cam_s, dev)
+    print(f"[16f OCAM stretch] {ocs['camera']} rig 640x480 with C, D, E = {OCAM_STRETCH}, "
+          f"warm 16 + {ocs['frames'] - 16} timed frames, fused: latency_ms_per_frame "
+          f"{ocs['latency_ms_per_frame']:.3f}, latency_ate_m {ocs['latency_ate_m']:.4f} (bound "
+          f"{ocs['bound']:.3f}); project(lift(uv)) - uv up to {ocs['lift_project_px']:.3f} px "
+          f"on the card (JAX's note: ~1 px, as in the reference); launches {ocs['counts']}; "
+          f"profile {ocs['profile']}", flush=True)
+
+    done("16f")
+
     # 17. phase 7's stream with bench.py's harsh degradations (its own launch
     # counts): the moving sphere, depth noise and holes, exposure drift, read
     # noise, a rolling-shutter shear
@@ -2872,6 +3255,41 @@ def main() -> int:
 
     done("17")
 
+    # 18. intrinsic calibration on the card: rendered boards, the four models,
+    # the CLI in a child
+    calr = run_calibration(dev)
+    check_calibration(calr)
+    print(f"[18 calibration] {calr['found']} of 8 rendered 6x8 boards found; pinhole rms "
+          f"{calr['pinhole']['rms_px']:.4f} px, fx {calr['pinhole']['fx']:.3f} (truth "
+          f"{calr['truth_fx']}, {100 * calr['pinhole']['fx_err']:.3f} %), detect + calibrate "
+          f"{calr['detect_s']:.1f} s; kannala-brandt {calr['kannala-brandt']}; mei "
+          f"{calr['mei']}; scaramuzza (stretched) {calr['scaramuzza']}; CLI exit "
+          f"{calr['cli']['rc']} in {calr['cli']['s']:.1f} s, fx {calr['cli']['fx']}", flush=True)
+
+    done("18")
+
+    # 19. the runner's chained and sharded API against run, stack_states, and
+    # the graft twins' dry runs (lanes of this card)
+    import __graft_entry_torch__ as graft
+
+    api = run_runner_api(dev, B=2, T=4)
+    stacked = run_stack_states(dev)
+    check_runner_api(api, stacked)
+    del stacked["pipes"]
+    t1 = time.perf_counter()
+    graft.dryrun_multichip(8)
+    dry_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    graft.dryrun_multichip_backend(8)
+    dryb_s = time.perf_counter() - t1
+    print(f"[19 runner API] run_chained and run_sharded bit-equal to run over "
+          f"{api['frames']} frames: {api['chained_equal']}, {api['sharded_equal']}; misplaced "
+          f"inputs refused: {api['misplaced_refused']}; stack_states of two warmed pipelines "
+          f"{stacked}; dryrun_multichip(8) {dry_s:.1f} s, dryrun_multichip_backend(8) "
+          f"{dryb_s:.1f} s", flush=True)
+
+    done("19")
+
     # the kernels line: per launch at the main path's shapes (K1 8x480x640,
     # K2 8x200 averaged over its two levels) and K3 at the latency path's
     # 1x200 (it never runs on the main path)
@@ -2879,7 +3297,8 @@ def main() -> int:
              "latency_vo": vo, "latency_td": td, "latency_dyn": dyn, "bag_replay": bagr,
              "tum_replay": tumr, "batched_vo": vob, "batched_vo_loop": bvl, "latency_kb": kb,
              "latency_mei": rigs["MEI"], "latency_scaramuzza": rigs["SCARAMUZZA"],
-             "batched_kb": kbb, "latency_harsh": harsh}
+             "batched_kb": kbb, "latency_harsh": harsh, "batched_mei": bcams["MEI"],
+             "batched_scaramuzza": bcams["SCARAMUZZA"], "latency_ocam_affine": ocs}
     counts = {k: sum(r["counts"][k] for r in paths.values()) for k in KERNELS}
     errs = {"fast_nms": k1_err, "lk_level": k2_err, "lk_iterate": k3_err}
     main_shape = {"fast_nms": f"{B}x480x640 rendered", "lk_level": f"{B}x{N} level",
@@ -2922,7 +3341,11 @@ def main() -> int:
             latency_scaramuzza=rigs["SCARAMUZZA"],
             batched_kb={k: kbb[k] for k in ("ates", "bounds", "counts", "run_ms", "wall_s",
                                             "frames")},
-            latency_harsh=harsh, phase_s=phase_s), f, indent=1,
+            latency_harsh=harsh, batched_cameras={
+                m: {k: r[k] for k in ("ates", "bounds", "counts", "run_ms", "frames")}
+                for m, r in bcams.items()}, latency_ocam_affine=ocs, kb_run_vio=kbe,
+            calibration=calr, runner_api=api, stack_states=stacked, phase_s=phase_s), f,
+                  indent=1,
                   default=float)
     print(f"[phases] wall seconds {phase_s}, {sum(phase_s.values()):.1f} in all", flush=True)
     print(smi)

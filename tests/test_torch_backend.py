@@ -25,6 +25,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 from tests.helpers import (make_imu_data, make_landmark_field, make_visual_data, perturb_state,
                            project_frame_features, simulate_long_trajectory,
@@ -201,6 +202,44 @@ def test_marginalize_old_and_new_match_jax():
     assert len(shared) == SB_DIM
     _rel(tn(tp2.J[0])[:, shared], np.asarray(jp2.J)[:, shared], 1e-2, "new J, shared columns")
     assert bool(tp2.valid[0])
+
+
+
+def test_schur_prior_is_finite_where_the_jittered_factor_fails():
+    """Two float32 sequences of a block-diagonal H (Hkd = 0, so the Schur
+    complement is Hkk): the first positive definite, the second with two
+    weak kept dimensions coupled so that their 2×2 block has an eigenvalue
+    of −1e-5 (−1e-9 of the largest diagonal entry, the order float32
+    rounding leaves on a VO window's gauge directions), below the
+    diagonal-relative jitter.  JAX's prior of the second is NaN; the port
+    factors it again with the stronger jitter and its prior is finite and
+    reproduces A + 1e-6·(d + max d) within 1e-6 relative.  The first
+    sequence's prior equals JAX's within 1e-6 relative."""
+    rng = np.random.default_rng(5)
+    nx = tmarg.NX
+    d = (10.0 ** rng.uniform(-2, 4, (2, nx))).astype(np.float32)
+    d[:, 0] = 1e4
+    H = np.stack([np.diag(r) for r in d])
+    i, j = tmarg._KEEP_OLD[40], tmarg._KEEP_OLD[41]
+    H[1, i, i] = H[1, j, j] = 1e-2
+    H[1, i, j] = H[1, j, i] = 1e-2 * (1 + 1e-3)
+    b = rng.normal(0, 1, (2, nx)).astype(np.float32)
+    drop, keep = tmarg._DROP_OLD, tmarg._KEEP_OLD
+    new_pos = tmarg._shifted_positions_old(keep)
+    A = H[1][np.ix_(keep, keep)].astype(np.float64)
+    assert np.linalg.eigvalsh(A).min() < -5e-6
+    assert not bool(torch.isfinite(tslv.cholesky_nan(tmarg._jitter(tt(A[None]).float()))).all())
+    J, r = tmarg._schur_sqrt_prior(tt(H), tt(b), drop, keep, new_pos)
+    assert bool(torch.isfinite(J).all()) and bool(torch.isfinite(r).all())
+    jJ = [np.asarray(jmarg._schur_sqrt_prior(jnp.asarray(H[s]), jnp.asarray(b[s]), np.array(drop),
+                                             np.array(keep), np.array(new_pos),
+                                             jnp.float32)[0]) for s in range(2)]
+    assert np.isfinite(jJ[0]).all() and not np.isfinite(jJ[1]).all()
+    _rel(tn(J[0]), jJ[0], 1e-6, "healthy J")
+    nk = len(keep)
+    Jk = tn(J[1])[:nk][:, new_pos].astype(np.float64)
+    dk = np.diagonal(A)
+    _rel(Jk.T @ Jk, A + np.diag(1e-6 * (dk + dk.max()) + 1e-20), 1e-6, "fallback JᵀJ")
 
 
 # ---------------------------------------------------------------------------

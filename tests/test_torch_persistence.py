@@ -156,9 +156,12 @@ def test_loaded_map_relocalizes_like_jax(tmp_path, use_6dof):
 
 @pytest.fixture(scope="module")
 def vo_run():
-    """Phase 11 on the CPU: the VO loop cell, the 6-DoF graph on the worker."""
+    """Phase 11 on the CPU: the VO loop cell, the 6-DoF graph on the worker,
+    in lockstep with the frame thread (deterministic).  The asynchronous
+    stager that the card runs is covered by
+    ``test_torch_pipeline.py::test_loop_pipeline_async_on_the_worker``."""
     res = chip_smoke.run_loop_path("cpu", FRAMES, W=W, H=H, max_cnt=MAX_CNT, max_kp=128,
-                                   vo=True)
+                                   vo=True, lockstep=True)
     return res
 
 

@@ -273,7 +273,7 @@ def test_unported_options_raise(stream):
     the map's save and load too (``tests/test_torch_vo.py``,
     ``tests/test_torch_persistence.py``).  The Mei camera now builds
     (``tests/test_torch_camera.py``), and the batched runner runs VO
-    (``tests/test_torch_vo.py::test_batched_runner_refuses_vo``)."""
+    (``tests/test_torch_vo.py::test_batched_runner_accepts_vo_and_refuses_dynamic_init``)."""
     tcfg = stream[4]
     for change, field in ((dict(equalize=True), "equalize"), (dict(fisheye=True), "fisheye"),
                           (dict(fisheye=True, fisheye_mask="mask.png"), "fisheye_mask_path")):
@@ -329,8 +329,9 @@ def test_stream_pairer_matches_jax():
 
 
 def test_port_imports_nothing_of_jax():
-    """The pipeline and chip_smoke import in a process where ``jax`` cannot
-    be imported, and load no module of the JAX package."""
+    """The pipeline, chip_smoke, the calibration package, the throughput
+    module and the graft twins import in a process where ``jax`` cannot be
+    imported, and load no module of the JAX package."""
     code = ("import sys; sys.modules['jax'] = None; "
             "import vins_rgbd_fast_torch.pipeline, chip_smoke; "
             "import vins_rgbd_fast_torch.loop.pose_graph, "
@@ -340,7 +341,10 @@ def test_port_imports_nothing_of_jax():
             "vins_rgbd_fast_torch.io.tum, vins_rgbd_fast_torch.io.images, "
             "vins_rgbd_fast_torch.io.writers, vins_rgbd_fast_torch.run_vio, "
             "vins_rgbd_fast_torch.models.camera, vins_rgbd_fast_torch.io.synthetic, "
-            "vins_rgbd_fast_torch.io.viz, vins_rgbd_fast_torch.parallel.batched_pipeline; "
+            "vins_rgbd_fast_torch.io.viz, vins_rgbd_fast_torch.parallel.batched_pipeline, "
+            "vins_rgbd_fast_torch.calib, vins_rgbd_fast_torch.calib.__main__, "
+            "vins_rgbd_fast_torch.calib.chessboard, vins_rgbd_fast_torch.calib.calibrate, "
+            "vins_rgbd_fast_torch.parallel.throughput, __graft_entry_torch__; "
             "bad = [m for m in sys.modules if m.startswith('vins_rgbd_fast_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)

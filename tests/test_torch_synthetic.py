@@ -54,7 +54,11 @@ def _render_poses_before(rig, P_w, q_wc):
             p_u = p_d - _radtan_distort(p_u, rig.k1, rig.k2, rig.p1, rig.p2)
         xn, yn = p_u[..., 0], p_u[..., 1]
     d_cam = torch.stack([xn, yn, torch.ones_like(xn)], dim=-1)
-    d_w = torch.einsum("nij,hwj->nhwi", tquat.q2R(q_wc), d_cam)
+    # the rotation in the renderer's fixed order (a batched einsum's
+    # arithmetic depends on the number of poses)
+    R = tquat.q2R(q_wc)[:, None, None]
+    d_w = (R[..., 0] * d_cam[..., 0:1] + R[..., 1] * d_cam[..., 1:2]
+           + R[..., 2] * d_cam[..., 2:3])
     N = P_w.shape[0]
     best_t = torch.full((N, Hh, Ww), 1e9, dtype=dt, device=dev)
     best_i = torch.full((N, Hh, Ww), 255.0, dtype=dt, device=dev)

@@ -152,7 +152,7 @@ def test_chip_smoke_rig_phases_rehearse(phase):
     else:
         rig, seq, cfg = chip_smoke.openloris_scene(40, 424, 240)
         mono = phase == "13b"
-        res = chip_smoke.run_rig_path("cpu", cfg, rig, seq, 40, depthless=12 if mono else 0)
+        res = chip_smoke.run_rig_path("cpu", cfg, rig, seq, 40, depthless=mono)
         chip_smoke.check_rig_path(res, dynamic=True, rel_frac=0.15 if mono else 0.1,
                                   rel_min=0.1 if mono else 0.08, init_by=24 if mono else 16,
                                   on_gpu=False)

@@ -440,10 +440,9 @@ def test_batched_closer_with_6dof_graphs_matches_jax(segments):  # noqa: F811
     assert len(jc.graphs[0].loops) >= 2
 
 
-def test_batched_runner_refuses_vo():
-    """What the batched runner refuses now that it runs VO
-    (``tests/test_torch_batched_vo.py``): only dynamic init, since it warms
-    by static init.  A VO config (``use_imu=False``) keeps the 12/6 LK
+def test_batched_runner_accepts_vo_and_refuses_dynamic_init():
+    """The batched runner accepts VO (``tests/test_torch_batched_vo.py``)
+    and refuses only dynamic init, since it warms by static init.  A VO config (``use_imu=False``) keeps the 12/6 LK
     envelope on K2 (engine "pallas3") and draws PnP uniforms per sequence;
     a VIO config draws none."""
     rig, tcfg, ecfg, cam = chip_smoke.vo_batched_config(160, 120, 32)

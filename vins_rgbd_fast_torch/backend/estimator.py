@@ -464,7 +464,10 @@ def _dlt_triangulate(pts, obs_mask, R_cw, t_cw, pose_known):
     depths = torch.einsum("bfa,bna->bnf", R_cw[..., 2, :], pw) + t_cw[:, None, :, 2]
     pos = torch.sum((depths > 0.05) & use, dim=-1)
     ok = (n_obs >= 2) & (pos >= torch.clamp(n_obs - 1, min=2))
-    return pw, n_obs, ok
+    # a row seen once is rank-deficient: its inverse may come out NaN or
+    # finite by the rounding of the LU, and a NaN point, even at weight 0,
+    # would poison the PnP and bundle-adjustment sums it is masked out of
+    return torch.where(ok[..., None], pw, torch.zeros_like(pw)), n_obs, ok
 
 
 def init_mono(cfg: EstimatorConfig, st: EstimatorState, u_f: torch.Tensor,

@@ -250,6 +250,11 @@ def ray_grid(rig: SyntheticRig, device, dtype=torch.float32) -> torch.Tensor:
     return torch.stack([xn, yn, torch.ones_like(xn)], dim=-1)
 
 
+def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The last axis's dot product, summed in a fixed order."""
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
 def render_rays(d_cam: torch.Tensor, P_w: torch.Tensor, q_wc: torch.Tensor,
                 dyn_center: Optional[torch.Tensor] = None, dyn_radius: float = 0.0):
     """Render N camera poses through the (H, W, 3) ray grid ``d_cam``: P_w
@@ -258,7 +263,11 @@ def render_rays(d_cam: torch.Tensor, P_w: torch.Tensor, q_wc: torch.Tensor,
     ``dyn_radius`` > 0 a textured sphere at those centres occludes the room."""
     H, W = d_cam.shape[:2]
     dev, dt = P_w.device, P_w.dtype
-    d_w = torch.einsum("nij,hwj->nhwi", quat.q2R(q_wc), d_cam)  # (N, H, W, 3)
+    # R d as a broadcast multiply-add over j in a fixed order: a batched
+    # einsum's arithmetic depends on N, and each pose's frame must not
+    R = quat.q2R(q_wc)[:, None, None]  # (N, 1, 1, 3, 3)
+    d_w = (R[..., 0] * d_cam[..., 0:1] + R[..., 1] * d_cam[..., 1:2]
+           + R[..., 2] * d_cam[..., 2:3])  # (N, H, W, 3)
     N = P_w.shape[0]
     best_t = torch.full((N, H, W), 1e9, dtype=dt, device=dev)
     best_i = torch.full((N, H, W), 255.0, dtype=dt, device=dev)
@@ -277,9 +286,9 @@ def render_rays(d_cam: torch.Tensor, P_w: torch.Tensor, q_wc: torch.Tensor,
     if dyn_center is not None and dyn_radius > 0:
         # ray-sphere intersection in the unnormalised ray parameter
         oc = (P_w - dyn_center)[:, None, None, :]
-        a = torch.sum(d_w * d_w, dim=-1)
-        bq = 2.0 * torch.sum(d_w * oc, dim=-1)
-        cq = torch.sum(oc * oc, dim=-1) - dyn_radius * dyn_radius
+        a = _dot3(d_w, d_w)
+        bq = 2.0 * _dot3(d_w, oc)
+        cq = _dot3(oc, oc) - dyn_radius * dyn_radius
         disc = bq * bq - 4.0 * a * cq
         t_s = (-bq - torch.sqrt(torch.clamp(disc, min=0.0))) / (2.0 * a)
         hit_s = P_w[:, None, None, :] + t_s[..., None] * d_w

@@ -8,7 +8,8 @@ each selector row has a single 1).  The placement of the new prior at its
 post-slide positions stays a one-hot product, as in JAX: marginalize-new
 maps the speed-biases of slots W-1 and W to one position, and the product
 adds their columns (an indexed store would keep one of them, on CUDA an
-unspecified one per element).  Failed Cholesky factors become NaN.
+unspecified one per element).  A jittered Cholesky factor that fails is
+taken again with a stronger jitter (``_jittered_cholesky``).
 """
 
 from __future__ import annotations
@@ -82,6 +83,23 @@ def _jitter(Mx):
     return Mx + torch.diag_embed(add)
 
 
+def _jittered_cholesky(M):
+    """``cholesky_nan(_jitter(M))``, and where that fails, the factor of M
+    with 1e-6 of its largest diagonal entry added to every diagonal entry
+    as well.  In float32 the information matrix's rounding can leave
+    eigenvalues near −1e-8 of its largest (a VO window's gauge directions
+    once the oldest pose leaves), below the relative jitter, and the
+    factor, the prior and every later cost of that sequence came out NaN
+    (JAX factors the same jittered matrix).  Both factors are computed and
+    one is selected per sequence, so the host never waits."""
+    L = cholesky_nan(_jitter(M))
+    d = torch.diagonal(M, dim1=-2, dim2=-1)
+    strong = cholesky_nan(M + torch.diag_embed(1e-6 * (d + d.amax(dim=-1, keepdim=True))
+                                               + 1e-20))
+    ok = torch.isfinite(L).flatten(1).all(dim=1)
+    return torch.where(ok[:, None, None], L, strong)
+
+
 def _schur_sqrt_prior(H, b, drop, keep, new_pos):
     """Eliminate the ``drop`` dims of (H, b) by Cholesky; return (J', r')
     embedded at the post-slide positions of the NX layout."""
@@ -95,12 +113,12 @@ def _schur_sqrt_prior(H, b, drop, keep, new_pos):
     bd = b[:, d_idx]
     bk = b[:, k_idx]
     Hdd = 0.5 * (Hdd + Hdd.transpose(1, 2))
-    Ld = cholesky_nan(_jitter(Hdd))
+    Ld = _jittered_cholesky(Hdd)
     X = cho_solve(Ld, Hkd.transpose(1, 2))  # Hdd⁻¹ Hdk
     A = Hkk - Hkd @ X
     g = bk - (X.transpose(1, 2) @ bd[..., None])[..., 0]
     A = 0.5 * (A + A.transpose(1, 2))
-    Lk = cholesky_nan(_jitter(A))
+    Lk = _jittered_cholesky(A)
     rp = torch.linalg.solve_triangular(Lk, g[..., None], upper=False)[..., 0]
     B = H.shape[0]
     J_new = torch.zeros((B, NX, NX), dtype=H.dtype, device=dev)

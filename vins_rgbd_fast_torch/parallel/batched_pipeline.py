@@ -10,6 +10,14 @@ host synchronisation per frame; outputs stay on the device and are
 stacked at the end.  Loop closure rides on the outputs between segments
 (``parallel/loop_closer.BatchedLoopCloser``, ``ThreadedLoopCloser``).
 
+The JAX runner's multi-device API keeps its names on one card:
+``run_chained`` is ``run`` (both dispatch frame by frame), ``shard_spec``,
+``put_batch`` and ``put_states`` place on the runner's device, and
+``run_sharded`` is ``run`` after checking that placement.  ``stack_states``
+turns per-sequence ``VinsPipeline``s (warmed by their own initialization
+programs) into the runner's batched states; ``stage_frames_arrays`` stages
+pre-rendered device stacks with each lane's IMU intervals.
+
 Without an IMU (VO, the TUM RGB-D rig: ``EstimatorConfig.use_imu`` and
 ``TrackerConfig.use_imu_prediction`` off) the staged intervals are empty,
 the tracker runs cold LK on ``pyr_levels_cold`` levels (K2 per level) and
@@ -21,7 +29,7 @@ uniforms, in every step (JAX draws both from one key per sequence and step).
 from __future__ import annotations
 
 import dataclasses
-from typing import List, NamedTuple, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -152,6 +160,8 @@ class BatchedVioRunner:
         self.cam = cam
         self.ecfg = ecfg
         self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.B = B
         self.generators = self._generators(seed)
         self.pnp_generators = None if ecfg.use_imu else self._generators(seed + self.PNP_SEED)
@@ -213,3 +223,100 @@ class BatchedVioRunner:
                                     wp_norm=sout.wp_norm, wp_valid=sout.wp_valid,
                                     wp_ids=sout.wp_ids))
         return trk, st, ScanOutputs(*[torch.stack(f) for f in zip(*outs)])
+
+    def run_chained(self, trk, st, batch: FrameBatch):
+        """JAX's host-dispatched twin of its scanned ``run``: here ``run``
+        itself dispatches frame by frame, so this is ``run``."""
+        return self.run(trk, st, batch)
+
+    # -- placement: one card is the whole "mesh" -------------------------
+    def shard_spec(self, ndim_batch_axis: int = 0) -> torch.device:
+        """Where a tensor with its batch axis at ``ndim_batch_axis`` lives:
+        the runner's device, whatever the axis."""
+        return self.device
+
+    def put_batch(self, tree):
+        """A (T, B, ...) tree (a ``FrameBatch``) on the runner's device."""
+        return map_tree(lambda a: a.to(self.device), tree)
+
+    def put_states(self, tree):
+        """A (B, ...) tree (tracker or estimator states) on the runner's
+        device."""
+        return map_tree(lambda a: a.to(self.device), tree)
+
+    def run_sharded(self, trk, st, batch: FrameBatch):
+        """``run`` after JAX's placement checks: every input on the
+        runner's device (``put_states``/``put_batch``) and B sequences
+        (``batch.ts`` (T, B)); on one card the sequences need no split."""
+        if batch.ts.shape[1] != self.B:
+            raise ValueError(f"run_sharded: the batch holds {batch.ts.shape[1]} sequences, "
+                             f"the runner {self.B}")
+        for name, tree in (("tracker states", trk), ("estimator states", st), ("batch", batch)):
+            devs = {a.device for a in leaves(tree)}
+            if devs != {self.device}:
+                raise ValueError(f"run_sharded: the {name} lie on {sorted(map(str, devs))}, "
+                                 f"not on {self.device} (put_states/put_batch)")
+        return self.run(trk, st, batch)
+
+
+def leaves(tree) -> list:
+    """The tensors of a NamedTuple tree, in field order (None skipped)."""
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def map_tree(fn, tree):
+    """``fn`` over every tensor of a NamedTuple tree (None kept)."""
+    if isinstance(tree, tuple):
+        return type(tree)(*[map_tree(fn, v) for v in tree]) if hasattr(tree, "_fields") \
+            else tuple(map_tree(fn, v) for v in tree)
+    return None if tree is None else fn(tree)
+
+
+def _cat_trees(trees):
+    first = trees[0]
+    if isinstance(first, tuple):
+        parts = [_cat_trees([t[i] for t in trees]) for i in range(len(first))]
+        return type(first)(*parts) if hasattr(first, "_fields") else tuple(parts)
+    return None if first is None else torch.cat(list(trees))
+
+
+def stack_states(pipes) -> Tuple[ft.TrackerState, est.EstimatorState]:
+    """Per-sequence ``VinsPipeline``s (each B = 1, after any initialization
+    program) -> the runner's batched (tracker states, estimator states),
+    sequence b from ``pipes[b]``: lanes warmed by the latency pipeline
+    continue on ``BatchedVioRunner``."""
+    return (_cat_trees([p.tracker_state for p in pipes]),
+            _cat_trees([p.estimator.state for p in pipes]))
+
+
+def stage_frames_arrays(pipes, seq_ts, seq_imgs, seq_depths, t_start: int, t_end: int,
+                        dtype=torch.float32) -> FrameBatch:
+    """A ``FrameBatch`` of frames [t_start, t_end) from per-sequence
+    pre-rendered device stacks (``seq_imgs[b]``/``seq_depths[b]`` (N, H, W),
+    ``seq_ts[b]`` (N,)): one stack per field on the images' device, and the
+    IMU intervals paired by each lane's ``estimator._collect_interval_np``
+    (frame 0's interval is (t0 − 1 ms, t0], as ``stage_frames`` pairs it),
+    uploaded once."""
+    B = len(pipes)
+    T = t_end - t_start
+    device = seq_imgs[0].device
+    maxi = pipes[0].estimator.cfg.max_imu
+    dts = np.zeros((T, B, maxi))
+    acc = np.zeros((T, B, maxi + 1, 3))
+    gyr = np.zeros((T, B, maxi + 1, 3))
+    for b in range(B):
+        for i, k in enumerate(range(t_start, t_end)):
+            t_prev = float(seq_ts[b][k - 1]) if k > 0 else float(seq_ts[b][0]) - 1e-3
+            dts[i, b], acc[i, b], gyr[i, b] = pipes[b].estimator._collect_interval_np(
+                t_prev, float(seq_ts[b][k]))
+    ts = np.stack([np.asarray(seq_ts[b][t_start:t_end]) for b in range(B)], axis=1)
+
+    def put(a):
+        return torch.as_tensor(a, dtype=dtype).to(device)
+
+    return FrameBatch(
+        imgs=torch.stack([im[t_start:t_end] for im in seq_imgs], dim=1).to(dtype),
+        depths=torch.stack([d[t_start:t_end] for d in seq_depths], dim=1).to(dtype),
+        ts=put(ts), imu_dts=put(dts), imu_acc=put(acc), imu_gyr=put(gyr))

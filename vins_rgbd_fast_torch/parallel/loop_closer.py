@@ -865,6 +865,11 @@ class AsyncLoopStager:
         # the event is recorded on the frame thread's stream, after these frames
         self._worker.put(functools.partial(self._process, stacked, toks, self._worker.record()))
 
+    @property
+    def pending(self) -> int:
+        """Frames recorded and not yet handed over to the worker."""
+        return len(self._buf)
+
     def drain(self):
         """Hand over the buffered frames and wait until the worker is idle;
         raises the worker's exception if one occurred."""
