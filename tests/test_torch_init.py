@@ -350,3 +350,20 @@ def test_estimator_init_matches_jax_e2e(depth):
     d_est = np.linalg.norm(o1["P"] - o0["P"])
     d_gt = np.linalg.norm(traj["P"][k1] - traj["P"][k0])
     assert abs(d_est - d_gt) < (max(0.1 * d_gt, 0.08) if depth else max(0.15 * d_gt, 0.1))
+
+
+def test_init_draws_are_made_on_the_host():
+    """The initialization's and the extrinsic calibration's uniforms come
+    from a host generator (seed 3) in the estimator's dtype and are then
+    uploaded, so a card draws what the CPU draws, as JAX's keys give every
+    backend the same draws: the estimator's draws equal ``torch.rand`` on
+    a CPU generator seeded 3, in order."""
+    e = tes.VinsEstimator(tconfig.VinsConfig(static_init=False), "cpu")
+    assert e.init_generator.device.type == "cpu"
+    g = torch.Generator()
+    g.manual_seed(3)
+    M = e.cfg.maxf
+    for got, sh in zip(e.draw_init_uniforms(0), ((tes.FRAMES - 1, 8, M), (64, M),
+                                                  (3, tes.FRAMES, 8, M))):
+        assert got.dtype == torch.float32 and torch.equal(got, torch.rand((1,) + sh, generator=g))
+    assert torch.equal(e.draw_ex_uniforms(1, 20), torch.rand((1, 64, 20), generator=g))

@@ -264,8 +264,9 @@ def test_load_config_matches_jax(tmp_path):
 
 
 def test_unported_options_raise(stream):
-    """What the port still refuses: dynamic initialization on the batched
-    runner.  CLAHE and the fisheye mask build into the latency pipeline's
+    """What the port still refuses: dynamic initialization in the batched
+    runner's own ``warm`` (its lanes warm through ``VinsPipeline`` and
+    ``stack_states``; ``tests/test_torch_batched_rigs.py``).  CLAHE and the fisheye mask build into the latency pipeline's
     tracker (``tests/test_torch_clahe.py`` runs them).  Dynamic init, td and
     extrinsic estimation run on the latency pipeline
     (``tests/test_torch_init.py``, ``tests/test_torch_td_ex.py``,
@@ -289,8 +290,10 @@ def test_unported_options_raise(stream):
     runner = tbp.BatchedVioRunner(dataclasses.replace(btcfg, equalize=True), bcam, becfg,
                                   "cpu", 1)
     assert runner.tcfg.equalize  # the batched tracker equalizes too
+    dyn = tbp.BatchedVioRunner(btcfg, bcam, dataclasses.replace(becfg, static_init=False),
+                               "cpu", 1)
     with pytest.raises(NotImplementedError, match="static"):
-        tbp.BatchedVioRunner(btcfg, bcam, dataclasses.replace(becfg, static_init=False), "cpu", 1)
+        dyn.warm(None, None, None)
     pipe = TPipeline(dataclasses.replace(tcfg, imu=False, loop_closure=True,
                                          fast_relocalization=True), "cpu")
     assert pipe.pose_graph.cfg.use_6dof and not pipe.estimator.cfg.use_imu

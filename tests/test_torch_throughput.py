@@ -101,16 +101,36 @@ def test_stack_states_matches_jax_on_bridged_pipelines():
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
-def test_stage_frames_arrays_pairs_each_lane_imu():
+@pytest.mark.parametrize("tds", [(0.0, 0.0), (0.004, -0.012)], ids=["td0", "td-per-lane"])
+def test_stage_frames_arrays_pairs_each_lane_imu(tds):
     """``stage_frames_arrays`` against ``stage_frames`` on the same frames
-    and the same IMU streams: equal batches."""
+    and the same IMU streams: equal batches.  With a host td per lane
+    (``estimator._td_cache``) lane b pairs (t[k-1] + td_b, t[k] + td_b],
+    which ``stage_frames`` pairs from the lane's stream shifted by -td_b;
+    the durations, differences of shifted stamps, within 1e-12 s
+    (float64)."""
     rig, tcfg, ecfg, cam = chip_smoke.slice_config(160, 120, 32)
-    _, rendered, bufs = chip_smoke.make_sequences(rig, 2, 14, "cpu")
-    _, _, bufs2 = chip_smoke.make_sequences(rig, 2, 14, "cpu")  # pairing consumes samples
+    seqs, rendered, _ = chip_smoke.make_sequences(rig, 2, 14, "cpu")
+
+    def buffers(shift):  # pairing consumes samples: one set per staging
+        bufs = [tes.ImuIntervalBuffer(32) for _ in seqs]
+        for buf, s, td in zip(bufs, seqs, tds):
+            for (t, a, g) in s.imu:
+                buf.push(t - shift * td, a, g)
+        return bufs
+
     pipes = [types.SimpleNamespace(estimator=types.SimpleNamespace(
-        cfg=ecfg, _collect_interval_np=buf.collect)) for buf in bufs2]
+        cfg=ecfg, _collect_interval_np=buf.collect, _td_cache=td))
+        for buf, td in zip(buffers(0), tds)]
     ts, imgs, deps = ([r[i] for r in rendered] for i in range(3))
-    a = tbp.stage_frames_arrays(pipes, ts, imgs, deps, 3, 9)
-    b = tbp.stage_frames(imgs, deps, ts, bufs, 3, 9, "cpu")
+    dtype = torch.float64 if any(tds) else torch.float32
+    a = tbp.stage_frames_arrays(pipes, ts, imgs, deps, 3, 9, dtype=dtype)
+    b = tbp.stage_frames(imgs, deps, ts, buffers(1), 3, 9, "cpu", dtype=dtype)
     for x, y in zip(a, b):
-        assert torch.equal(x, y)
+        if any(tds):
+            torch.testing.assert_close(x, y, rtol=0, atol=1e-12)
+        else:
+            assert torch.equal(x, y)
+    if any(tds):
+        assert not torch.equal(a.imu_dts[:, 0], tbp.stage_frames(
+            imgs, deps, ts, buffers(0), 3, 9, "cpu", dtype=dtype).imu_dts[:, 0])

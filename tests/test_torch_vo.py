@@ -442,9 +442,10 @@ def test_batched_closer_with_6dof_graphs_matches_jax(segments):  # noqa: F811
 
 def test_batched_runner_accepts_vo_and_refuses_dynamic_init():
     """The batched runner accepts VO (``tests/test_torch_batched_vo.py``)
-    and refuses only dynamic init, since it warms by static init.  A VO config (``use_imu=False``) keeps the 12/6 LK
-    envelope on K2 (engine "pallas3") and draws PnP uniforms per sequence;
-    a VIO config draws none."""
+    and any initialization; only its own ``warm`` refuses dynamic init,
+    since it warms by static init.  A VO config (``use_imu=False``) keeps
+    the 12/6 LK envelope on K2 (engine "pallas3") and draws PnP uniforms
+    per sequence; a VIO config draws none."""
     rig, tcfg, ecfg, cam = chip_smoke.vo_batched_config(160, 120, 32)
     r = tbp.BatchedVioRunner(tcfg, cam, ecfg, "cpu", 3)
     assert (r.tcfg.lk_engine, r.tcfg.lk_max_iters, r.tcfg.lk_coarse_iters) == ("pallas3", 12, 6)
@@ -452,8 +453,11 @@ def test_batched_runner_accepts_vo_and_refuses_dynamic_init():
     assert len(r.pnp_generators) == 3 and tuple(r.pnp_uniforms().shape) == (3, 32, ecfg.maxf)
     _, vtcfg, vecfg, _ = chip_smoke.slice_config(160, 120, 32)
     assert tbp.BatchedVioRunner(vtcfg, cam, vecfg, "cpu", 1).pnp_uniforms() is None
+    dyn = tbp.BatchedVioRunner(vtcfg, cam, dataclasses.replace(vecfg, static_init=False),
+                               "cpu", 1)
+    assert not dyn.ecfg.static_init and dyn.pnp_uniforms() is None
     with pytest.raises(NotImplementedError, match="static initialization"):
-        tbp.BatchedVioRunner(tcfg, cam, dataclasses.replace(ecfg, static_init=False), "cpu", 1)
+        dyn.warm(None, None, None)
 
 
 # ---------------------------------------------------------------------------

@@ -672,7 +672,9 @@ class VinsEstimator:
     IMU intervals (on CUDA through a pinned copy started after the step
     before).
 
-    Random draws come from the estimator's own ``torch.Generator``s or
+    Random draws come from the estimator's own ``torch.Generator``s (the
+    VO pose init's on the device, the initialization's and the
+    calibration's on the host, uploaded: the same on every device) or
     from injected callables (tests inject JAX's ``PRNGKey(1)`` draws;
     ``step`` counts every processed frame, as JAX's key index does):
     ``pnp_uniforms(step)`` the VO pose init's (32, MAXF);
@@ -700,7 +702,10 @@ class VinsEstimator:
         self._ex_uniforms = ex_uniforms
         self.pnp_generator = torch.Generator(device=self.device)
         self.pnp_generator.manual_seed(1)
-        self.init_generator = torch.Generator(device=self.device)
+        # the initialization's and the calibration's draws are made on the host
+        # and uploaded, the same on every device as JAX's keys are: a card
+        # then takes the CPU's initialization decisions on the same stream
+        self.init_generator = torch.Generator()
         self.init_generator.manual_seed(3)
         self.dtype = dtype
         self.eager_outputs = eager_outputs
@@ -787,16 +792,16 @@ class VinsEstimator:
         if self._init_uniforms is not None:
             return tuple(torch.tensor(np.asarray(a), dtype=self.dtype).reshape(sh)[None]
                          .to(self.device) for a, sh in zip(self._init_uniforms(step), shapes))
-        return tuple(torch.rand((1,) + sh, generator=self.init_generator, device=self.device,
-                                dtype=self.dtype) for sh in shapes)
+        return tuple(torch.rand((1,) + sh, generator=self.init_generator, dtype=self.dtype)
+                     .to(self.device) for sh in shapes)
 
     def draw_ex_uniforms(self, step: int, n: int) -> torch.Tensor:
         """(1, 64, n) uniforms of the hand-eye F-RANSAC over n matches."""
         if self._ex_uniforms is not None:
             u = torch.tensor(np.asarray(self._ex_uniforms(step, n)), dtype=self.dtype)
             return u.reshape(64, n)[None].to(self.device)
-        return torch.rand((1, 64, n), generator=self.init_generator, device=self.device,
-                          dtype=self.dtype)
+        return torch.rand((1, 64, n), generator=self.init_generator,
+                          dtype=self.dtype).to(self.device)
 
     def _upload_interval(self, dts, acc, gyr) -> ImuInterval:
         def put(a):

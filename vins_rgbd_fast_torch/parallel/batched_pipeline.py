@@ -3,12 +3,16 @@ tracker → depth lookup → backend step) over B sequences in lock step
 (twin of ``gyro_relative_R``, ``fused_frame_step`` and ``BatchedVioRunner``
 in ``vins_rgbd_fast_tpu/parallel/batched_pipeline.py``).
 
-Unlike the JAX runner, which is handed a state warmed by the host
-pipeline, this runner warms itself (``warm``: 11 window-filling frames and
-the static initialization).  ``run`` processes T staged frames with no
-host synchronisation per frame; outputs stay on the device and are
-stacked at the end.  Loop closure rides on the outputs between segments
-(``parallel/loop_closer.BatchedLoopCloser``, ``ThreadedLoopCloser``).
+Like the JAX runner, it takes states warmed by the host pipeline under
+any initialization program: warm one ``VinsPipeline`` per sequence until
+NON_LINEAR (static init, dynamic init with its monocular fallback, td and
+the extrinsic free or not), ``stack_states``, ``stage_frames_arrays``,
+``run``.  It can also warm itself (``warm``: 11 window-filling frames and
+the static initialization; static init only).  ``run`` processes T staged
+frames with no host synchronisation per frame; outputs stay on the device
+and are stacked at the end.  Loop closure rides on the outputs between
+segments (``parallel/loop_closer.BatchedLoopCloser``,
+``ThreadedLoopCloser``).
 
 The JAX runner's multi-device API keeps its names on one card:
 ``run_chained`` is ``run`` (both dispatch frame by frame), ``shard_spec``,
@@ -139,8 +143,10 @@ def stage_frames(imgs: Sequence[torch.Tensor], depths: Sequence[torch.Tensor],
 class BatchedVioRunner:
     """Batched multi-sequence VIO (or VO) on one device.
 
-    ``warm`` runs the window-filling frames and the static initialization
-    in lock step; ``run`` then processes T steady frames.  RANSAC draws
+    Any ``EstimatorConfig`` (one for all sequences): lanes warmed by
+    ``VinsPipeline`` and stacked (``stack_states``), or, with static init,
+    by ``warm``, which runs the window-filling frames and the static
+    initialization in lock step; ``run`` then processes T steady frames.  RANSAC draws
     come from one ``torch.Generator`` per sequence, seeded ``seed + b``;
     in VO mode the PnP draws from another, seeded ``seed + PNP_SEED + b``."""
 
@@ -148,9 +154,6 @@ class BatchedVioRunner:
 
     def __init__(self, tcfg: TrackerConfig, cam: CameraModel, ecfg: EstimatorConfig,
                  device, B: int, seed: int = 17):
-        if not ecfg.static_init:
-            raise NotImplementedError("the batched runner warms by static initialization; "
-                                      "dynamic init runs on the latency pipeline")
         # the batched envelope: LK capped at 12 fine / 6 coarse iterations;
         # "auto" is the whole-level kernel K2, as JAX picks on TPU
         eng = "pallas3" if tcfg.lk_engine == "auto" else tcfg.lk_engine
@@ -193,7 +196,13 @@ class BatchedVioRunner:
     def warm(self, trk, st, batch: FrameBatch):
         """Frames 0..WINDOW_SIZE of ``batch`` fill the window (tracker,
         depth lookup, ``fill_step``), then the static initialization runs;
-        returns (trk, st, StepOutput)."""
+        returns (trk, st, StepOutput).  Static initialization only: a rig
+        with ``static_init`` 0 warms its lanes through ``VinsPipeline``."""
+        if self.ecfg.use_imu and not self.ecfg.static_init:
+            raise NotImplementedError(
+                "BatchedVioRunner.warm runs the static initialization only; for static_init 0 "
+                "warm one VinsPipeline per sequence until NON_LINEAR (init_dynamic or "
+                "init_mono), then stack_states(pipes), stage_frames_arrays(pipes, ...) and run")
         if batch.ts.shape[0] != WINDOW_SIZE + 1:
             raise ValueError(f"warm needs {WINDOW_SIZE + 1} frames")
         for k in range(WINDOW_SIZE + 1):
@@ -297,8 +306,9 @@ def stage_frames_arrays(pipes, seq_ts, seq_imgs, seq_depths, t_start: int, t_end
     pre-rendered device stacks (``seq_imgs[b]``/``seq_depths[b]`` (N, H, W),
     ``seq_ts[b]`` (N,)): one stack per field on the images' device, and the
     IMU intervals paired by each lane's ``estimator._collect_interval_np``
-    (frame 0's interval is (t0 − 1 ms, t0], as ``stage_frames`` pairs it),
-    uploaded once."""
+    at that lane's host td (``estimator._td_cache``: frame k's interval is
+    (t[k-1] + td, t[k] + td], where the lane's pipeline left off; frame 0's
+    starts 1 ms before, as ``stage_frames`` pairs it), uploaded once."""
     B = len(pipes)
     T = t_end - t_start
     device = seq_imgs[0].device
@@ -307,10 +317,11 @@ def stage_frames_arrays(pipes, seq_ts, seq_imgs, seq_depths, t_start: int, t_end
     acc = np.zeros((T, B, maxi + 1, 3))
     gyr = np.zeros((T, B, maxi + 1, 3))
     for b in range(B):
+        td = pipes[b].estimator._td_cache
         for i, k in enumerate(range(t_start, t_end)):
             t_prev = float(seq_ts[b][k - 1]) if k > 0 else float(seq_ts[b][0]) - 1e-3
             dts[i, b], acc[i, b], gyr[i, b] = pipes[b].estimator._collect_interval_np(
-                t_prev, float(seq_ts[b][k]))
+                t_prev + td, float(seq_ts[b][k]) + td)
     ts = np.stack([np.asarray(seq_ts[b][t_start:t_end]) for b in range(B)], axis=1)
 
     def put(a):
