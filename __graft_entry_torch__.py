@@ -1,9 +1,10 @@
 """Entry points of the PyTorch/CUDA port (twins of
 ``__graft_entry__.py``'s): one backend step to compile and run, and the
-multi-lane dry runs.  They run on CUDA unless the caller passes
-``device="cpu"``.  The port runs a batch on one card, so where JAX's dry
-runs spread their lanes over chips, here the "chips" are lanes of one
-device."""
+multi-device dry runs, one lane per device of a mesh.  They run on CUDA
+unless the caller passes ``device="cpu"``: on CUDA the mesh is the first n
+cards (``make_mesh(n)``, which raises when fewer are present), on the CPU n
+entries of the CPU, the twin of JAX's virtual host devices.  A caller may
+pass the mesh itself, for example one card listed n times."""
 
 import numpy as np
 import torch
@@ -67,23 +68,47 @@ def entry(device="cuda"):
     return fn, args
 
 
-def dryrun_multichip(n_devices: int, device="cuda") -> None:
+def _dryrun_mesh(n_devices: int, device, mesh):
+    """The dry runs' mesh: ``mesh`` as given (n entries), else
+    ``make_mesh(n_devices, device)``."""
+    from vins_rgbd_fast_torch.parallel import throughput as tp
+
+    mesh = list(mesh) if mesh is not None else tp.make_mesh(n_devices, device=device)
+    if len(mesh) != n_devices:
+        raise ValueError(f"a dry run over {n_devices} devices, given a mesh of {len(mesh)}")
+    return mesh
+
+
+def _check_on_mesh(outs, mesh) -> None:
+    """The outputs live on every device of the mesh: shard i's on
+    ``mesh[i]`` (JAX's test: the output's sharding spans the n devices)."""
+    from vins_rgbd_fast_torch.parallel import batched_pipeline as bp
+
+    assert len(outs.parts) == len(mesh), (len(outs.parts), mesh)
+    for d, part in zip(bp.mesh_of(mesh), outs.parts):
+        assert {a.device for a in bp.leaves(part)} == {d}, (d, part)
+
+
+def dryrun_multichip(n_devices: int, device="cuda", mesh=None) -> None:
     """The full fused ``BatchedVioRunner`` (gyro prediction → LK tracker →
     depth → sliding-window LM) at production shapes, 640×480 frames, the
-    bench's feature capacity and 32-sample IMU intervals, over
-    ``n_devices`` lanes: on this card the "chips" are lanes of one device.
+    bench's feature capacity and 32-sample IMU intervals, one lane on each
+    of the ``n_devices`` devices of the mesh, through ``run_sharded``.
     All lanes share a warm prefix (ONE latency pipeline is warmed to
-    NON_LINEAR and its state stacked into every lane, ``stack_states``);
-    then each lane's trajectory diverges (``make_trajectory(diverge_seed=
-    lane)``), staged with ``stage_frames_arrays`` and run through
-    ``run_sharded``.  Asserts that every lane tracks its own ground truth,
-    that the lanes diverge, and that the costs are finite and > 0."""
+    NON_LINEAR on the mesh's first device and its state stacked into every
+    lane, ``stack_states``, then placed by ``put_states``); then each lane's
+    trajectory diverges (``make_trajectory(diverge_seed=lane)``), rendered
+    on its lane's device and staged there with ``stage_frames_arrays``.
+    Asserts that the outputs live on every device of the mesh, that every
+    lane tracks its own ground truth, that the lanes diverge, and that the
+    costs are finite and > 0."""
     from vins_rgbd_fast_torch.config import VinsConfig
     from vins_rgbd_fast_torch.io import synthetic as syn
     from vins_rgbd_fast_torch.io.stream import ate_rmse
     from vins_rgbd_fast_torch.parallel import batched_pipeline as bp
     from vins_rgbd_fast_torch.pipeline import VinsPipeline
 
+    mesh = _dryrun_mesh(n_devices, device, mesh)
     Wd, Hd = 640, 480
     n_warm, n_scan = 14, 12
     n_frames = n_warm + n_scan
@@ -99,11 +124,11 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
         max_cnt=130, min_dist=30, num_grid_rows=7, num_grid_cols=8,
         frontend_freq=0.0, freq=0.0, fix_depth=True, depth_max_dist=12.0,
         acc_n=0.1, gyr_n=0.01, acc_w=1e-4, gyr_w=1e-5, max_imu_per_frame=32)
-    rendered = [syn.render_sequence(s, rig, device) for s in seqs]
+    rendered = [syn.render_sequence(s, rig, mesh[b]) for b, s in enumerate(seqs)]
 
     # warm ONE pipeline on the shared prefix; the lanes share its state
     t_cut = float(seqs[0].times[n_warm - 1]) + 1e-9
-    pipe = VinsPipeline(cfg, device, eager_outputs=False, failure_check_interval=10 ** 9)
+    pipe = VinsPipeline(cfg, mesh[0], eager_outputs=False, failure_check_interval=10 ** 9)
     for (t, a, w) in seqs[0].imu:
         if t <= t_cut:
             pipe.push_imu(t, a, w)
@@ -117,24 +142,26 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
         "warmup did not reach steady state"
     trk, st = bp.stack_states([pipe] * B)
 
-    # per-lane IMU pairing (each lane's own stream) and its rendered frames
+    # per-lane IMU pairing (each lane's own stream); each lane's frames staged
+    # on its own device, one shard per lane
     lane_pipes = []
     for b in range(B):
-        p = VinsPipeline(cfg, device, eager_outputs=False, failure_check_interval=10 ** 9)
+        p = VinsPipeline(cfg, mesh[b], eager_outputs=False, failure_check_interval=10 ** 9)
         for (t, a, w) in seqs[b].imu:
             p.push_imu(t, a, w)
         lane_pipes.append(p)
-    runner = bp.BatchedVioRunner(pipe.tcfg, pipe.cam, pipe.estimator.cfg, device, B)
-    batch = bp.stage_frames_arrays(lane_pipes, [r[0] for r in rendered],
-                                   [r[1] for r in rendered], [r[2] for r in rendered],
-                                   n_warm, n_frames)
-    trk, st, outs = runner.run_sharded(runner.put_states(trk), runner.put_states(st),
-                                       runner.put_batch(batch))
+    runner = bp.BatchedVioRunner(pipe.tcfg, pipe.cam, pipe.estimator.cfg, None, B, mesh=mesh)
+    batch = bp.Sharded(mesh, [bp.stage_frames_arrays(
+        lane_pipes[b:b + 1], [rendered[b][0]], [rendered[b][1]], [rendered[b][2]], n_warm,
+        n_frames) for b in range(B)], axis=1)
+    trk, st, outs = runner.run_sharded(runner.put_states(trk), runner.put_states(st), batch)
     for p in lane_pipes:
         p.close()
+    _check_on_mesh(outs, mesh)
 
-    cost = outs.cost.cpu().numpy()
-    P_all = outs.P.cpu().numpy()
+    outs = outs.gather("cpu")
+    cost = outs.cost.numpy()
+    P_all = outs.P.numpy()
     assert np.isfinite(cost).all() and (cost > 0).all(), f"costs={cost}"
     finals = []
     for b in range(B):
@@ -147,45 +174,48 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
         finals.append(P[-1])
     spread = np.std(np.stack(finals), axis=0).max()
     assert spread > 1e-4, f"lanes did not diverge (spread={spread})"
-    print(f"dryrun_multichip({n_devices}): OK on {torch.device(device)} — {B} lanes of the "
-          f"fused pipeline {Wd}x{Hd}, maxf={pipe.estimator.cfg.maxf}, "
+    print(f"dryrun_multichip({n_devices}): OK on {', '.join(map(str, mesh))} — {B} lanes of the "
+          f"fused pipeline {Wd}x{Hd}, one per shard, maxf={pipe.estimator.cfg.maxf}, "
           f"maxi={pipe.estimator.cfg.max_imu}, T={n_scan}, lane spread={spread:.3f} m, "
           f"costs finite>0")
 
 
-def dryrun_multichip_backend(n_devices: int, device="cuda") -> None:
+def dryrun_multichip_backend(n_devices: int, device="cuda", mesh=None) -> None:
     """The backend-only batched step (``parallel/throughput.py``) over four
-    frames, ``n_devices`` sequences with distinct gyro rates: on this card
-    the "chips" are lanes of one device.  Asserts finite costs > 0 and
-    that the sequences diverge."""
+    frames, one sequence on each of the ``n_devices`` devices of the mesh,
+    with distinct gyro rates.  Asserts that the outputs live on every
+    device of the mesh, finite costs > 0 and that the sequences diverge."""
     from vins_rgbd_fast_torch.parallel import throughput as tp
 
-    mesh = tp.make_mesh(1, device=device)
+    mesh = _dryrun_mesh(n_devices, device, mesh)
+    dev = mesh[0]
     cfg = _example_cfg(maxf=16, maxi=8)
-    states, feats0, imus = _example_inputs(cfg, batch=n_devices, device=device)
+    states, feats0, imus = _example_inputs(cfg, batch=n_devices, device=dev)
     rng = np.random.default_rng(7)
     # per-sequence distinct gyro rates -> genuinely different trajectories
     rates = torch.as_tensor(rng.uniform(-0.2, 0.2, (n_devices, 1, 3)), dtype=torch.float32,
-                            device=device)
+                            device=dev)
     imus = imus._replace(gyr=imus.gyr + rates)
     states, imus = tp.batch_shard(mesh, states), tp.batch_shard(mesh, imus)
     step = tp.make_batched_step(cfg, mesh)
-    centre = torch.as_tensor([320.0, 240.0], dtype=torch.float32, device=device)
+    centre = torch.as_tensor([320.0, 240.0], dtype=torch.float32, device=dev)
     outs = None
     for k in range(4):  # a track must age past start < WINDOW_SIZE-2 before its
         # projection factors activate; observations drift, per-sequence noise
         shift = torch.as_tensor(rng.uniform(-0.01, 0.01, (n_devices, 1, 2)) + 0.005 * k,
-                                dtype=torch.float32, device=device)
+                                dtype=torch.float32, device=dev)
         noise = torch.as_tensor(rng.normal(0, 2e-3, tuple(feats0.pts.shape)),
-                                dtype=torch.float32, device=device)
+                                dtype=torch.float32, device=dev)
         pts = feats0.pts + shift + noise
         feats = tp.batch_shard(mesh, feats0._replace(pts=pts, uv=pts * 460.0 + centre))
         states, outs = step(states, feats, imus)
-    P = outs.P.cpu().numpy()
-    cost = outs.cost.cpu().numpy()
+    _check_on_mesh(outs, mesh)
+    outs = outs.gather("cpu")
+    P = outs.P.numpy()
+    cost = outs.cost.numpy()
     assert P.shape == (n_devices, 3)
     assert np.isfinite(cost).all() and np.isfinite(P).all()
     assert (cost > 0).all(), f"degenerate dryrun: costs={cost}"
     assert np.std(P, axis=0).max() > 1e-6, "sequences did not diverge"
-    print(f"dryrun_multichip_backend({n_devices}): OK on {torch.device(device)}, "
+    print(f"dryrun_multichip_backend({n_devices}): OK on {', '.join(map(str, mesh))}, "
           f"costs={cost}")

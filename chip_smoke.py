@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch/CUDA port (``vins_rgbd_fast_torch``) on one GPU.
+"""Smoke test of the PyTorch/CUDA port (``vins_rgbd_fast_torch``) on the GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases 21]
+
+One card is enough; phase 21 shards over every card present.
 
 Phases (each prints one line; any failure raises and exits non-zero):
   1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
@@ -189,8 +191,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      a feature flagged dynamic on at least one frame, K1 once and K3 twice
      per frame, 2 profiled frames with no host wait;
  18. intrinsic calibration (rendered boards, the four models, the CLI);
- 19. the runner's chained and sharded API, ``stack_states``, the graft
-     twins' dry runs;
+ 19. the runner's chained API and ``run_sharded`` over two shards of the
+     card, ``stack_states``, the graft twins' dry runs over eight shards of
+     the card;
  20. the OpenLORIS rig (848×480, ``static_init`` 0, grid 7×8, 200
      slots, depth to 3 m, 30 Hz) on ``BatchedVioRunner``: 8 lanes
      (``make_trajectory`` seeds 7-14, each moving from frame 0; lanes 6
@@ -216,17 +219,42 @@ Phases (each prints one line; any failure raises and exits non-zero):
      on every lane; K1 once and K2 twice per frame, 2 profiled frames with
      no host wait inside ``run``; K2 against its plain version at 8×48,
      timed.
+ 21. the batched runner sharded by lane over a mesh of cards (every card
+     present; phase 5's rig, 8 lanes per card, self-warmed by
+     ``BatchedVioRunner.warm`` on card 0 and placed by ``put_states``):
+     (a) on every card, from the main thread (its current device stays 0),
+     K1 bit-exact at 8×480×640, K2 at 8×200 and K3 at 1×200 on both levels
+     against their plain versions, then each timed on its card;
+     (b) 40 steady frames of ``run_sharded`` over two shards of card 0
+     (B = 8) and over every card (B = 8 per card), each against ``run`` on
+     card 0 over the same lanes from the same generator states, within
+     JAX's tolerances (P 5e-4 m, cost rtol 5e-3, keyframes equal): every
+     lane under its truth bound, finite costs, K1 once and K2 twice per
+     frame for each shard on each card, each card's peak memory;
+     (c) ``run`` at B = 8 and at every lane on card 0, both sharded runs
+     and (on several cards) the every-card shards run in turn from the main
+     thread (its outputs equal to the threads' bit for bit), 20 frames each,
+     three turns (A B C D E E D C B A A B C D E), host clock ended by a
+     synchronisation of every card used: ms per step, seq-frames/s and the
+     ratios to the first; a profile of 3 frames of each sharded run with
+     no host wait on any thread, and each card's kernels, device ms and busy
+     share per frame; (d) both dry runs over every card (on one card phase
+     19's eight shards of it, already run).
 Phases 5, 7, 9, 10, 11, 12, 13, 14, 14b, 15, 15b, 16, 16c (once per
-camera), 16d, 16e (once per camera), 16f, 17, 20 and 20b each zero the
-kernels' launch counters just before their path and read them just
-after; the ``kernels`` line sums them.  A line before the card's lists
-each phase's wall seconds.
+camera), 16d, 16e (once per camera), 16f, 17, 20, 20b and 21 (each
+sharded run of 21b) each zero the kernels' launch counters just before
+their path and read them just after; the ``kernels`` line sums them.  A
+line before the card's lists each phase's wall seconds.
+``python3 chip_smoke.py --phases 21`` runs phases 1-2 and 21 alone (the
+call on several cards); its ``kernels`` line holds card 0's timings and
+phase 21's launches.
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA it exits
 non-zero before printing any result.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import json
@@ -255,6 +283,7 @@ from vins_rgbd_fast_torch.models.camera import PinholeCamera
 from vins_rgbd_fast_torch.ops import fast, image, lk
 from vins_rgbd_fast_torch.parallel import batched_pipeline as bp
 from vins_rgbd_fast_torch.parallel.loop_closer import BatchedLoopCloser, ThreadedLoopCloser
+from vins_rgbd_fast_torch.parallel.throughput import make_mesh
 from vins_rgbd_fast_torch.pipeline import VinsPipeline
 
 # radtan coefficients of the bench rig (reference realsense vio.yaml)
@@ -263,6 +292,7 @@ DISTORTION = dict(k1=0.13387871564774004, k2=-0.2731913133377051,
 OUT_DIR = "chiprun_out"
 RUN_SPAN = "chip_smoke::run"
 SPIN_SPAN = "chip_smoke::spin_once"
+SHARDED_SPAN = "chip_smoke::run_sharded"
 TD_TRUE = 0.005  # phase 12's IMU clock runs 5 ms ahead of the image stamps
 HOST_SYNC_CALLS = ("cudaStreamSynchronize", "cudaEventSynchronize", "cudaDeviceSynchronize",
                    "cudaMemcpy")
@@ -575,6 +605,9 @@ def reset_counts() -> None:
     fast.launches = 0
     lk.level_launches = 0
     lk.iterate_launches = 0
+    for by_device in (fast.launches_by_device, lk.level_launches_by_device,
+                      lk.iterate_launches_by_device):
+        by_device.clear()
 
 
 def read_counts() -> dict:
@@ -2186,30 +2219,44 @@ def _equal_trees(a, b) -> bool:
 def run_runner_api(device, B: int = 2, T: int = 4, W: int = 640, H: int = 480,
                    max_cnt: int = 130):
     """Phase 19 (a): the main path warmed (``run_main_path``, B sequences),
-    then T more frames through ``run``, ``run_chained`` and ``run_sharded``
-    (after ``put_states``/``put_batch``) from the same states and the same
-    RANSAC generator states: the three outputs and end states bit for bit."""
+    then T more frames through ``run``, ``run_chained`` and, on a runner
+    over two shards of ``device`` with the same lanes, ``run_sharded``
+    (after ``put_states``/``put_batch``), from the same states and the same
+    RANSAC generator states: ``run_chained``'s outputs and end states
+    equal ``run``'s bit for bit, ``run_sharded``'s gathered ones within
+    JAX's tolerances (``SHARDED_P_ATOL``, ``SHARDED_COST_RTOL``, keyframes
+    equal).  Inputs not split over the mesh, or a shard on the wrong
+    device, are refused."""
     res = run_main_path(device, B, 1, W=W, H=H, max_cnt=max_cnt, extra=2 * T)
     runner, (trk, st) = res["runner"], res["state"]
     batch = res["extra_batch"][0]
     gens = [g.get_state() for g in runner.generators]
+    sharded = bp.BatchedVioRunner(runner.tcfg, runner.cam, runner.ecfg, None, B,
+                                  mesh=[runner.device] * 2)
 
-    def from_start(fn, *args):
-        for g, s_ in zip(runner.generators, gens):
+    def from_start(r, fn, *args):
+        for g, s_ in zip(r.generators, gens):
             g.set_state(s_)
         return fn(*args)
 
-    a = from_start(runner.run, trk, st, batch)
-    b = from_start(runner.run_chained, trk, st, batch)
-    c = from_start(runner.run_sharded, runner.put_states(trk), runner.put_states(st),
-                   runner.put_batch(batch))
-    refused = False
-    try:
-        runner.run_sharded(trk, st, bp.map_tree(lambda x: x.to("meta"), batch))
-    except ValueError:
-        refused = True
-    return dict(chained_equal=_equal_trees(a, b), sharded_equal=_equal_trees(a, c),
-                misplaced_refused=refused, frames=batch.ts.shape[0],
+    a = from_start(runner, runner.run, trk, st, batch)
+    b = from_start(runner, runner.run_chained, trk, st, batch)
+    placed = (sharded.put_states(trk), sharded.put_states(st), sharded.put_batch(batch))
+    c = tuple(x.gather(runner.device)
+              for x in from_start(sharded, sharded.run_sharded, *placed))
+    misplaced = bp.Sharded(placed[2].mesh, [placed[2].parts[0], bp.map_tree(
+        lambda x: x.to("meta"), placed[2].parts[1])], 1)
+    refused = []
+    for args in ((trk, st, batch), (*placed[:2], misplaced)):
+        try:
+            sharded.run_sharded(*args)
+            refused.append(False)
+        except ValueError:
+            refused.append(True)
+    diff = sharded_diff(a[2], c[2])
+    return dict(chained_equal=_equal_trees(a, b), sharded_equal=within_jax_tolerances(diff),
+                sharded_bit_equal=_equal_trees(a, c), sharded_diff=diff,
+                misplaced_refused=all(refused), frames=batch.ts.shape[0],
                 cost_finite=bool(torch.isfinite(a[2].cost).all()))
 
 
@@ -2426,6 +2473,278 @@ def batched_rig_summary(res) -> dict:
     """What phases 20 and 20b keep in ``chip_smoke.json``."""
     return {k: v for k, v in res.items()
             if k not in ("pipes", "runner", "state", "scenes", "rendered", "lane_kw", "cost")}
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the batched runner sharded by lane over a mesh of cards
+# ---------------------------------------------------------------------------
+
+# JAX's tolerances for the sharded run against the unsharded one
+# (tests/test_sharded_runner.py): positions, costs (relative), keyframes equal
+SHARDED_P_ATOL = 5e-4
+SHARDED_COST_RTOL = 5e-3
+def sharded_diff(ref, got) -> dict:
+    """A sharded run's ``ScanOutputs`` (gathered) against ``run``'s: the
+    largest position and relative cost differences, and whether the
+    keyframe flags, and every output, agree."""
+    return dict(max_dP_m=float((got.P - ref.P).abs().max()),
+                max_cost_rel=float(((got.cost - ref.cost).abs() / ref.cost.abs()).max()),
+                keyframes_equal=bool(torch.equal(got.is_keyframe, ref.is_keyframe)),
+                bit_equal=_equal_trees(ref, got))
+
+
+def within_jax_tolerances(diff: dict) -> bool:
+    return (diff["max_dP_m"] <= SHARDED_P_ATOL and diff["max_cost_rel"] <= SHARDED_COST_RTOL
+            and diff["keyframes_equal"])
+
+
+SHARDED_LABELS = {"A": "run on one card", "B": "run, every lane on one card",
+                  "C": "run_sharded over two shards of one card",
+                  "D": "run_sharded over every card",
+                  "E": "D's shards run in turn from the main thread"}
+
+
+def stage_sharded_path(device, n_lanes: int, T: int, W: int = 640, H: int = 480,
+                       max_cnt: int = 130) -> dict:
+    """Phase 21's lanes: phase 5's rig and sequences (seeds 100 + b),
+    ``n_lanes`` of them, self-warmed together by ``BatchedVioRunner.warm``
+    on ``device`` (11 frames and the static initialization), the next T
+    frames staged there, the lanes' RANSAC generator states after the
+    warm-up, and frames 0 and 1 of every lane (the kernels' inputs)."""
+    rig, tcfg, ecfg, cam = slice_config(W, H, max_cnt)
+    k_w = bp.WINDOW_SIZE + 1
+    seqs, rendered, bufs = make_sequences(rig, n_lanes, k_w + T, device)
+    ts, imgs, deps = ([r[i] for r in rendered] for i in range(3))
+    runner = bp.BatchedVioRunner(tcfg, cam, ecfg, device, n_lanes)
+    trk, st = runner.init_states(seqs[0].ric, seqs[0].tic)
+    trk, st, _ = runner.warm(trk, st, bp.stage_frames(imgs, deps, ts, bufs, 0, k_w, device))
+    return dict(cfg=(tcfg, cam, ecfg), state=(trk, st), T=T, seqs=seqs,
+                times=[t[k_w:k_w + T] for t in ts],
+                gens=[g.get_state() for g in runner.generators],
+                batch=bp.stage_frames(imgs, deps, ts, bufs, k_w, k_w + T, device),
+                frames=tuple(torch.stack([im[k] for im in imgs]).contiguous() for k in (0, 1)))
+
+
+def first_frames(batch, T: int):
+    """The first T frames of a (T, B, ...) batch, plain or ``Sharded``."""
+    if isinstance(batch, bp.Sharded):
+        return bp.Sharded(batch.mesh, [first_frames(p, T) for p in batch.parts], batch.axis)
+    return bp.FrameBatch(*(a[:T] for a in batch))
+
+
+def sharded_cases(staged: dict, device, mesh, per_card: int) -> dict:
+    """Phase 21's four ways over the staged lanes, each a runner and its
+    inputs (placed by ``put_states``/``put_batch`` where sharded): A
+    ``run`` at B = ``per_card`` on ``device``; B ``run`` at every lane
+    (``per_card`` per entry of ``mesh``) on ``device``; C ``run_sharded``
+    over [device, device] at B = ``per_card``; D ``run_sharded`` over
+    ``mesh`` at every lane."""
+    tcfg, cam, ecfg = staged["cfg"]
+    trk, st = staged["state"]
+    n_all = per_card * len(mesh)
+
+    def lanes(tree, n):
+        return bp.map_tree(lambda a: a[:n], tree)
+
+    cases = {}
+    for name, n, shards in (("A", per_card, None), ("B", n_all, None),
+                            ("C", per_card, [device, device]), ("D", n_all, list(mesh))):
+        runner = bp.BatchedVioRunner(tcfg, cam, ecfg, None if shards else device, n,
+                                     mesh=shards)
+        batch = bp.FrameBatch(*(a[:, :n] for a in staged["batch"]))
+        ins = (lanes(trk, n), lanes(st, n), batch)
+        if shards:
+            ins = (runner.put_states(ins[0]), runner.put_states(ins[1]), runner.put_batch(batch))
+        cases[name] = dict(runner=runner, ins=ins, B=n, devices=sorted(set(runner.mesh), key=str),
+                           shards=len(runner.mesh))
+    if len(set(bp.mesh_of(mesh))) > 1:
+        # E: D's placed shards run one after another from the calling thread
+        # (whose current device stays the first), each by a one-device
+        # runner of its lanes: what D's host threads cost
+        d = cases["D"]
+        cases["E"] = dict(d, runner=None, runners=[
+            bp.BatchedVioRunner(tcfg, cam, ecfg, dv, per_card) for dv in d["runner"].mesh])
+    return cases
+
+
+def run_case(case: dict, staged: dict, T: int):
+    """T frames of one of ``sharded_cases``'s ways, from the warmed states
+    and the lanes' generator states after the warm-up (E: the outputs of
+    each shard, in order)."""
+    trk, st, batch = case["ins"]
+    if case["runner"] is None:
+        outs = []
+        for i, r in enumerate(case["runners"]):
+            for g, s_ in zip(r.generators, staged["gens"][i * r.B:(i + 1) * r.B]):
+                g.set_state(s_)
+            outs.append(r.run(trk.parts[i], st.parts[i], first_frames(batch.parts[i], T))[2])
+        return outs
+    runner = case["runner"]
+    for g, s_ in zip(runner.generators, staged["gens"]):
+        g.set_state(s_)
+    run = runner.run_sharded if isinstance(trk, bp.Sharded) else runner.run
+    return run(trk, st, first_frames(batch, T))
+
+
+def synchronize(devices) -> None:
+    for d in devices:
+        if torch.device(d).type == "cuda":
+            torch.cuda.synchronize(d)
+
+
+def read_counts_by_device() -> dict:
+    """The kernels' launches by CUDA device index since ``reset_counts``."""
+    return {"fast_nms": dict(fast.launches_by_device),
+            "lk_level": dict(lk.level_launches_by_device),
+            "lk_iterate": dict(lk.iterate_launches_by_device)}
+
+
+def profile_sharded(fn, frames: int, step_ms: float, devices) -> dict:
+    """torch.profiler over ``fn`` (``frames`` frames) inside a span:
+    host waits (``HOST_SYNC_CALLS``) that start and end inside it, on any
+    thread (no shard thread may wait), and per card the kernels and device
+    ms per frame, and the busy share against the unprofiled ``step_ms``
+    ("not measured" where the profiler shows no device time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    synchronize(devices)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function(SHARDED_SPAN):
+            fn()
+        synchronize(devices)
+    events = prof.events()
+    span = next(e for e in events if e.name == SHARDED_SPAN and e.device_type == DeviceType.CPU)
+    t0, t1 = span.time_range.start, span.time_range.end
+    waits = sorted(e.name for e in events if e.device_type == DeviceType.CPU
+                   and e.name in HOST_SYNC_CALLS and t0 <= e.time_range.start
+                   and e.time_range.end <= t1)
+    by_card = {}
+    for d in devices:
+        idx = torch.device(d).index
+        ks = [e for e in events if e.device_type == DeviceType.CUDA and e.device_index == idx
+              and e.name != SHARDED_SPAN]
+        ms = sum(e.self_device_time_total for e in ks) / 1e3 / frames
+        ours = {k: sum(1 for e in ks if re.search(rf"(^|\W){k}_kernel(\W|$)", e.name)) / frames
+                for k in KERNELS}
+        by_card[str(d)] = dict(kernels_per_frame=len(ks) / frames, device_ms_per_frame=round(ms, 3),
+                               busy_share=round(ms / step_ms, 4) if ms > 0 else "not measured",
+                               ours_per_frame=ours)
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA and e.name != SHARDED_SPAN]
+    by_kernel = {}
+    for k in KERNELS:
+        hits = [e for e in kernels if re.search(rf"(^|\W){k}_kernel(\W|$)", e.name)]
+        by_kernel[k] = dict(
+            device_ms_per_frame=sum(e.self_device_time_total for e in hits) / 1e3 / frames,
+            launches_per_frame=len(hits) / frames)
+    return dict(frames=frames, host_syncs=len(waits), host_sync_calls=sorted(set(waits)),
+                by_card=by_card, by_kernel=by_kernel)
+
+
+def run_sharded_path(staged: dict, device, mesh, per_card: int = 8, time_frames: int = 0,
+                     turns: int = 3, profile: int = 0) -> dict:
+    """Phase 21 (b) and (c) over ``stage_sharded_path``'s lanes.
+
+    (b) C against A and D against B (``sharded_cases``) over the staged T
+    frames: the largest position and relative cost differences and whether
+    the keyframe flags agree, every lane of the sharded run against the
+    truth (``lane_accuracy``), finite costs, and on the card the launches
+    of each kernel by card and each card's peak memory in the sharded
+    runs.  (c) with ``time_frames``: each way ``turns`` times over that
+    many frames in turns (A B C D E E D C B A ...; B left out where it is
+    A, E where the mesh has one device), host clock ended by a
+    synchronisation of every device the way uses; ms per step,
+    seq-frames/s, and their ratios to A; E's outputs must equal D's bit
+    for bit.  With ``profile``,
+    C and D profiled over that many frames (``profile_sharded``)."""
+    T = staged["T"]
+    cases = sharded_cases(staged, device, mesh, per_card)
+    on_gpu = torch.device(device).type == "cuda"
+    same = cases["B"]["B"] == cases["A"]["B"]
+    res = dict(per_card=per_card, mesh=[str(d) for d in bp.mesh_of(mesh)], T=T, compare={})
+    outs_by = {}
+    for ref, case in (("A", "C"), ("B", "D")):
+        if ref not in outs_by:
+            outs_by[ref] = (outs_by["A"] if ref == "B" and same
+                            else run_case(cases[ref], staged, T)[2])
+        c = cases[case]
+        if on_gpu:
+            for d in c["devices"]:
+                torch.cuda.reset_peak_memory_stats(d)
+        reset_counts()
+        outs = run_case(c, staged, T)[2]
+        synchronize(c["devices"])
+        counts = read_counts_by_device()
+        on_mesh = [{a.device for a in bp.leaves(p)} == {d}
+                   for d, p in zip(c["runner"].mesh, outs.parts)]
+        outs = outs.gather(device)
+        P_s = outs.P.cpu().numpy()
+        lanes = [lane_accuracy([float(t) for t in staged["times"][b]], P_s[:, b],
+                               staged["seqs"][b], False, False) for b in range(c["B"])]
+        res["compare"][case] = dict(
+            against=ref, B=c["B"], shards=c["shards"], on_mesh=all(on_mesh),
+            **sharded_diff(outs_by[ref], outs),
+            cost_finite=bool(torch.isfinite(outs.cost).all()),
+            lanes=[dict(err=round(x["err"], 5), bound=round(x["bound"], 4)) for x in lanes],
+            counts=counts,
+            shards_on={str(d): c["runner"].mesh.count(d) for d in c["devices"]},
+            peak_mem_gb={str(d): round(torch.cuda.max_memory_allocated(d) / 2 ** 30, 3)
+                         for d in c["devices"]} if on_gpu else None)
+    if time_frames:
+        order = [k for k in "ABCDE" if k in cases and not (k == "B" and same)]
+        turns_ms = {k: [] for k in order}
+        last = {}
+        for i in range(turns):
+            for k in (order if i % 2 == 0 else order[::-1]):
+                c = cases[k]
+                devs = sorted(set(c["devices"]) | {torch.device(device)}, key=str)
+                synchronize(devs)
+                t0 = time.perf_counter()
+                last[k] = run_case(c, staged, time_frames)
+                synchronize(devs)
+                turns_ms[k].append(1e3 * (time.perf_counter() - t0) / time_frames)
+        if "E" in last:  # the same shards' work from one thread: the same bits
+            res["E_equals_D"] = all(_equal_trees(e, d) for e, d in zip(last["E"],
+                                                                        last["D"][2].parts))
+        base = statistics.fmean(turns_ms["A"])
+        res["timing"] = {k: dict(B=cases[k]["B"], shards=cases[k]["shards"], turns_ms=v,
+                                 ms_per_step=statistics.fmean(v),
+                                 seq_frames_per_s=1e3 * cases[k]["B"] / statistics.fmean(v),
+                                 step_ratio=statistics.fmean(v) / base,
+                                 throughput_ratio=(cases[k]["B"] / statistics.fmean(v))
+                                 / (cases["A"]["B"] / base))
+                         for k, v in turns_ms.items()}
+        res["timing_frames"] = time_frames
+    if profile:
+        res["profile"] = {}
+        for k in ("C", "D"):
+            step = res["timing"][k]["ms_per_step"] if time_frames else 1.0
+            res["profile"][k] = profile_sharded(lambda: run_case(cases[k], staged, profile),
+                                                profile, step, cases[k]["devices"])
+    return res
+
+
+def check_sharded_path(res, on_gpu: bool = True) -> None:
+    """Phase 21 (b): each sharded run within JAX's tolerances of ``run``
+    on the same lanes (P within 5e-4 m, cost within rtol 5e-3, keyframe
+    flags equal), its outputs on its mesh, every lane under its truth
+    bound, finite costs; on the card K1 once and K2 twice per frame for
+    each shard on each card (K3 never), and no host wait in the profiles."""
+    T = res["T"]
+    for case, c in res["compare"].items():
+        require(c["on_mesh"], (case, "outputs on the mesh"))
+        require(within_jax_tolerances(c) and c["cost_finite"], (case, "against run", c))
+        for b, lane in enumerate(c["lanes"]):
+            require(np.isfinite(lane["err"]) and lane["err"] < lane["bound"], (case, b, lane))
+        if on_gpu:
+            n = {torch.device(d).index: k for d, k in c["shards_on"].items()}
+            require(c["counts"]["fast_nms"] == {i: k * T for i, k in n.items()},
+                    (case, c["counts"]))
+            require(c["counts"]["lk_level"] == {i: 2 * k * T for i, k in n.items()},
+                    (case, c["counts"]))
+            require(not c["counts"]["lk_iterate"], (case, c["counts"]))
+    for case, p in res.get("profile", {}).items():
+        require(p["host_syncs"] == 0, (case, "host waits inside run_sharded", p))
+    require(res.get("E_equals_D", True), "the shards run in turn from one thread as D's threads")
 
 
 def encode_png_rows(img: np.ndarray, filt: int) -> bytes:
@@ -2726,11 +3045,18 @@ def summary(rep) -> str:
         f"max|du| {r['max_du']:.2e}, max|derr| {r['max_derr']:.2e}" for r in rep)
 
 
-def nvidia_smi_line() -> str:
+def nvidia_smi_lines() -> list:
+    """Each card's name and power limit, one line per card, as ``nvidia-smi``
+    gives them."""
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60)
-    return res.stdout.strip().splitlines()[0] if res.returncode == 0 else "nvidia-smi failed"
+    return res.stdout.strip().splitlines() if res.returncode == 0 else ["nvidia-smi failed"]
+
+
+def nvidia_smi_line() -> str:
+    """Card 0's name and power limit."""
+    return nvidia_smi_lines()[0]
 
 
 def stage_breakdown(res, batch):
@@ -2832,7 +3158,12 @@ def profile_span(fn, name: str, frames: int, path: str, step_ms: float):
                                   for e in top], by_kernel=ours)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on the GPU")
+    ap.add_argument("--phases", choices=("all", "21"), default="all",
+                    help="'21': phases 1-2 and 21 alone (the kernels and the runner sharded "
+                         "over every card present)")
+    phases = ap.parse_args(argv).phases
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
               file=sys.stderr)
@@ -2849,9 +3180,11 @@ def main() -> int:
     require(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
             "TF32 is off")
     os.makedirs(OUT_DIR, exist_ok=True)
-    smi = nvidia_smi_line()
+    smi_cards = nvidia_smi_lines()
+    smi = smi_cards[0]
     print(f"[1 card] {smi} | torch {torch.__version__} cuda {torch.version.cuda} "
-          f"| {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
+          f"| {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} | every card: "
+          f"{smi_cards}", flush=True)
 
     t0 = time.perf_counter()
     path = native.build(verbose=True)
@@ -2862,12 +3195,169 @@ def main() -> int:
     require(set(usage) == set(KERNELS), ("ptxas report", usage))
     require(all(u["spill_bytes"] == 0 for u in usage.values()), ("spills", usage))
     nw = lk.K3_WARPS
+    # K1's static and K3's largest dynamic shared memory stay under the 48 KB
+    # a block gets without the per-device opt-in that K2 makes
+    require(usage["fast_nms"]["smem_bytes"] < 48 * 1024
+            and 4 * (lk.MAX_WIN * 53 + 4 * nw) < 48 * 1024, ("K1, K3 under 48 KB", usage))
     print(f"[2 build] {build_s:.2f} s ({path}); ptxas {usage}; K3 {nw} warps per point, "
           f"{4 * (38 * 53 + 4 * nw)} B dynamic shared memory at WIN = 38", flush=True)
 
     B, N, T, EXTRA = 8, 200, 40, 10
     rig, tcfg, ecfg, cam = slice_config()
     tcfg_run = bp.BatchedVioRunner(tcfg, cam, ecfg, dev, 1).tcfg  # LK 12/6 envelope
+    thr = tcfg.fast_threshold
+    timer = LaunchTimer()
+    timings = []
+
+    def timing(kernel, shape, fn, plain, bound, phase=None, launch_timer=None):
+        t = dict(kernel=kernel, shape=shape, **(launch_timer or timer)(fn),
+                 plain_ms=median_ms(plain), **bound)
+        t["share_of_bound"] = t["bound_ms"] / t["device_ms"]
+        timings.append(t)
+        phase = phase or (6 if kernel != "lk_iterate" else 8)
+        print(f"[{phase} timing] {kernel} {shape}: "
+              f"{t['device_ms']:.5f} ms per launch on the device ({t['reps']} per event "
+              f"pair), wrapper {t['host_us']:.1f} us per call on the host; bound "
+              f"{t['bound_ms']:.5f} ms ({t['bound_by']}; {t['bytes'] / 1e6:.3f} MB, "
+              f"{t['ops'] / 1e6:.1f} M ops), {100 * t['share_of_bound']:.1f} % of it; plain "
+              f"{t['plain_ms']:.4f} ms per call (no yardstick)", flush=True)
+
+    def time_k2(k2_in_, tcfg_, label, phase=None, launch_timer=None):
+        """K2 per level of two-level tracks, each level started at the
+        coarse flow."""
+        prev_pyr, cur_pyr, pts, init, active = k2_in_
+        b, n = pts.shape[:2]
+        for l in (1, 0):
+            iters = tcfg_.lk_max_iters if l == 0 else tcfg_.lk_coarse_iters
+            prev, cur, pts_l, flow, ax, ay = level_inputs(prev_pyr, cur_pyr, pts,
+                                                          (init - pts) / 2.0, l)
+            args = (prev, cur, pts_l, flow, active, ax, ay, LK["win"], LK["sm"], iters,
+                    LK["eps"], LK["min_eig"])
+            steps = gn_steps(lambda k: lk.lk_level_plain(*args[:9], k, *args[10:])[0], iters)
+            timing("lk_level", f"{label} level {l}", lambda: lk._lk_level_cuda(*args),
+                   lambda: lk.lk_level_plain(*args),
+                   kernel_bounds(b, *prev.shape[-2:], n, iters, footprint=k2_footprint(
+                       prev, pts_l, ax, ay), steps=sum(steps))["lk_level"], phase=phase,
+                   launch_timer=launch_timer)
+            timings[-1]["points_by_step"] = steps
+
+    def time_k3(k3_in_, tcfg_, label, phase=None, launch_timer=None):
+        """K3 per level of two-level tracks, each level started at the
+        coarse flow."""
+        prev_pyr, cur_pyr, pts, init, active = k3_in_
+        flow = (init - pts) / 2.0
+        for l in (1, 0):
+            iters = tcfg_.lk_max_iters if l == 0 else tcfg_.lk_coarse_iters
+            args, _ = k3_args(prev_pyr, cur_pyr, pts, flow, active, l, iters)
+            steps = gn_steps(lambda k: lk.lk_iterate_plain(*args[:12], k, args[13])[0], iters)
+            timing("lk_iterate", f"{label} level {l}", lambda: lk._lk_iterate_cuda(*args),
+                   lambda: lk.lk_iterate_plain(*args),
+                   kernel_bounds(pts.shape[0], 0, 0, pts.shape[1], iters,
+                                 steps=sum(steps))["lk_iterate"], phase=phase,
+                   launch_timer=launch_timer)
+            timings[-1]["points_by_step"] = steps
+
+    def phase21(after_19: bool) -> dict:
+        """Phase 21: the batched runner sharded by lane over the cards."""
+        import __graft_entry_torch__ as graft
+
+        cards = torch.cuda.device_count()
+        mesh = make_mesh()
+        staged = stage_sharded_path(dev, B * cards, T)
+        f0, f1 = (f[:B] for f in staged["frames"])
+        gen21 = torch.Generator(device=dev)
+        gen21.manual_seed(21)
+        k2_21 = k2_inputs(f0, f1, tcfg_run, N, gen21)
+        k3_21 = tuple([x[:1].contiguous() for x in a] if isinstance(a, list)
+                      else a[:1].contiguous() for a in k2_21)
+        errs = dict.fromkeys(KERNELS, 0.0)
+
+        # (a) every kernel on every card, launched from this thread, whose
+        # current device stays 0; then timed on each card under its guard
+        for d in range(cards):
+            cd = torch.device("cuda", d)
+
+            def to(x):
+                return [y.to(cd) for y in x] if isinstance(x, list) else x.to(cd)
+
+            x0 = f0.to(cd)
+            out_k = fast.fast_nms(x0, thr)
+            out_p = fast.nms3(fast.fast_score(x0, thr))
+            require(out_k.device == cd and torch.equal(out_k, out_p), f"K1 bit-exact on {cd}")
+            errs["fast_nms"] = max(errs["fast_nms"], float((out_k - out_p).abs().max()))
+            k2_d, k3_d = tuple(map(to, k2_21)), tuple(map(to, k3_21))
+            rep2, rep3 = compare_k2(*k2_d, tcfg_run), compare_k3(*k3_d, tcfg_run)
+            errs["lk_level"] = max(errs["lk_level"], check_parity("K2", rep2))
+            errs["lk_iterate"] = max(errs["lk_iterate"], check_parity("K3", rep3))
+            require(torch.cuda.current_device() == 0, "the main thread's device stays 0")
+            print(f"[21a {cd}] launched from the main thread (current device "
+                  f"{torch.cuda.current_device()}): K1 bit-exact on {B}x480x640; K2 {B}x{N}: "
+                  + summary(rep2) + f"; K3 1x{N}: " + summary(rep3), flush=True)
+            with torch.cuda.device(cd):
+                lt = LaunchTimer()
+                timing("fast_nms", f"card {d}: {B}x480x640 rendered",
+                       lambda: fast.fast_nms(x0, thr),
+                       lambda: fast.nms3(fast.fast_score(x0, thr)),
+                       kernel_bounds(B, 480, 640, N, 0, pairs=fast_pairs(x0, thr))["fast_nms"],
+                       phase="21a", launch_timer=lt)
+                time_k2(k2_d, tcfg_run, f"card {d}: {B}x{N}", phase="21a", launch_timer=lt)
+                time_k3(k3_d, tcfg_run, f"card {d}: 1x{N}", phase="21a", launch_timer=lt)
+            del x0, k2_d, k3_d
+
+        # (b), (c) the main path sharded: two shards of card 0, then every card
+        r = run_sharded_path(staged, dev, mesh, per_card=B, time_frames=20, turns=3,
+                             profile=3)
+        check_sharded_path(r)
+        for case, c in r["compare"].items():
+            print(f"[21b {case}] run_sharded over {c['shards']} shards "
+                  f"({c['shards_on']}), B={c['B']}, {T} frames, against run at B={c['B']} "
+                  f"on {dev}: max|dP| {c['max_dP_m']:.3e} m, max cost rel "
+                  f"{c['max_cost_rel']:.3e}, bit-equal {c['bit_equal']}, keyframes equal "
+                  f"{c['keyframes_equal']}; lane err/bound m "
+                  f"{[(x['err'], x['bound']) for x in c['lanes']]}; launches by card "
+                  f"{c['counts']}; peak GB {c['peak_mem_gb']}", flush=True)
+        for k, t in r["timing"].items():
+            print(f"[21c {k}] {SHARDED_LABELS[k]}, B={t['B']}: {t['ms_per_step']:.2f} ms/step "
+                  f"(turns {[round(x, 2) for x in t['turns_ms']]}), "
+                  f"{t['seq_frames_per_s']:.2f} seq-frames/s; x{t['step_ratio']:.3f} the step "
+                  f"and x{t['throughput_ratio']:.3f} the seq-frames/s of A", flush=True)
+        if "E_equals_D" in r:
+            print(f"[21c E] the shards run in turn from the main thread give the threads' "
+                  f"outputs bit for bit: {r['E_equals_D']}", flush=True)
+        for k, p in r["profile"].items():
+            print(f"[21c profile {k}] {p['frames']} frames: host waits {p['host_syncs']}; by card "
+                  f"{p['by_card']}", flush=True)
+
+        # (d) the dry runs over every card (on one card phase 19's eight
+        # shards of it, which phase 19 has run in this call)
+        if cards > 1 or not after_19:
+            dmesh = mesh if cards > 1 else [dev] * 8
+            t1 = time.perf_counter()
+            graft.dryrun_multichip(len(dmesh), mesh=dmesh)
+            graft.dryrun_multichip_backend(len(dmesh), mesh=dmesh)
+            r["dryruns_s"] = time.perf_counter() - t1
+            print(f"[21d dry runs] over {[str(x) for x in dmesh]}: "
+                  f"{r['dryruns_s']:.1f} s", flush=True)
+        else:
+            print("[21d dry runs] one card: phase 19 ran them over its eight shards", flush=True)
+        r["errs"] = errs
+        run_counts = [c["counts"] for c in r["compare"].values()]
+        r["counts"] = {k: sum(sum(c[k].values()) for c in run_counts) for k in KERNELS}
+        return r
+
+    if phases == "21":  # phases 1-2 and 21 alone (the multi-card call)
+        done("1-2")
+        r21 = phase21(after_19=False)
+        done("21")
+        with open(os.path.join(OUT_DIR, "chip_smoke_21.json"), "w") as f:
+            json.dump(dict(card=smi, cards=smi_cards, timings=timings, batched_sharded=r21,
+                           phase_s=phase_s), f, indent=1, default=float)
+        return finish(smi_cards, phase_s, kernel_entries(
+            {"batched_sharded": dict(counts=r21["counts"], profile=r21["profile"]["D"])},
+            r21["errs"], {"fast_nms": f"card 0: {B}x480x640 rendered",
+                          "lk_level": f"card 0: {B}x{N} level",
+                          "lk_iterate": f"card 0: 1x{N} level"}, timings))
+
     seqs, rendered, _ = make_sequences(rig, B, 4, dev)
     frame0 = torch.stack([r[1][0] for r in rendered]).contiguous()
     frame1 = torch.stack([r[1][1] for r in rendered]).contiguous()
@@ -2974,22 +3464,6 @@ def main() -> int:
     done("5")
 
     # 6. timings and profile
-    timer = LaunchTimer()
-    timings = []
-
-    def timing(kernel, shape, fn, plain, bound, phase=None):
-        t = dict(kernel=kernel, shape=shape, **timer(fn), plain_ms=median_ms(plain), **bound)
-        t["share_of_bound"] = t["bound_ms"] / t["device_ms"]
-        timings.append(t)
-        phase = phase or (6 if kernel != "lk_iterate" else 8)
-        print(f"[{phase} timing] {kernel} {shape}: "
-              f"{t['device_ms']:.5f} ms per launch on the device ({t['reps']} per event "
-              f"pair), wrapper {t['host_us']:.1f} us per call on the host; bound "
-              f"{t['bound_ms']:.5f} ms ({t['bound_by']}; {t['bytes'] / 1e6:.3f} MB, "
-              f"{t['ops'] / 1e6:.1f} M ops), {100 * t['share_of_bound']:.1f} % of it; plain "
-              f"{t['plain_ms']:.4f} ms per call (no yardstick)", flush=True)
-
-    thr = tcfg.fast_threshold
     for b, name, imgs in ((B, "rendered", frame0), (B, "noise", noise),
                           (1, "rendered", frame0[:1].contiguous()), (KP, "rendered", chunk32)):
         timing("fast_nms", f"{b}x480x640 {name}", lambda: fast.fast_nms(imgs, thr),
@@ -3013,24 +3487,6 @@ def main() -> int:
           f"launches with 1 real keyframe, {ext[KP]['kernels_per_frame']:.0f} with {KP} "
           f"({brief_per_kf:.1f} per keyframe for BRIEF); device ms "
           f"{ext[1]['device_ms_per_frame']} / {ext[KP]['device_ms_per_frame']}", flush=True)
-    def time_k2(k2_in_, tcfg_, label, phase=None):
-        """K2 per level of two-level tracks, each level started at the
-        coarse flow."""
-        prev_pyr, cur_pyr, pts, init, active = k2_in_
-        b, n = pts.shape[:2]
-        for l in (1, 0):
-            iters = tcfg_.lk_max_iters if l == 0 else tcfg_.lk_coarse_iters
-            prev, cur, pts_l, flow, ax, ay = level_inputs(prev_pyr, cur_pyr, pts,
-                                                          (init - pts) / 2.0, l)
-            args = (prev, cur, pts_l, flow, active, ax, ay, LK["win"], LK["sm"], iters,
-                    LK["eps"], LK["min_eig"])
-            steps = gn_steps(lambda k: lk.lk_level_plain(*args[:9], k, *args[10:])[0], iters)
-            timing("lk_level", f"{label} level {l}", lambda: lk._lk_level_cuda(*args),
-                   lambda: lk.lk_level_plain(*args),
-                   kernel_bounds(b, *prev.shape[-2:], n, iters, footprint=k2_footprint(
-                       prev, pts_l, ax, ay), steps=sum(steps))["lk_level"], phase=phase)
-            timings[-1]["points_by_step"] = steps
-
     time_k2(k2_in, tcfg_run, f"{B}x{N}")
     stages = stage_breakdown(res, res["extra_batch"][0])
     print(f"[6 stages] ms per steady frame, synchronised per stage: {stages}", flush=True)
@@ -3512,7 +3968,7 @@ def main() -> int:
     done("18")
 
     # 19. the runner's chained and sharded API against run, stack_states, and
-    # the graft twins' dry runs (lanes of this card)
+    # the graft twins' dry runs over eight shards of this card
     import __graft_entry_torch__ as graft
 
     api = run_runner_api(dev, B=2, T=4)
@@ -3520,16 +3976,17 @@ def main() -> int:
     check_runner_api(api, stacked)
     del stacked["pipes"]
     t1 = time.perf_counter()
-    graft.dryrun_multichip(8)
+    graft.dryrun_multichip(8, mesh=[dev] * 8)
     dry_s = time.perf_counter() - t1
     t1 = time.perf_counter()
-    graft.dryrun_multichip_backend(8)
+    graft.dryrun_multichip_backend(8, mesh=[dev] * 8)
     dryb_s = time.perf_counter() - t1
-    print(f"[19 runner API] run_chained and run_sharded bit-equal to run over "
-          f"{api['frames']} frames: {api['chained_equal']}, {api['sharded_equal']}; misplaced "
-          f"inputs refused: {api['misplaced_refused']}; stack_states of two warmed pipelines "
-          f"{stacked}; dryrun_multichip(8) {dry_s:.1f} s, dryrun_multichip_backend(8) "
-          f"{dryb_s:.1f} s", flush=True)
+    print(f"[19 runner API] run_chained bit-equal to run and run_sharded over two shards of "
+          f"{dev} to run over {api['frames']} frames: {api['chained_equal']}, "
+          f"{api['sharded_equal']}; misplaced inputs refused: {api['misplaced_refused']}; "
+          f"stack_states of two warmed pipelines {stacked}; dryrun_multichip(8) and "
+          f"dryrun_multichip_backend(8) over eight shards of {dev} (they share the card): "
+          f"{dry_s:.1f} s, {dryb_s:.1f} s", flush=True)
 
     done("19")
 
@@ -3611,46 +4068,33 @@ def main() -> int:
 
     done("20b")
 
+    # 21. the batched runner sharded by lane over a mesh of cards (its own
+    # launch counts, by card)
+    r21 = phase21(after_19=True)
+
+    done("21")
+
     # the kernels line: per launch at the main path's shapes (K1 8x480x640,
     # K2 8x200 averaged over its two levels) and K3 at the latency path's
     # 1x200 (it never runs on the main path)
+    res["profile"] = prof
     paths = {"batched": res, "latency": lat, "latency_loop": loop, "batched_loop": bl,
              "latency_vo": vo, "latency_td": td, "latency_dyn": dyn, "bag_replay": bagr,
              "tum_replay": tumr, "batched_vo": vob, "batched_vo_loop": bvl, "latency_kb": kb,
              "latency_mei": rigs["MEI"], "latency_scaramuzza": rigs["SCARAMUZZA"],
              "batched_kb": kbb, "latency_harsh": harsh, "batched_mei": bcams["MEI"],
              "batched_scaramuzza": bcams["SCARAMUZZA"], "latency_ocam_affine": ocs,
-             "batched_dyn": r20, "batched_td": r20b}
-    counts = {k: sum(r["counts"][k] for r in paths.values()) for k in KERNELS}
-    errs = {"fast_nms": k1_err, "lk_level": k2_err, "lk_iterate": k3_err}
-    main_shape = {"fast_nms": f"{B}x480x640 rendered", "lk_level": f"{B}x{N} level",
-                  "lk_iterate": f"1x{N} level"}
-    sources = {"fast_nms": ("fast_nms.cu", "vins_rgbd_fast_tpu/ops/fast_pallas.py:99"),
-               "lk_level": ("lk_level.cu", "vins_rgbd_fast_tpu/ops/lk_pallas3.py:273"),
-               "lk_iterate": ("lk_level.cu", "vins_rgbd_fast_tpu/ops/lk_pallas2.py:120")}
-    kernels = []
-    for name in KERNELS:
-        rows = [t for t in timings if t["kernel"] == name and t["shape"].startswith(
-            main_shape[name])]
-
-        def mean(key):
-            return statistics.fmean(t[key] for t in rows)
-
-        kernels.append(dict(
-            name=name, route="cuda", source="vins_rgbd_fast_torch/csrc/" + sources[name][0],
-            replaces=sources[name][1], launches=counts[name], max_abs_err=errs[name],
-            ms=mean("device_ms"), plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
-            bound_by=rows[0]["bound_by"], library_ms=None,
-            launches_by_path={p: r["counts"][name] for p, r in paths.items()},
-            host_us=mean("host_us"), profile_ms_per_frame={
-                p: (prof if p == "batched" else r["profile"])["by_kernel"][name][
-                    "device_ms_per_frame"] for p, r in paths.items()
-                if p == "batched" or r["profile"] is not None},
-            timings={t["shape"]: dict(ms=t["device_ms"], bound_ms=t["bound_ms"],
-                                      plain_ms=t["plain_ms"])
-                     for t in timings if t["kernel"] == name}))
+             "batched_dyn": r20, "batched_td": r20b,
+             "batched_sharded": dict(counts=r21["counts"], profile=r21["profile"]["D"])}
+    errs = {"fast_nms": max(k1_err, r21["errs"]["fast_nms"]),
+            "lk_level": max(k2_err, r21["errs"]["lk_level"]),
+            "lk_iterate": max(k3_err, r21["errs"]["lk_iterate"])}
+    kernels = kernel_entries(paths, errs, {"fast_nms": f"{B}x480x640 rendered",
+                                           "lk_level": f"{B}x{N} level",
+                                           "lk_iterate": f"1x{N} level"}, timings)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
-        json.dump(dict(card=smi, kernels=kernels, timings=timings, k2=rep, k3=rep3, main={
+        json.dump(dict(card=smi, cards=smi_cards, kernels=kernels, timings=timings, k2=rep,
+                       k3=rep3, main={
             k: res[k] for k in ("ates", "bounds", "counts", "run_ms", "wall_s", "frames")},
             stages=stages, profile=prof, extraction=ext, latency=lat,
             latency_loop=jsonable(loop), latency_loop_no_graph=alone, abba_ms=ms,
@@ -3670,11 +4114,50 @@ def main() -> int:
                 m: {k: r[k] for k in ("ates", "bounds", "counts", "run_ms", "frames")}
                 for m, r in bcams.items()}, latency_ocam_affine=ocs, kb_run_vio=kbe,
             calibration=calr, runner_api=api, stack_states=stacked, batched_dyn=r20,
-            batched_td=r20b, k2_batched_dyn=rep20, k2_batched_td=rep20b, phase_s=phase_s), f,
-                  indent=1,
-                  default=float)
+            batched_td=r20b, k2_batched_dyn=rep20, k2_batched_td=rep20b, batched_sharded=r21,
+            phase_s=phase_s), f, indent=1, default=float)
+    return finish(smi_cards, phase_s, kernels)
+
+
+def kernel_entries(paths: dict, errs: dict, main_shape: dict, timings: list) -> list:
+    """The ``kernels`` line: each kernel's launches summed over the paths
+    (``counts``), its largest error against its plain version, and its
+    device ms, plain ms and bound averaged over the timed rows of its main
+    shape (``main_shape``: the start of the rows' shape), with the device
+    ms per frame of each path's profile and every timed shape."""
+    counts = {k: sum(r["counts"][k] for r in paths.values()) for k in KERNELS}
+    sources = {"fast_nms": ("fast_nms.cu", "vins_rgbd_fast_tpu/ops/fast_pallas.py:99"),
+               "lk_level": ("lk_level.cu", "vins_rgbd_fast_tpu/ops/lk_pallas3.py:273"),
+               "lk_iterate": ("lk_level.cu", "vins_rgbd_fast_tpu/ops/lk_pallas2.py:120")}
+    kernels = []
+    for name in KERNELS:
+        rows = [t for t in timings if t["kernel"] == name and t["shape"].startswith(
+            main_shape[name])]
+
+        def mean(key):
+            return statistics.fmean(t[key] for t in rows)
+
+        kernels.append(dict(
+            name=name, route="cuda", source="vins_rgbd_fast_torch/csrc/" + sources[name][0],
+            replaces=sources[name][1], launches=counts[name], max_abs_err=errs[name],
+            ms=mean("device_ms"), plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
+            bound_by=rows[0]["bound_by"], library_ms=None,
+            launches_by_path={p: r["counts"][name] for p, r in paths.items()},
+            host_us=mean("host_us"), profile_ms_per_frame={
+                p: r["profile"]["by_kernel"][name]["device_ms_per_frame"]
+                for p, r in paths.items() if r.get("profile") is not None},
+            timings={t["shape"]: dict(ms=t["device_ms"], bound_ms=t["bound_ms"],
+                                      plain_ms=t["plain_ms"])
+                     for t in timings if t["kernel"] == name}))
+    return kernels
+
+
+def finish(smi_cards: list, phase_s: dict, kernels: list) -> int:
+    """The script's last lines: the phases' wall seconds, each card's name
+    and power limit (a line each), the kernels line and the result line."""
     print(f"[phases] wall seconds {phase_s}, {sum(phase_s.values()):.1f} in all", flush=True)
-    print(smi)
+    for line in smi_cards:
+        print(line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -3683,4 +4166,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

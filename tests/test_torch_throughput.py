@@ -1,14 +1,17 @@
 """``vins_rgbd_fast_torch/parallel/throughput.py`` and the runner's sharded
-and chained API against the JAX package on one device (the CPU) at small
-sizes: ``tests/test_parallel.py``'s two cases and
-``tests/test_sharded_runner.py``'s.
+and chained API against the JAX package on the CPU at small sizes:
+``tests/test_parallel.py``'s two cases and ``tests/test_sharded_runner.py``'s
+(``tests/test_torch_sharded.py`` holds the meshes of several entries to
+JAX's sharded step and ``run_sharded`` to ``run``).
 
 Tolerances: the batched step within 1e-5 of JAX's ``vmap(vio_step)`` from
 the same (bridged) states, float64, four frames (IMU on: JAX's step does
 not read its keys, the port's takes no draws); the port's batched step
-against its own single-sequence step within 1e-10; ``run_chained`` and
-``run_sharded`` bit-equal to ``run``; ``stack_states`` equal to JAX's on
-the same pipeline states, leaf by leaf."""
+against its own single-sequence step within 1e-10; ``run_chained``
+bit-equal to ``run``, and ``run_sharded`` over two shards of the CPU
+within JAX's tolerances of ``run`` (P 5e-4 m, cost rtol 5e-3, keyframes
+equal); ``stack_states`` equal to JAX's on the same pipeline states, leaf
+by leaf."""
 
 import types
 
@@ -36,18 +39,22 @@ def _drifted(pts, k, xp):
     return pts + (xp.arange(B)[:, None, None] * 2e-3 + 0.004 * k)
 
 
-def test_batched_step_runs_on_a_one_device_mesh():
-    mesh = ttp.make_mesh(device="cpu")
-    assert mesh == [torch.device("cpu")]
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_batched_step_runs_on_a_one_device_mesh(n):
+    """The batched step over a mesh of n CPU entries (a mesh of more than
+    one device was refused before the step ran sharded): 8 lanes split in
+    lane order, states and outputs on every entry."""
+    mesh = ttp.make_mesh(n, device="cpu")
+    assert mesh == [torch.device("cpu")] * n
     cfg = tg._example_cfg(maxf=16, maxi=8)
     states, feats, imus = tg._example_inputs(cfg, dtype=torch.float64, batch=8, device="cpu")
     feats = feats._replace(pts=feats.pts + torch.arange(8)[:, None, None] * 1e-3)
     states, feats, imus = (ttp.batch_shard(mesh, t) for t in (states, feats, imus))
     new_states, outs = ttp.make_batched_step(cfg, mesh)(states, feats, imus)
+    assert len(outs.parts) == n and len(new_states.parts) == n
+    outs = outs.gather("cpu")
     assert tuple(outs.P.shape) == (8, 3) and bool(torch.isfinite(outs.cost).all())
-    assert {a.device for a in tbp.leaves(new_states)} == {torch.device("cpu")}
-    with pytest.raises(ValueError, match="one device"):
-        ttp.make_batched_step(cfg, [torch.device("cpu")] * 2)
+    assert new_states.devices() == {torch.device("cpu")}
     one = ttp.replicate_state(tg._example_inputs(cfg, torch.float64, device="cpu")[0], 3)
     assert tuple(one.x.P.shape) == (3, 11, 3)
 
@@ -62,6 +69,7 @@ def test_batched_step_matches_jax_vmap_and_the_single_step():
         js, jout = jstep(js, jf._replace(pts=_drifted(jf.pts, k, jnp)), ji, jk)
         t_in = ts
         ts, tout = tstep(ts, tf._replace(pts=_drifted(tf.pts, k, torch)), ti)
+        ts, tout = ts.gather("cpu"), tout.gather("cpu")
         for f in ("P", "Q", "V"):
             np.testing.assert_allclose(getattr(tout, f).numpy(), np.asarray(getattr(jout, f)),
                                        atol=1e-5, err_msg=f"{f} at frame {k}")

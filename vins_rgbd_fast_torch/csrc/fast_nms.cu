@@ -44,6 +44,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "current_device.cuh"
+
 namespace {
 
 constexpr int TW = 64;               // output tile width
@@ -244,9 +246,11 @@ __global__ void __launch_bounds__(NT) fast_nms_kernel(const float* __restrict__ 
 }  // namespace
 
 extern "C" int fast_nms_launch(const float* img, float* out, int B, int H,
-                               int W, float threshold, cudaStream_t stream) {
+                               int W, float threshold, int device, cudaStream_t stream) {
   if (!(threshold >= 0.f)) return (int)cudaErrorInvalidValue;  // scores compare as ints
   if (B == 0 || H == 0 || W == 0) return 0;
+  const cudaError_t st = check_current_device(device);
+  if (st != cudaSuccess) return (int)st;
   const int vec = (W % 4 == 0) && ((uintptr_t)img % 16 == 0) && ((uintptr_t)out % 16 == 0);
   dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
   fast_nms_kernel<<<grid, NT, 0, stream>>>(img, out, H, W, threshold, vec);

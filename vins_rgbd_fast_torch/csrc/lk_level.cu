@@ -81,6 +81,11 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
+#include <mutex>
+
+#include "current_device.cuh"
+
 namespace {
 
 constexpr int MAX_WIN = 48;  // max search window side
@@ -435,6 +440,27 @@ __global__ void __launch_bounds__(32 * K3_WARPS) lk_iterate_kernel(
   }
 }
 
+// K2's opt-in above the 48 KB of dynamic shared memory a block gets by
+// default.  It is an attribute of the kernel in each device's context, so
+// it is set once per device, on the first launch there; launches come from
+// several host threads at once (one per shard of a mesh, the loop-closure
+// workers), so the first ones on a device meet at a lock.
+constexpr int MAX_DEVICES = 64;
+std::atomic<bool> k2_opted_in[MAX_DEVICES];
+std::mutex k2_opt_in_lock;
+
+cudaError_t k2_opt_in(int device) {
+  if (device < 0 || device >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (k2_opted_in[device].load(std::memory_order_acquire)) return cudaSuccess;
+  std::lock_guard<std::mutex> hold(k2_opt_in_lock);
+  if (k2_opted_in[device].load(std::memory_order_relaxed)) return cudaSuccess;
+  const cudaError_t st = cudaFuncSetAttribute(
+      lk_level_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)(sizeof(float) * K2_WARPS * (K2_PT + MAX_WIN) * LK_P));
+  if (st == cudaSuccess) k2_opted_in[device].store(true, std::memory_order_release);
+  return st;
+}
+
 }  // namespace
 
 extern "C" int lk_level_launch(const float* prev, const float* cur,
@@ -443,7 +469,7 @@ extern "C" int lk_level_launch(const float* prev, const float* cur,
                                const int* ay, float* u, unsigned char* ok,
                                float* err, int B, int N, int H, int W, int win,
                                int search_margin, int iters, float eps2,
-                               float min_eig, cudaStream_t stream) {
+                               float min_eig, int device, cudaStream_t stream) {
   const int WIN = win + 1 + 2 * search_margin;
   if (win != LK_W || search_margin < 0 || WIN > MAX_WIN) return (int)cudaErrorInvalidValue;
   if (B == 0 || N == 0) return 0;
@@ -451,14 +477,8 @@ extern "C" int lk_level_launch(const float* prev, const float* cur,
   // per warp the template tile and the window, rows of LK_P floats: 51 KB
   // at WIN = 38, 60 KB at most, above the 48 KB a block gets without opting in
   const size_t smem = sizeof(float) * K2_WARPS * (K2_PT + WIN) * LK_P;
-  static int opted_in_device = -1;
-  int device = 0;
-  cudaError_t st = cudaGetDevice(&device);
-  if (st == cudaSuccess && opted_in_device != device) {
-    st = cudaFuncSetAttribute(lk_level_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)(sizeof(float) * K2_WARPS * (K2_PT + MAX_WIN) * LK_P));
-    if (st == cudaSuccess) opted_in_device = device;
-  }
+  cudaError_t st = check_current_device(device);
+  if (st == cudaSuccess) st = k2_opt_in(device);
   if (st != cudaSuccess) return (int)st;
   lk_level_kernel<<<(BN + K2_WARPS - 1) / K2_WARPS, 32 * K2_WARPS, smem, stream>>>(
       prev, cur, pts, flow, active, ax, ay, u, ok, err, BN, N, H, W, WIN, iters, eps2,
@@ -472,10 +492,13 @@ extern "C" int lk_iterate_launch(const float* tmpl, const float* ix, const float
                                  const float* inv_det, const float* gxx,
                                  const float* gxy, const float* gyy, float* u,
                                  float* err, int B, int N, int w, int WIN, int iters,
-                                 float eps2, cudaStream_t stream) {
+                                 float eps2, int device, cudaStream_t stream) {
   if (w != LK_W || WIN < 1 || WIN > MAX_WIN) return (int)cudaErrorInvalidValue;
   if (B == 0 || N == 0) return 0;
-  // the window at pitch LK_P and the exchange slots: 8.1 KB at WIN = 38
+  const cudaError_t st = check_current_device(device);
+  if (st != cudaSuccess) return (int)st;
+  // the window at pitch LK_P and the exchange slots: 8.1 KB at WIN = 38,
+  // 10.2 KB at most, under the 48 KB a block gets without opting in
   const size_t smem = sizeof(float) * (WIN * LK_P + 4 * K3_WARPS);
   lk_iterate_kernel<<<B * N, 32 * K3_WARPS, smem, stream>>>(
       tmpl, ix, iy, win, px, py, u0, done0, inv_det, gxx, gxy, gyy, u, err, WIN, iters, eps2);

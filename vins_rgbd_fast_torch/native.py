@@ -21,6 +21,8 @@ import subprocess
 import tempfile
 import threading
 
+import torch
+
 _DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_DIR, "csrc")
 BUILD = os.path.join(_DIR, "build")
@@ -90,12 +92,14 @@ def lib() -> ctypes.CDLL:
             L = ctypes.CDLL(build())
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             L.fast_nms_launch.restype = i
-            L.fast_nms_launch.argtypes = [p, p, i, i, i, f, p]
+            # each launcher takes its tensors' device index before the stream
+            # and refuses a calling thread whose current device is another
+            L.fast_nms_launch.argtypes = [p, p, i, i, i, f, i, p]
             L.lk_level_launch.restype = i
             L.lk_level_launch.argtypes = [p, p, p, p, p, p, p, p, p, p,
-                                          i, i, i, i, i, i, i, f, f, p]
+                                          i, i, i, i, i, i, i, f, f, i, p]
             L.lk_iterate_launch.restype = i
-            L.lk_iterate_launch.argtypes = [p] * 14 + [i, i, i, i, i, f, p]
+            L.lk_iterate_launch.argtypes = [p] * 14 + [i, i, i, i, i, f, i, p]
             _lib = L
     return _lib
 
@@ -103,3 +107,16 @@ def lib() -> ctypes.CDLL:
 def check(status: int, name: str) -> None:
     if status != 0:
         raise RuntimeError(f"{name}: CUDA error {status} at launch")
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call the launcher ``name`` of the library for tensors on ``device``:
+    under a guard that makes ``device`` the calling thread's current one
+    (the runtime launches there, whatever the stream), on its current
+    stream, with the device index and the stream appended to ``args``.
+    A caller on any thread, whatever its current device, gets a launch on
+    the tensors' card."""
+    fn = getattr(lib(), name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        check(fn(*args, device.index, stream), name)

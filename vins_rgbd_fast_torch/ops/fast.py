@@ -29,6 +29,7 @@ FAST_OFFSETS = (
 ARC_LEN = 9
 
 launches = 0  # K1 launches (the CUDA path only)
+launches_by_device = {}  # the same launches by CUDA device index
 _count_lock = threading.Lock()  # the tracker and the loop-closure worker both launch K1
 
 
@@ -91,12 +92,12 @@ def fast_nms(img: torch.Tensor, threshold: float = 10.0) -> torch.Tensor:
         raise ValueError(f"fast_nms: the kernel takes a threshold >= 0 (got {threshold})")
     B, H, W = img.shape
     out = torch.empty_like(img)
-    stream = torch.cuda.current_stream(img.device).cuda_stream
-    native.check(native.lib().fast_nms_launch(
-        img.data_ptr(), out.data_ptr(), B, H, W, float(threshold), stream),
-        "fast_nms")
+    native.launch("fast_nms_launch", img.device, img.data_ptr(), out.data_ptr(), B, H, W,
+                  float(threshold))
     with _count_lock:
         launches += 1
+        d = img.device.index
+        launches_by_device[d] = launches_by_device.get(d, 0) + 1
     return out
 
 

@@ -52,6 +52,8 @@ from .. import native
 
 level_launches = 0    # K2 launches (the CUDA path only)
 iterate_launches = 0  # K3 launches (the CUDA path only)
+level_launches_by_device = {}    # the same launches by CUDA device index
+iterate_launches_by_device = {}
 _count_lock = threading.Lock()  # launches may come from more than one thread
 K2_WIN = 21           # K2's and K3's compile-time patch side (both pipelines run 21)
 MAX_WIN = 48          # the largest search window K2 and K3 take
@@ -258,14 +260,15 @@ def _lk_level_cuda(prev, cur, pts_l, flow, active, ax, ay, win, search_margin,
     u = torch.empty((B, N, 2), dtype=f32, device=prev.device)
     ok = torch.empty((B, N), dtype=torch.bool, device=prev.device)
     err = torch.empty((B, N), dtype=f32, device=prev.device)
-    stream = torch.cuda.current_stream(prev.device).cuda_stream
-    native.check(native.lib().lk_level_launch(
-        prev.data_ptr(), cur.data_ptr(), pts_l.data_ptr(), flow.data_ptr(),
-        active.data_ptr(), ax.data_ptr(), ay.data_ptr(), u.data_ptr(),
-        ok.data_ptr(), err.data_ptr(), B, N, H, W, win, search_margin, iters,
-        float(eps) * float(eps), float(min_eig), stream), "lk_level")
+    native.launch("lk_level_launch", prev.device,
+                  prev.data_ptr(), cur.data_ptr(), pts_l.data_ptr(), flow.data_ptr(),
+                  active.data_ptr(), ax.data_ptr(), ay.data_ptr(), u.data_ptr(),
+                  ok.data_ptr(), err.data_ptr(), B, N, H, W, win, search_margin, iters,
+                  float(eps) * float(eps), float(min_eig))
     with _count_lock:
         level_launches += 1
+        d = prev.device.index
+        level_launches_by_device[d] = level_launches_by_device.get(d, 0) + 1
     return u, ok, err
 
 
@@ -287,14 +290,16 @@ def _lk_iterate_cuda(tmpl, Ix, Iy, win_img, px, py, u0, done0, inv_det, Gxx, Gxy
         ("Gyy", Gyy, f32, pn)))
     u = torch.empty((B, N, 2), dtype=f32, device=tmpl.device)
     err = torch.empty((B, N), dtype=f32, device=tmpl.device)
-    stream = torch.cuda.current_stream(tmpl.device).cuda_stream
-    native.check(native.lib().lk_iterate_launch(
-        tmpl.data_ptr(), Ix.data_ptr(), Iy.data_ptr(), win_img.data_ptr(), px.data_ptr(),
-        py.data_ptr(), u0.data_ptr(), done0.data_ptr(), inv_det.data_ptr(), Gxx.data_ptr(),
-        Gxy.data_ptr(), Gyy.data_ptr(), u.data_ptr(), err.data_ptr(), B, N, win, WIN,
-        iters, float(eps) * float(eps), stream), "lk_iterate")
+    native.launch("lk_iterate_launch", tmpl.device,
+                  tmpl.data_ptr(), Ix.data_ptr(), Iy.data_ptr(), win_img.data_ptr(),
+                  px.data_ptr(), py.data_ptr(), u0.data_ptr(), done0.data_ptr(),
+                  inv_det.data_ptr(), Gxx.data_ptr(), Gxy.data_ptr(), Gyy.data_ptr(),
+                  u.data_ptr(), err.data_ptr(), B, N, win, WIN, iters,
+                  float(eps) * float(eps))
     with _count_lock:
         iterate_launches += 1
+        d = tmpl.device.index
+        iterate_launches_by_device[d] = iterate_launches_by_device.get(d, 0) + 1
     return u, err
 
 

@@ -14,13 +14,23 @@ and are stacked at the end.  Loop closure rides on the outputs between
 segments (``parallel/loop_closer.BatchedLoopCloser``,
 ``ThreadedLoopCloser``).
 
-The JAX runner's multi-device API keeps its names on one card:
-``run_chained`` is ``run`` (both dispatch frame by frame), ``shard_spec``,
-``put_batch`` and ``put_states`` place on the runner's device, and
-``run_sharded`` is ``run`` after checking that placement.  ``stack_states``
-turns per-sequence ``VinsPipeline``s (warmed by their own initialization
-programs) into the runner's batched states; ``stage_frames_arrays`` stages
-pre-rendered device stacks with each lane's IMU intervals.
+The multi-device program (JAX's ``run_sharded`` under ``shard_map``): a
+runner built with a ``mesh`` (a list of devices, one shard each; a device
+may appear more than once) splits its B lanes over the mesh in lane order.
+``shard_spec``, ``put_states`` and ``put_batch`` place each shard's lanes on
+its device as a ``Sharded`` tree, and ``run_sharded`` runs every shard's T
+frames of ``fused_frame_step`` as a complete local program in a host thread
+of its own, current device its shard's, on that device's current stream
+(shards of one device take turns); no shard talks to another.  Lane b's
+generators live on lane b's device whatever the split, so a lane's draws
+do not depend on it (JAX builds the per-lane keys outside the shard).
+States and outputs come back sharded; ``Sharded.gather`` brings a tree
+onto one device.
+``run_chained`` is ``run`` (both dispatch frame by frame); ``run`` and
+``warm`` are the one-device path.  ``stack_states`` turns per-sequence
+``VinsPipeline``s (warmed by their own initialization programs) into the
+runner's batched states; ``stage_frames_arrays`` stages pre-rendered device
+stacks with each lane's IMU intervals.
 
 Without an IMU (VO, the TUM RGB-D rig: ``EstimatorConfig.use_imu`` and
 ``TrackerConfig.use_imu_prediction`` off) the staged intervals are empty,
@@ -32,8 +42,11 @@ uniforms, in every step (JAX draws both from one key per sequence and step).
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+import threading
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -141,19 +154,24 @@ def stage_frames(imgs: Sequence[torch.Tensor], depths: Sequence[torch.Tensor],
 
 
 class BatchedVioRunner:
-    """Batched multi-sequence VIO (or VO) on one device.
+    """Batched multi-sequence VIO (or VO), on one device or sharded by lane
+    over a mesh of devices.
 
     Any ``EstimatorConfig`` (one for all sequences): lanes warmed by
     ``VinsPipeline`` and stacked (``stack_states``), or, with static init,
     by ``warm``, which runs the window-filling frames and the static
-    initialization in lock step; ``run`` then processes T steady frames.  RANSAC draws
-    come from one ``torch.Generator`` per sequence, seeded ``seed + b``;
-    in VO mode the PnP draws from another, seeded ``seed + PNP_SEED + b``."""
+    initialization in lock step; ``run`` then processes T steady frames on
+    ``device``.  With ``mesh`` (devices, one shard each, B divisible by
+    their number; ``device`` defaults to its first), ``run_sharded`` runs
+    shard i's lanes on ``mesh[i]``.  RANSAC draws come from one
+    ``torch.Generator`` per sequence, seeded ``seed + b``, on lane b's
+    device; in VO mode the PnP draws from another, seeded
+    ``seed + PNP_SEED + b``."""
 
     PNP_SEED = 1000
 
     def __init__(self, tcfg: TrackerConfig, cam: CameraModel, ecfg: EstimatorConfig,
-                 device, B: int, seed: int = 17):
+                 device, B: int, seed: int = 17, mesh: Optional[Sequence] = None):
         # the batched envelope: LK capped at 12 fine / 6 coarse iterations;
         # "auto" is the whole-level kernel K2, as JAX picks on TPU
         eng = "pallas3" if tcfg.lk_engine == "auto" else tcfg.lk_engine
@@ -162,20 +180,43 @@ class BatchedVioRunner:
                                         lk_coarse_iters=min(tcfg.lk_coarse_iters, 6))
         self.cam = cam
         self.ecfg = ecfg
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and self.device.index is None:
-            self.device = torch.device("cuda", torch.cuda.current_device())
+        if device is None and not mesh:
+            raise ValueError("BatchedVioRunner: a device or a mesh")
+        self.device = _indexed(device if device is not None else mesh[0])
+        self.mesh = mesh_of(mesh) if mesh else (self.device,)
+        if B % len(self.mesh):
+            raise ValueError(f"BatchedVioRunner: {B} lanes do not split over a mesh of "
+                             f"{len(self.mesh)} devices")
         self.B = B
         self.generators = self._generators(seed)
         self.pnp_generators = None if ecfg.use_imu else self._generators(seed + self.PNP_SEED)
+        self._shards = [self._shard(i) for i in range(len(self.mesh))]
 
     def _generators(self, seed: int) -> List[torch.Generator]:
+        """One per lane, on the device of the lane's shard."""
         gens = []
         for b in range(self.B):
-            g = torch.Generator(device=self.device)
+            g = torch.Generator(device=self.mesh[b // (self.B // len(self.mesh))])
             g.manual_seed(seed + b)
             gens.append(g)
         return gens
+
+    def _shard(self, i: int) -> "BatchedVioRunner":
+        """Shard i as a one-device runner over its lanes, sharing their
+        generators with this runner."""
+        n = self.B // len(self.mesh)
+        view = copy.copy(self)
+        view.device, view.mesh, view.B = self.mesh[i], (self.mesh[i],), n
+        view.generators = self.generators[i * n:(i + 1) * n]
+        if self.pnp_generators is not None:
+            view.pnp_generators = self.pnp_generators[i * n:(i + 1) * n]
+        view._shards = [view]
+        return view
+
+    def _one_device(self, name: str) -> None:
+        if any(d != self.device for d in self.mesh):
+            raise ValueError(f"{name} runs every lane on {self.device}, but this runner's "
+                             f"lanes lie on {[str(d) for d in self.mesh]}: run_sharded")
 
     def ransac_uniforms(self):
         return ransac_ops.draw_uniforms(self.generators, self.tcfg.ransac_trials,
@@ -203,6 +244,7 @@ class BatchedVioRunner:
                 "BatchedVioRunner.warm runs the static initialization only; for static_init 0 "
                 "warm one VinsPipeline per sequence until NON_LINEAR (init_dynamic or "
                 "init_mono), then stack_states(pipes), stage_frames_arrays(pipes, ...) and run")
+        self._one_device("warm")
         if batch.ts.shape[0] != WINDOW_SIZE + 1:
             raise ValueError(f"warm needs {WINDOW_SIZE + 1} frames")
         for k in range(WINDOW_SIZE + 1):
@@ -218,7 +260,9 @@ class BatchedVioRunner:
         return trk, st, out
 
     def run(self, trk, st, batch: FrameBatch):
-        """T steady frames; returns (trk, st, ScanOutputs (T, B, ...))."""
+        """T steady frames on ``device``; returns (trk, st, ScanOutputs
+        (T, B, ...))."""
+        self._one_device("run")
         outs = []
         for k in range(batch.ts.shape[0]):
             imu = est.ImuInterval(batch.imu_dts[k], batch.imu_acc[k], batch.imu_gyr[k])
@@ -238,34 +282,146 @@ class BatchedVioRunner:
         itself dispatches frame by frame, so this is ``run``."""
         return self.run(trk, st, batch)
 
-    # -- placement: one card is the whole "mesh" -------------------------
-    def shard_spec(self, ndim_batch_axis: int = 0) -> torch.device:
-        """Where a tensor with its batch axis at ``ndim_batch_axis`` lives:
-        the runner's device, whatever the axis."""
-        return self.device
+    # -- the mesh ----------------------------------------------------------
+    def shard_spec(self, ndim_batch_axis: int = 0) -> "ShardSpec":
+        """How a tree with its lane axis at ``ndim_batch_axis`` is split:
+        lanes in order over the runner's mesh."""
+        return ShardSpec(self.mesh, ndim_batch_axis)
 
-    def put_batch(self, tree):
-        """A (T, B, ...) tree (a ``FrameBatch``) on the runner's device."""
-        return map_tree(lambda a: a.to(self.device), tree)
+    def put_batch(self, tree) -> "Sharded":
+        """A (T, B, ...) tree (a ``FrameBatch``) split by lane, each
+        shard's lanes copied to its device."""
+        return self.shard_spec(1).place(tree)
 
-    def put_states(self, tree):
-        """A (B, ...) tree (tracker or estimator states) on the runner's
-        device."""
-        return map_tree(lambda a: a.to(self.device), tree)
+    def put_states(self, tree) -> "Sharded":
+        """A (B, ...) tree (tracker or estimator states) split by lane, each
+        shard's lanes copied to its device."""
+        return self.shard_spec(0).place(tree)
 
-    def run_sharded(self, trk, st, batch: FrameBatch):
-        """``run`` after JAX's placement checks: every input on the
-        runner's device (``put_states``/``put_batch``) and B sequences
-        (``batch.ts`` (T, B)); on one card the sequences need no split."""
-        if batch.ts.shape[1] != self.B:
-            raise ValueError(f"run_sharded: the batch holds {batch.ts.shape[1]} sequences, "
-                             f"the runner {self.B}")
-        for name, tree in (("tracker states", trk), ("estimator states", st), ("batch", batch)):
-            devs = {a.device for a in leaves(tree)}
-            if devs != {self.device}:
-                raise ValueError(f"run_sharded: the {name} lie on {sorted(map(str, devs))}, "
-                                 f"not on {self.device} (put_states/put_batch)")
-        return self.run(trk, st, batch)
+    def run_sharded(self, trk: "Sharded", st: "Sharded", batch: "Sharded"):
+        """T frames of every shard, each on its own device in a thread of
+        its own (``on_shards``), from states placed by ``put_states`` and a
+        batch placed by ``put_batch`` (or ``Sharded`` trees of the same
+        layout, such as this method's own results); returns (trk, st,
+        ScanOutputs), all ``Sharded`` (the outputs on lane axis 1).  A
+        shard's exception is raised here once every shard has ended."""
+        for name, tree, axis in (("tracker states", trk, 0), ("estimator states", st, 0),
+                                 ("batch", batch, 1)):
+            self.shard_spec(axis).check(tree, f"run_sharded: the {name}")
+        res = on_shards(self.mesh, lambda i: self._shards[i].run(
+            trk.parts[i], st.parts[i], batch.parts[i]))
+        return (Sharded(self.mesh, [r[0] for r in res], 0),
+                Sharded(self.mesh, [r[1] for r in res], 0),
+                Sharded(self.mesh, [r[2] for r in res], 1))
+
+
+def _indexed(device) -> torch.device:
+    """``device`` with its index (a bare "cuda" is the current device)."""
+    d = torch.device(device)
+    return torch.device("cuda", torch.cuda.current_device()) \
+        if d.type == "cuda" and d.index is None else d
+
+
+def mesh_of(devices: Sequence) -> tuple:
+    """A mesh: the devices, each with its index, one shard each."""
+    return tuple(_indexed(d) for d in devices)
+
+
+class Sharded:
+    """A tree split by lane over a mesh (the port's twin of a JAX array
+    sharded on its lane axis): ``parts[i]`` holds shard i's lanes, in lane
+    order, on ``mesh[i]``; ``axis`` is every leaf's lane axis (0 for
+    states, 1 for a (T, B, ...) ``FrameBatch`` or ``ScanOutputs``)."""
+
+    def __init__(self, mesh: Sequence, parts: Sequence, axis: int = 0):
+        if len(parts) != len(mesh):
+            raise ValueError(f"Sharded: {len(parts)} parts for a mesh of {len(mesh)}")
+        self.mesh = mesh_of(mesh)
+        self.parts = tuple(parts)
+        self.axis = axis
+
+    def devices(self) -> set:
+        """The devices the leaves live on."""
+        return {a.device for p in self.parts for a in leaves(p)}
+
+    def gather(self, device):
+        """The whole tree on ``device``: the shards' lanes concatenated in
+        order."""
+        return _cat_trees([map_tree(lambda a: a.to(device), p) for p in self.parts],
+                          self.axis)
+
+
+class ShardSpec(NamedTuple):
+    """Lanes split in order over ``mesh``, along each leaf's ``axis``."""
+    mesh: tuple
+    axis: int
+
+    def place(self, tree) -> Sharded:
+        """``tree`` (lane axis ``axis``) split into equal shards, each copied
+        to its device (a B the mesh does not divide raises ``ValueError``,
+        as JAX's ``shard_map`` does)."""
+        B = leaves(tree)[0].shape[self.axis]
+        n = len(self.mesh)
+        if B % n:
+            raise ValueError(f"{B} lanes do not split over a mesh of {n} devices")
+        per = B // n
+        return Sharded(self.mesh, [
+            map_tree(lambda a: a.narrow(self.axis, i * per, per).to(d, copy=True).contiguous(),
+                     tree)
+            for i, d in enumerate(self.mesh)], self.axis)
+
+    def check(self, tree, what: str) -> None:
+        """Raise ``ValueError`` unless ``tree`` is ``Sharded`` as this spec
+        places it: this mesh, this axis, every leaf of shard i on
+        ``mesh[i]`` with the same number of lanes."""
+        if not isinstance(tree, Sharded) or tree.mesh != tuple(self.mesh) \
+                or tree.axis != self.axis:
+            raise ValueError(f"{what} are not split over the mesh "
+                             f"{[str(d) for d in self.mesh]} on axis {self.axis} "
+                             "(put_states/put_batch)")
+        lanes = set()
+        for d, part in zip(self.mesh, tree.parts):
+            for a in leaves(part):
+                if a.device != d:
+                    raise ValueError(f"{what}: a leaf of the shard of {d} lies on {a.device}")
+                lanes.add(a.shape[self.axis])
+        if len(lanes) > 1:
+            raise ValueError(f"{what}: shards of unequal lanes {sorted(lanes)}")
+
+
+def on_shards(mesh: Sequence[torch.device], fn: Callable[[int], object]) -> list:
+    """``fn(i)`` for every shard i of ``mesh``, each in a host thread of its
+    own whose current device is ``mesh[i]`` (so its current stream is that
+    device's); the results in shard order.  Shards of one device take turns
+    (each holds the device's lock while it runs): their work meets on the
+    device's one stream anyway, and threads that dispatch to one device at
+    once contend for the interpreter lock and the device's context at
+    every launch.  Every thread is joined; then the exception of the first
+    shard that raised, if any, is raised here, with a note naming the
+    shard."""
+    results: list = [None] * len(mesh)
+    errors: list = [None] * len(mesh)
+    turns = {d: threading.Lock() for d in set(mesh)}
+
+    def work(i: int) -> None:
+        try:
+            with turns[mesh[i]], (torch.cuda.device(mesh[i]) if mesh[i].type == "cuda"
+                                  else contextlib.nullcontext()):
+                results[i] = fn(i)
+        except BaseException as e:  # raised in the caller below
+            errors[i] = e
+
+    threads = [threading.Thread(target=work, args=(i,), name=f"shard-{i}")
+               for i in range(len(mesh))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for i, e in enumerate(errors):
+        if e is not None:
+            e.add_note(f"in shard {i} of {len(mesh)}, on {mesh[i]}")
+            raise e
+    return results
 
 
 def leaves(tree) -> list:
@@ -283,12 +439,12 @@ def map_tree(fn, tree):
     return None if tree is None else fn(tree)
 
 
-def _cat_trees(trees):
+def _cat_trees(trees, dim: int = 0):
     first = trees[0]
     if isinstance(first, tuple):
-        parts = [_cat_trees([t[i] for t in trees]) for i in range(len(first))]
+        parts = [_cat_trees([t[i] for t in trees], dim) for i in range(len(first))]
         return type(first)(*parts) if hasattr(first, "_fields") else tuple(parts)
-    return None if first is None else torch.cat(list(trees))
+    return None if first is None else torch.cat(list(trees), dim)
 
 
 def stack_states(pipes) -> Tuple[ft.TrackerState, est.EstimatorState]:

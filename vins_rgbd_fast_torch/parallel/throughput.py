@@ -1,12 +1,15 @@
-"""Batched-sequence throughput over a "mesh" of devices (twin of
+"""Batched-sequence throughput over a mesh of devices (twin of
 ``vins_rgbd_fast_tpu/parallel/throughput.py``).
 
 JAX shards N independent sensor streams (robots, bag replays, evaluation
-sweeps) over a device mesh with ``vmap(vio_step)``.  The port's backend is
-batched already, over the leading axis of every state, so the batched step
-is ``vio_step`` itself, and the port runs a batch on one card: a mesh here
-is a list of devices, and a mesh of more than one device is refused rather
-than silently reduced to one.
+sweeps) over a device mesh with ``vmap(vio_step)`` and sharding
+annotations.  The port's backend is batched already, over the leading
+axis of every state, so each shard's step is ``vio_step`` itself: a mesh
+is a list of devices (a device may appear more than once, each entry its
+own shard), ``batch_shard`` splits the lane axis over it in lane order
+(``Sharded``), and ``make_batched_step`` runs one ``vio_step`` per shard,
+each on its device in a host thread of its own, with no cross-sequence
+work.  A mesh is never reduced to fewer devices than asked for.
 """
 
 from __future__ import annotations
@@ -17,14 +20,15 @@ import torch
 
 from ..backend import estimator as est
 from ..config import EstimatorConfig
-from .batched_pipeline import map_tree
+from .batched_pipeline import Sharded, ShardSpec, map_tree, mesh_of, on_shards
 
 
 def make_mesh(n_devices: Optional[int] = None, device: str = "cuda") -> List[torch.device]:
-    """The CUDA devices (the first ``n_devices``; all by default), or
-    ``[torch.device("cpu")]`` with ``device="cpu"``."""
+    """The first ``n_devices`` CUDA devices (all by default; fewer present
+    raises), or with ``device="cpu"`` ``n_devices`` entries of the CPU (1
+    by default), the twin of the virtual host devices JAX's tests run on."""
     if torch.device(device).type == "cpu":
-        return [torch.device("cpu")]
+        return [torch.device("cpu")] * (1 if n_devices is None else n_devices)
     n = torch.cuda.device_count()
     if n == 0:
         raise RuntimeError("make_mesh: CUDA is not available (device='cpu' for the CPU)")
@@ -35,29 +39,38 @@ def make_mesh(n_devices: Optional[int] = None, device: str = "cuda") -> List[tor
     return [torch.device("cuda", i) for i in range(n)]
 
 
-def _device(mesh: List[torch.device]) -> torch.device:
-    if len(mesh) != 1:
-        raise ValueError(f"a mesh of {len(mesh)} devices: the port runs a batch on one "
-                         "device (make_mesh(1))")
-    return mesh[0]
-
-
-def batch_shard(mesh: List[torch.device], tree):
-    """A batched tree (leading axis B) placed on the mesh's device."""
-    dev = _device(mesh)
-    return map_tree(lambda a: a.to(dev), tree)
+def batch_shard(mesh: List[torch.device], tree) -> Sharded:
+    """A batched tree (leading axis B) split in lane order over the mesh,
+    each shard copied to its device; B must divide by the mesh's size."""
+    return ShardSpec(mesh_of(mesh), 0).place(tree)
 
 
 def make_batched_step(cfg: EstimatorConfig, mesh: List[torch.device]):
     """The batched VIO step over (states, feats, imus, draws): one
-    ``vio_step`` per sequence on the mesh's device, no cross-sequence
-    work.  ``draws`` takes the place of JAX's per-sequence keys: the VO
-    pose init's PnP uniforms (B, 32, MAXF), None with an IMU (where JAX's
-    step does not read its key)."""
-    _device(mesh)
+    ``vio_step`` per shard of the mesh, each on its own device, no
+    cross-sequence work; inputs ``Sharded`` over the mesh (a plain batched
+    tree is placed by ``batch_shard`` first), outputs (states, StepOutput)
+    ``Sharded`` alike.  ``draws`` takes the place of JAX's per-sequence
+    keys: the VO pose init's PnP uniforms (B, 32, MAXF), None with an IMU
+    (where JAX's step does not read its key)."""
+    spec = ShardSpec(mesh_of(mesh), 0)
+    if not spec.mesh:
+        raise ValueError("make_batched_step: an empty mesh")
+
+    def placed(tree):
+        if tree is None:
+            return None
+        tree = tree if isinstance(tree, Sharded) else spec.place(tree)
+        spec.check(tree, "make_batched_step: the inputs")
+        return tree
 
     def step(states, feats, imus, draws=None):
-        return est.vio_step(cfg, states, feats, imus, None, draws)
+        ins = [placed(t) for t in (states, feats, imus, draws)]
+        res = on_shards(spec.mesh, lambda i: est.vio_step(
+            cfg, *[None if t is None else t.parts[i] for t in ins[:3]], None,
+            None if ins[3] is None else ins[3].parts[i]))
+        return (Sharded(spec.mesh, [r[0] for r in res], 0),
+                Sharded(spec.mesh, [r[1] for r in res], 0))
 
     return step
 
