@@ -34,9 +34,16 @@ Phases (each prints one line; any failure raises and exits non-zero):
      with the K2 bounds;
   5. the main path: B = 8 sequences at 640×480 rendered on the device,
      ``BatchedVioRunner.warm`` (11 window-filling frames + static init) and
-     ``run`` over T steady frames; finite costs, every kernel launched by
-     the path, distinct sequences, per-sequence ATE under
-     max(0.05·travelled, 0.08 m); prints frames per second (CUDA events);
+     ``run`` over T steady frames: the first alone (run eagerly on the
+     capture stream, then the frame captured as a CUDA graph), the other
+     T - 1 replayed; finite costs, every kernel launched by the path (K1
+     once and K2 twice per frame, counted under replay), distinct
+     sequences, per-sequence ATE under max(0.05·travelled, 0.08 m); prints
+     frames per second over the replayed frames (CUDA events) and the
+     first frame's host seconds; before it, ``run_eager`` over the same
+     frames from the same states and generator states (the per-op
+     dispatch), timed, and ``run`` held to it bit for bit (or else within
+     JAX's tolerances, the first differing leaf named);
   6. kernel timings at the path shapes (K1 at 8×480×640 on the rendered
      frames and on noise, at 1×480×640 and at 32×480×640, the extraction
      chunk; K2 per level at 8×200): device
@@ -44,9 +51,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
      wrapper's host µs per call, the bound from the work these inputs need
      (K1's pre-test survivors, K2's covered pixels, the GN steps taken) and
      the share of it; the plain versions' time per call (no yardstick); a
-     per-stage split, and a profile of a few steady frames (chiprun_out/)
-     that must show no host synchronisation inside ``run`` and gives each
-     kernel's device ms per frame by name;
+     per-stage split of the eager step, and a profile of a few replayed
+     frames (in the output directory) that must show no host synchronisation inside
+     ``run`` and K1 and K2 by name as often as the counters count them,
+     and gives each kernel's device ms per frame by name;
   7. the latency path: ``VinsPipeline`` over one 640×480 stream (the bench's
      ``run_latency`` with ``BENCH_LAT_LOOP=0``): 16 warm-up frames through
      ``spin_once``, then 48 timed frames (CUDA-synchronised wall time);
@@ -191,9 +199,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      a feature flagged dynamic on at least one frame, K1 once and K3 twice
      per frame, 2 profiled frames with no host wait;
  18. intrinsic calibration (rendered boards, the four models, the CLI);
- 19. the runner's chained API and ``run_sharded`` over two shards of the
-     card, ``stack_states``, the graft twins' dry runs over eight shards of
-     the card;
+ 19. the runner's chained API, ``run_eager`` and ``run_sharded`` over two
+     shards of the card against ``run``, ``stack_states``, the graft
+     twins' dry runs over eight shards of the card;
  20. the OpenLORIS rig (848×480, ``static_init`` 0, grid 7×8, 200
      slots, depth to 3 m, 30 Hz) on ``BatchedVioRunner``: 8 lanes
      (``make_trajectory`` seeds 7-14, each moving from frame 0; lanes 6
@@ -231,15 +239,18 @@ Phases (each prints one line; any failure raises and exits non-zero):
      JAX's tolerances (P 5e-4 m, cost rtol 5e-3, keyframes equal): every
      lane under its truth bound, finite costs, K1 once and K2 twice per
      frame for each shard on each card, each card's peak memory;
-     (c) ``run`` at B = 8 and at every lane on card 0, both sharded runs
-     and (on several cards) the every-card shards run in turn from the main
-     thread (its outputs equal to the threads' bit for bit), 20 frames each,
+     and ``run_eager`` at B = 8 on card 0 against ``run`` (bit for bit,
+     or else within the same tolerances);
+     (c) ``run`` at B = 8 (A) and at every lane (B) on card 0, both sharded
+     runs (C, D; every shard replayed in turn from the main thread) and
+     ``run_eager`` at B = 8 (E, the per-op dispatch), 20 frames each,
      three turns (A B C D E E D C B A A B C D E), host clock ended by a
      synchronisation of every card used: ms per step, seq-frames/s and the
-     ratios to the first; a profile of 3 frames of each sharded run with
-     no host wait on any thread, and each card's kernels, device ms and busy
-     share per frame; (d) both dry runs over every card (on one card phase
-     19's eight shards of it, already run).
+     ratios to A; a profile of 2 frames of each way: host CUDA API calls
+     per frame, no host wait, and each card's kernels (K1 once and K2
+     twice per shard per frame by name), device ms and busy share per
+     frame; (d) both dry runs over every card (on one card phase 19's
+     eight shards of it, already run).
 Phases 5, 7, 9, 10, 11, 12, 13, 14, 14b, 15, 15b, 16, 16c (once per
 camera), 16d, 16e (once per camera), 16f, 17, 20, 20b and 21 (each
 sharded run of 21b) each zero the kernels' launch counters just before
@@ -536,12 +547,21 @@ def make_sequences(rig, B: int, n_frames: int, device, cam=None):
 
 
 def run_main_path(device, B: int, T: int, W: int = 640, H: int = 480, max_cnt: int = 130,
-                  extra: int = 0, timer=None, vo: bool = False, camera: str = ""):
+                  extra: int = 0, timer=None, vo: bool = False, camera: str = "",
+                  eager: bool = False):
     """Self-warmed batched VIO over B sequences and T steady frames (with
     ``vo``, batched VO with ``vo_batched_config``: no IMU interval staged;
     with ``camera``, a non-pinhole model type, the runner takes that camera
     of ``camera_config`` and the frames are rendered through its rays).
-    Returns a dict of results (and the runner state for more frames)."""
+    ``run`` takes the first steady frame alone (on the card it runs it
+    eagerly and captures the frame) and the other T - 1 in a second call,
+    replayed: ``timer`` times that call (``step_ms`` per frame) and
+    ``capture_s`` is the first's host time.  With ``eager``, ``run_eager``
+    first runs the T frames from the same states and generator states
+    (timed too), and ``eager`` holds its step and how ``run``'s outputs
+    and end states compare (``sharded_diff``).  The launches are counted
+    over the warm-up and ``run``'s two calls.  Returns a dict of results
+    (and the runner state for more frames)."""
     rig, tcfg, ecfg, cam = (vo_batched_config if vo else slice_config)(W, H, max_cnt)
     if camera:
         cam = camera_config(camera, VinsConfig(image_width=W, image_height=H)).camera()
@@ -565,13 +585,27 @@ def run_main_path(device, B: int, T: int, W: int = 640, H: int = 480, max_cnt: i
     reset_counts()
     t0 = time.perf_counter()
     trk, st, _ = runner.warm(trk, st, warm_batch)
-    if timer is not None:
-        timer.start()
-    trk, st, outs = runner.run(trk, st, run_batch)
-    run_ms = timer.stop() if timer is not None else None
+    warm_counts = read_counts()
+    ref = None
+    if eager:
+        gens = generator_states(runner)
+        synchronize([device])
+        tm = CudaTimer() if torch.device(device).type == "cuda" else None
+        t1 = time.perf_counter()
+        if tm is not None:
+            tm.start()
+        ref = runner.run_eager(trk, st, run_batch)
+        eager_ms = tm.stop() if tm is not None else 1e3 * (time.perf_counter() - t1)
+        set_generator_states(runner, gens)
+    reset_counts()
+    trk, st, outs, timing = run_replayed(runner, trk, st, run_batch, timer)
     P = outs.P.cpu().numpy()  # the one read-back of the steady run
     wall = time.perf_counter() - t0
-    counts = read_counts()
+    counts = {k: warm_counts[k] + v for k, v in read_counts().items()}
+    if ref is not None:
+        ref = dict(eager_step_ms=eager_ms / T, **sharded_diff(ref[2], outs),
+                   states_equal=_equal_trees(ref[:2], (trk, st)),
+                   first_difference=first_difference(ref, (trk, st, outs)))
 
     cost = outs.cost.cpu().numpy()
     ates, bounds = [], []
@@ -580,14 +614,40 @@ def run_main_path(device, B: int, T: int, W: int = 640, H: int = 480, max_cnt: i
         travelled = float(np.sum(np.linalg.norm(np.diff(seqs[b].P, axis=0), axis=1)))
         ates.append(ate)
         bounds.append(max(0.05 * travelled, 0.08))
-    return dict(P=P, cost=cost, ates=ates, bounds=bounds, counts=counts, run_ms=run_ms,
+    return dict(P=P, cost=cost, ates=ates, bounds=bounds, counts=counts, **timing, eager=ref,
                 wall_s=wall, frames=k_w + T, runner=runner, state=(trk, st),
                 extra_batch=extra_batch, n_features=outs.n_features.cpu().numpy(),
                 camera=type(cam).__name__,
                 levels=runner.tcfg.pyr_levels_cold if vo else runner.tcfg.pyr_levels_predicted)
 
 
+def run_replayed(runner, trk, st, batch, timer=None):
+    """``runner.run`` over ``batch`` in two calls: the first frame alone
+    (on the card, the warm-up and capture of a runner that has no frame
+    captured for this layout; ``capture_s`` its host time) and the other
+    frames replayed, timed by ``timer`` (``step_ms`` per frame, None with
+    one frame or no timer); returns (trk, st, the outputs of both calls
+    joined, the times)."""
+    synchronize([runner.device])
+    t0 = time.perf_counter()
+    trk, st, outs = runner.run(trk, st, first_frames(batch, 1))
+    synchronize([runner.device])
+    capture_s = time.perf_counter() - t0
+    T, step_ms = batch.ts.shape[0], None
+    if T > 1:
+        if timer is not None:
+            timer.start()
+        trk, st, rest = runner.run(trk, st, bp.FrameBatch(*(a[1:] for a in batch)))
+        if timer is not None:
+            step_ms = timer.stop() / (T - 1)
+        outs = bp.ScanOutputs(*(torch.cat(f) for f in zip(outs, rest)))
+    return trk, st, outs, dict(step_ms=step_ms, capture_s=capture_s)
+
+
 def check_main_path(res, B: int, T: int, on_gpu: bool = True) -> None:
+    """The main path's gates, and with ``eager`` the replay against
+    ``run_eager``: bit for bit, or else within JAX's tolerances
+    (``within_jax_tolerances``) with the first differing leaf named."""
     require(np.all(np.isfinite(res["cost"])), "non-finite cost")
     frames = res["frames"]
     if on_gpu:  # K1 runs once per frame over all B images; K2 once per level
@@ -599,19 +659,44 @@ def check_main_path(res, B: int, T: int, on_gpu: bool = True) -> None:
                 f"sequences 0 and {b} coincide")
     for b, (ate, bound) in enumerate(zip(res["ates"], res["bounds"])):
         require(np.isfinite(ate) and ate < bound, ("ATE", b, ate, bound))
+    e = res["eager"]
+    if e is not None:
+        require((e["bit_equal"] and e["states_equal"]) or within_jax_tolerances(e),
+                ("run against run_eager", e))
+
+
+def generator_states(runner) -> list:
+    """The states of the runner's lane generators (RANSAC, then PnP)."""
+    return [g.get_state() for g in runner.generators + (runner.pnp_generators or [])]
+
+
+def set_generator_states(runner, states) -> None:
+    for g, s_ in zip(runner.generators + (runner.pnp_generators or []), states):
+        g.set_state(s_)
+
+
+def first_difference(a, b):
+    """The index and shape of the first leaf where trees ``a`` and ``b``
+    differ (``bp.leaves`` order), or None."""
+    for i, (x, y) in enumerate(zip(bp.leaves(a), bp.leaves(b))):
+        if not torch.equal(x, y):
+            return dict(leaf=i, shape=list(x.shape), max_abs=float((x.double() - y.double()
+                                                                    ).abs().max()))
+    return None
+
+
+def launch_counts() -> tuple:
+    """The kernels' launch counters, in ``KERNELS`` order."""
+    return fast.launches, lk.level_launches, lk.iterate_launches
 
 
 def reset_counts() -> None:
-    fast.launches = 0
-    lk.level_launches = 0
-    lk.iterate_launches = 0
-    for by_device in (fast.launches_by_device, lk.level_launches_by_device,
-                      lk.iterate_launches_by_device):
-        by_device.clear()
+    for c in launch_counts():
+        c.reset()
 
 
 def read_counts() -> dict:
-    return dict(zip(KERNELS, (fast.launches, lk.level_launches, lk.iterate_launches)))
+    return dict(zip(KERNELS, (c.total for c in launch_counts())))
 
 
 def latency_config(rig, seq, max_cnt: int = 130) -> VinsConfig:
@@ -1447,8 +1532,14 @@ def check_batched_loop_path(res, on_gpu: bool = True) -> None:
                                   "lk_iterate": 0}, ("batched-loop launches", res["counts"],
                                                      res["chunks"]))
     if res["profile"] is not None:
-        require(res["profile"]["host_syncs"] == 0,
-                ("no host wait on the frame thread", res["profile"]["host_sync_calls"]))
+        prof = res["profile"]
+        require(prof["host_syncs"] == 0,
+                ("no host wait on the frame thread", prof["host_sync_calls"]))
+        # replayed frames: K2 per level as counted; K1 once per frame, and
+        # again per extraction chunk on the closers' worker
+        seen = {k: prof["by_kernel"][k]["launches_per_frame"] for k in KERNELS}
+        require(seen["lk_level"] == res["levels"] and seen["fast_nms"] >= 1
+                and seen["lk_iterate"] == 0, ("kernels traced per replayed frame", seen))
 
 
 # ---------------------------------------------------------------------------
@@ -2225,8 +2316,9 @@ def run_runner_api(device, B: int = 2, T: int = 4, W: int = 640, H: int = 480,
     RANSAC generator states: ``run_chained``'s outputs and end states
     equal ``run``'s bit for bit, ``run_sharded``'s gathered ones within
     JAX's tolerances (``SHARDED_P_ATOL``, ``SHARDED_COST_RTOL``, keyframes
-    equal).  Inputs not split over the mesh, or a shard on the wrong
-    device, are refused."""
+    equal), ``run_eager``'s bit for bit or within the same tolerances.
+    Inputs not split over the mesh, or a shard on the wrong device, are
+    refused."""
     res = run_main_path(device, B, 1, W=W, H=H, max_cnt=max_cnt, extra=2 * T)
     runner, (trk, st) = res["runner"], res["state"]
     batch = res["extra_batch"][0]
@@ -2241,6 +2333,7 @@ def run_runner_api(device, B: int = 2, T: int = 4, W: int = 640, H: int = 480,
 
     a = from_start(runner, runner.run, trk, st, batch)
     b = from_start(runner, runner.run_chained, trk, st, batch)
+    eager = sharded_diff(a[2], from_start(runner, runner.run_eager, trk, st, batch)[2])
     placed = (sharded.put_states(trk), sharded.put_states(st), sharded.put_batch(batch))
     c = tuple(x.gather(runner.device)
               for x in from_start(sharded, sharded.run_sharded, *placed))
@@ -2255,6 +2348,8 @@ def run_runner_api(device, B: int = 2, T: int = 4, W: int = 640, H: int = 480,
             refused.append(True)
     diff = sharded_diff(a[2], c[2])
     return dict(chained_equal=_equal_trees(a, b), sharded_equal=within_jax_tolerances(diff),
+                eager_equal=eager["bit_equal"] or within_jax_tolerances(eager),
+                eager_bit_equal=eager["bit_equal"],
                 sharded_bit_equal=_equal_trees(a, c), sharded_diff=diff,
                 misplaced_refused=all(refused), frames=batch.ts.shape[0],
                 cost_finite=bool(torch.isfinite(a[2].cost).all()))
@@ -2301,7 +2396,8 @@ def run_stack_states(device, W: int = 640, H: int = 480, max_cnt: int = 130,
 
 
 def check_runner_api(api, stacked) -> None:
-    require(api["chained_equal"] and api["sharded_equal"], ("bit-equal to run", api))
+    require(api["chained_equal"] and api["sharded_equal"] and api["eager_equal"],
+            ("run_chained, run_sharded and run_eager against run", api))
     require(api["misplaced_refused"] and api["cost_finite"], ("run_sharded checks", api))
     require(all(stacked["initialized"]) and stacked["lanes_equal"], ("stack_states", stacked))
     require(max(stacked["next_frame_err_m"]) < 0.08, ("the stacked lanes track", stacked))
@@ -2377,7 +2473,8 @@ def stage_batched_rig_path(device, kind: str, B: int = 8, T: int = 40, W: int = 
 
 def run_batched_rig_path(staged: dict, path=None, timer=None) -> dict:
     """Phases 20 and 20b on the runner: ``run`` over the staged T frames
-    (CUDA events with ``timer``), then the staged profile frames under the
+    (``run_replayed``: the replayed frames timed by ``timer``), then the
+    staged profile frames, replayed, under the
     profiler (``stage_batched_rig_path``); each lane's accuracy over its
     pipeline's outputs and the run's (``lane_accuracy``); a lane of
     ``REFERENCE_MISSES`` that misses its bound is re-run alone on the
@@ -2388,16 +2485,13 @@ def run_batched_rig_path(staged: dict, path=None, timer=None) -> dict:
     trk, st = staged["state"]
     runner = staged["runner"]
     reset_counts()
-    if timer is not None:
-        timer.start()
-    trk2, st2, outs = runner.run(trk, st, staged["batch"])
-    run_ms = timer.stop() if timer is not None else None
+    trk2, st2, outs, timing = run_replayed(runner, trk, st, staged["batch"], timer)
     run_counts = read_counts()
     P = outs.P.cpu().numpy()
     prof = None
     if staged["extra"] is not None:
         prof = profile_span(lambda: runner.run(trk2, st2, staged["extra"]), RUN_SPAN,
-                            staged["extra"].ts.shape[0], path, run_ms / T)
+                            staged["extra"].ts.shape[0], path, timing["step_ms"] or 1.0)
     dyn = kind == "dyn"
     lane_res = []
     for b, ((_, seq, cfg), pipe) in enumerate(zip(staged["scenes"], staged["pipes"])):
@@ -2416,7 +2510,7 @@ def run_batched_rig_path(staged: dict, path=None, timer=None) -> dict:
                                                dyn, mono)["err"]
             acc["latency_init"] = (ref["init_frame"], ref["attempts"])
         lane_res.append(acc)
-    res.update(run_ms=run_ms, run_counts=run_counts, profile=prof, lanes=lane_res,
+    res.update(**timing, run_counts=run_counts, profile=prof, lanes=lane_res,
                counts={k: staged["warm_counts"][k] + run_counts[k] for k in KERNELS},
                cost=outs.cost.cpu().numpy(), td=st2.x.td.cpu().tolist(), state=(trk2, st2))
     return res
@@ -2434,7 +2528,8 @@ def check_batched_rig_path(res, on_gpu: bool = True) -> None:
     bound too; finite costs, finite td within 50 ms, one configuration for
     all lanes; on the card K1 once and K2 twice per steady frame (K3
     never), K1 once and K3 twice per tracked warm-up frame (K2 never), and
-    no host wait in the profiled ``run``."""
+    in the profile of replayed frames no host wait and the same kernels by
+    name (``check_replay_profile``)."""
     dyn = res["kind"] == "dyn"
     for b, (k, att, lane) in enumerate(zip(res["init_frames"], res["attempts"], res["lanes"])):
         mono = b in res["mono_lanes"]
@@ -2459,7 +2554,8 @@ def check_batched_rig_path(res, on_gpu: bool = True) -> None:
         require(res["warm_counts"] == {"fast_nms": n, "lk_level": 0, "lk_iterate": 2 * n},
                 ("warm-up launches", res["warm_counts"], n))
         if res["profile"] is not None:
-            require(res["profile"]["host_syncs"] == 0, ("host waits inside run", res["profile"]))
+            check_replay_profile(res["profile"], {"fast_nms": 1, "lk_level": 2},
+                                 ("phase 20", res["kind"]))
 
 
 def lane_refs(res) -> dict:
@@ -2501,7 +2597,7 @@ def within_jax_tolerances(diff: dict) -> bool:
 SHARDED_LABELS = {"A": "run on one card", "B": "run, every lane on one card",
                   "C": "run_sharded over two shards of one card",
                   "D": "run_sharded over every card",
-                  "E": "D's shards run in turn from the main thread"}
+                  "E": "run_eager on one card (A's lanes dispatched op by op: the before)"}
 
 
 def stage_sharded_path(device, n_lanes: int, T: int, W: int = 640, H: int = 480,
@@ -2533,12 +2629,12 @@ def first_frames(batch, T: int):
 
 
 def sharded_cases(staged: dict, device, mesh, per_card: int) -> dict:
-    """Phase 21's four ways over the staged lanes, each a runner and its
+    """Phase 21's five ways over the staged lanes, each a runner and its
     inputs (placed by ``put_states``/``put_batch`` where sharded): A
     ``run`` at B = ``per_card`` on ``device``; B ``run`` at every lane
     (``per_card`` per entry of ``mesh``) on ``device``; C ``run_sharded``
     over [device, device] at B = ``per_card``; D ``run_sharded`` over
-    ``mesh`` at every lane."""
+    ``mesh`` at every lane; E ``run_eager`` on A's runner and lanes."""
     tcfg, cam, ecfg = staged["cfg"]
     trk, st = staged["state"]
     n_all = per_card * len(mesh)
@@ -2556,32 +2652,21 @@ def sharded_cases(staged: dict, device, mesh, per_card: int) -> dict:
         if shards:
             ins = (runner.put_states(ins[0]), runner.put_states(ins[1]), runner.put_batch(batch))
         cases[name] = dict(runner=runner, ins=ins, B=n, devices=sorted(set(runner.mesh), key=str),
-                           shards=len(runner.mesh))
-    if len(set(bp.mesh_of(mesh))) > 1:
-        # E: D's placed shards run one after another from the calling thread
-        # (whose current device stays the first), each by a one-device
-        # runner of its lanes: what D's host threads cost
-        d = cases["D"]
-        cases["E"] = dict(d, runner=None, runners=[
-            bp.BatchedVioRunner(tcfg, cam, ecfg, dv, per_card) for dv in d["runner"].mesh])
+                           shards=len(runner.mesh),
+                           shards_on={str(d): runner.mesh.count(d) for d in set(runner.mesh)})
+    cases["E"] = dict(cases["A"], eager=True)
     return cases
 
 
 def run_case(case: dict, staged: dict, T: int):
     """T frames of one of ``sharded_cases``'s ways, from the warmed states
-    and the lanes' generator states after the warm-up (E: the outputs of
-    each shard, in order)."""
+    and the lanes' generator states after the warm-up."""
     trk, st, batch = case["ins"]
-    if case["runner"] is None:
-        outs = []
-        for i, r in enumerate(case["runners"]):
-            for g, s_ in zip(r.generators, staged["gens"][i * r.B:(i + 1) * r.B]):
-                g.set_state(s_)
-            outs.append(r.run(trk.parts[i], st.parts[i], first_frames(batch.parts[i], T))[2])
-        return outs
     runner = case["runner"]
     for g, s_ in zip(runner.generators, staged["gens"]):
         g.set_state(s_)
+    if case.get("eager"):
+        return runner.run_eager(trk, st, first_frames(batch, T))
     run = runner.run_sharded if isinstance(trk, bp.Sharded) else runner.run
     return run(trk, st, first_frames(batch, T))
 
@@ -2594,17 +2679,15 @@ def synchronize(devices) -> None:
 
 def read_counts_by_device() -> dict:
     """The kernels' launches by CUDA device index since ``reset_counts``."""
-    return {"fast_nms": dict(fast.launches_by_device),
-            "lk_level": dict(lk.level_launches_by_device),
-            "lk_iterate": dict(lk.iterate_launches_by_device)}
+    return {k: dict(c.by_device) for k, c in zip(KERNELS, launch_counts())}
 
 
 def profile_sharded(fn, frames: int, step_ms: float, devices) -> dict:
     """torch.profiler over ``fn`` (``frames`` frames) inside a span:
-    host waits (``HOST_SYNC_CALLS``) that start and end inside it, on any
-    thread (no shard thread may wait), and per card the kernels and device
-    ms per frame, and the busy share against the unprofiled ``step_ms``
-    ("not measured" where the profiler shows no device time)."""
+    host waits (``HOST_SYNC_CALLS``) and CUDA API calls (``cu*``) that
+    start and end inside it (per frame), and per card the kernels and
+    device ms per frame, and the busy share against the unprofiled
+    ``step_ms`` ("not measured" where the profiler shows no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     synchronize(devices)
@@ -2615,9 +2698,13 @@ def profile_sharded(fn, frames: int, step_ms: float, devices) -> dict:
     events = prof.events()
     span = next(e for e in events if e.name == SHARDED_SPAN and e.device_type == DeviceType.CPU)
     t0, t1 = span.time_range.start, span.time_range.end
-    waits = sorted(e.name for e in events if e.device_type == DeviceType.CPU
-                   and e.name in HOST_SYNC_CALLS and t0 <= e.time_range.start
-                   and e.time_range.end <= t1)
+    inside = [e for e in events if e.device_type == DeviceType.CPU
+              and t0 <= e.time_range.start and e.time_range.end <= t1]
+    waits = sorted(e.name for e in inside if e.name in HOST_SYNC_CALLS)
+    api = {}  # the CUDA API calls the host made
+    for e in inside:
+        if e.name.startswith("cu"):
+            api[e.name] = api.get(e.name, 0) + 1
     by_card = {}
     for d in devices:
         idx = torch.device(d).index
@@ -2637,6 +2724,8 @@ def profile_sharded(fn, frames: int, step_ms: float, devices) -> dict:
             device_ms_per_frame=sum(e.self_device_time_total for e in hits) / 1e3 / frames,
             launches_per_frame=len(hits) / frames)
     return dict(frames=frames, host_syncs=len(waits), host_sync_calls=sorted(set(waits)),
+                api_calls_per_frame=sum(api.values()) / frames,
+                api_calls=dict(sorted(api.items(), key=lambda kv: -kv[1])[:6]),
                 by_card=by_card, by_kernel=by_kernel)
 
 
@@ -2649,13 +2738,14 @@ def run_sharded_path(staged: dict, device, mesh, per_card: int = 8, time_frames:
     the keyframe flags agree, every lane of the sharded run against the
     truth (``lane_accuracy``), finite costs, and on the card the launches
     of each kernel by card and each card's peak memory in the sharded
-    runs.  (c) with ``time_frames``: each way ``turns`` times over that
+    runs; and E (``run_eager``) against A, the replay against the per-op
+    dispatch.  (c) with ``time_frames``: each way ``turns`` times over that
     many frames in turns (A B C D E E D C B A ...; B left out where it is
-    A, E where the mesh has one device), host clock ended by a
-    synchronisation of every device the way uses; ms per step,
-    seq-frames/s, and their ratios to A; E's outputs must equal D's bit
-    for bit.  With ``profile``,
-    C and D profiled over that many frames (``profile_sharded``)."""
+    A), host clock ended by a synchronisation of every device the way
+    uses; ms per step, seq-frames/s, and their ratios to A.  With
+    ``profile``, every way profiled over that many frames
+    (``profile_sharded``: host API calls per frame, each card's kernels
+    and busy share)."""
     T = staged["T"]
     cases = sharded_cases(staged, device, mesh, per_card)
     on_gpu = torch.device(device).type == "cuda"
@@ -2685,26 +2775,22 @@ def run_sharded_path(staged: dict, device, mesh, per_card: int = 8, time_frames:
             **sharded_diff(outs_by[ref], outs),
             cost_finite=bool(torch.isfinite(outs.cost).all()),
             lanes=[dict(err=round(x["err"], 5), bound=round(x["bound"], 4)) for x in lanes],
-            counts=counts,
-            shards_on={str(d): c["runner"].mesh.count(d) for d in c["devices"]},
+            counts=counts, shards_on=c["shards_on"],
             peak_mem_gb={str(d): round(torch.cuda.max_memory_allocated(d) / 2 ** 30, 3)
                          for d in c["devices"]} if on_gpu else None)
+    res["eager_vs_run"] = sharded_diff(outs_by["A"], run_case(cases["E"], staged, T)[2])
     if time_frames:
-        order = [k for k in "ABCDE" if k in cases and not (k == "B" and same)]
+        order = [k for k in "ABCDE" if not (k == "B" and same)]
         turns_ms = {k: [] for k in order}
-        last = {}
         for i in range(turns):
             for k in (order if i % 2 == 0 else order[::-1]):
                 c = cases[k]
                 devs = sorted(set(c["devices"]) | {torch.device(device)}, key=str)
                 synchronize(devs)
                 t0 = time.perf_counter()
-                last[k] = run_case(c, staged, time_frames)
+                run_case(c, staged, time_frames)
                 synchronize(devs)
                 turns_ms[k].append(1e3 * (time.perf_counter() - t0) / time_frames)
-        if "E" in last:  # the same shards' work from one thread: the same bits
-            res["E_equals_D"] = all(_equal_trees(e, d) for e, d in zip(last["E"],
-                                                                        last["D"][2].parts))
         base = statistics.fmean(turns_ms["A"])
         res["timing"] = {k: dict(B=cases[k]["B"], shards=cases[k]["shards"], turns_ms=v,
                                  ms_per_step=statistics.fmean(v),
@@ -2716,10 +2802,11 @@ def run_sharded_path(staged: dict, device, mesh, per_card: int = 8, time_frames:
         res["timing_frames"] = time_frames
     if profile:
         res["profile"] = {}
-        for k in ("C", "D"):
+        for k in [k for k in "ABCDE" if not (k == "B" and same)]:
             step = res["timing"][k]["ms_per_step"] if time_frames else 1.0
-            res["profile"][k] = profile_sharded(lambda: run_case(cases[k], staged, profile),
-                                                profile, step, cases[k]["devices"])
+            res["profile"][k] = dict(profile_sharded(
+                lambda: run_case(cases[k], staged, profile), profile, step, cases[k]["devices"]),
+                shards_on=cases[k]["shards_on"])
     return res
 
 
@@ -2727,8 +2814,11 @@ def check_sharded_path(res, on_gpu: bool = True) -> None:
     """Phase 21 (b): each sharded run within JAX's tolerances of ``run``
     on the same lanes (P within 5e-4 m, cost within rtol 5e-3, keyframe
     flags equal), its outputs on its mesh, every lane under its truth
-    bound, finite costs; on the card K1 once and K2 twice per frame for
-    each shard on each card (K3 never), and no host wait in the profiles."""
+    bound, finite costs; ``run`` against ``run_eager`` bit for bit or
+    within the same tolerances; on the card K1 once and K2 twice per frame
+    for each shard on each card (K3 never), counted under replay and
+    traced by name in every way's profile, and no host wait in the
+    profiles."""
     T = res["T"]
     for case, c in res["compare"].items():
         require(c["on_mesh"], (case, "outputs on the mesh"))
@@ -2742,9 +2832,14 @@ def check_sharded_path(res, on_gpu: bool = True) -> None:
             require(c["counts"]["lk_level"] == {i: 2 * k * T for i, k in n.items()},
                     (case, c["counts"]))
             require(not c["counts"]["lk_iterate"], (case, c["counts"]))
+    e = res["eager_vs_run"]
+    require(e["bit_equal"] or within_jax_tolerances(e), ("run against run_eager", e))
     for case, p in res.get("profile", {}).items():
-        require(p["host_syncs"] == 0, (case, "host waits inside run_sharded", p))
-    require(res.get("E_equals_D", True), "the shards run in turn from one thread as D's threads")
+        require(p["host_syncs"] == 0, (case, "host waits inside the run", p))
+        for card, k in p["shards_on"].items():
+            seen = p["by_card"][card]["ours_per_frame"]
+            require(seen == {"fast_nms": k, "lk_level": 2 * k, "lk_iterate": 0},
+                    (case, card, "kernels traced per frame", seen))
 
 
 def encode_png_rows(img: np.ndarray, filt: int) -> bytes:
@@ -3100,6 +3195,17 @@ def profile_frames(res, path: str, step_ms: float):
                         int(batch.ts.shape[0]), path, step_ms)
 
 
+def check_replay_profile(prof: dict, per_frame: dict, what: str) -> None:
+    """A profile of replayed frames (``profile_span``): no host wait on the
+    frame thread, and the kernels traced by name per frame as the launch
+    counters count them under replay (``per_frame``: kernel -> launches
+    per frame; any other kernel of ``KERNELS`` none)."""
+    require(prof["host_syncs"] == 0, (what, "host waits inside run", prof["host_sync_calls"]))
+    seen = {k: prof["by_kernel"][k]["launches_per_frame"] for k in KERNELS}
+    require(seen == {k: per_frame.get(k, 0) for k in KERNELS},
+            (what, "kernels traced per replayed frame", seen, per_frame))
+
+
 def host_waits(prof, name: str):
     """Host waits (``HOST_SYNC_CALLS``) that start and end inside the span
     ``name``, on the span's own OS thread and on others (a worker thread
@@ -3306,7 +3412,7 @@ def main(argv=None) -> int:
 
         # (b), (c) the main path sharded: two shards of card 0, then every card
         r = run_sharded_path(staged, dev, mesh, per_card=B, time_frames=20, turns=3,
-                             profile=3)
+                             profile=2)
         check_sharded_path(r)
         for case, c in r["compare"].items():
             print(f"[21b {case}] run_sharded over {c['shards']} shards "
@@ -3316,14 +3422,17 @@ def main(argv=None) -> int:
                   f"{c['keyframes_equal']}; lane err/bound m "
                   f"{[(x['err'], x['bound']) for x in c['lanes']]}; launches by card "
                   f"{c['counts']}; peak GB {c['peak_mem_gb']}", flush=True)
+        e = r["eager_vs_run"]
+        print(f"[21b E] run_eager against run at B={B} on {dev}, {T} frames: bit-equal "
+              f"{e['bit_equal']}, max|dP| {e['max_dP_m']:.3e} m, max cost rel "
+              f"{e['max_cost_rel']:.3e}, keyframes equal {e['keyframes_equal']}", flush=True)
         for k, t in r["timing"].items():
+            p = r["profile"][k]
             print(f"[21c {k}] {SHARDED_LABELS[k]}, B={t['B']}: {t['ms_per_step']:.2f} ms/step "
                   f"(turns {[round(x, 2) for x in t['turns_ms']]}), "
                   f"{t['seq_frames_per_s']:.2f} seq-frames/s; x{t['step_ratio']:.3f} the step "
-                  f"and x{t['throughput_ratio']:.3f} the seq-frames/s of A", flush=True)
-        if "E_equals_D" in r:
-            print(f"[21c E] the shards run in turn from the main thread give the threads' "
-                  f"outputs bit for bit: {r['E_equals_D']}", flush=True)
+                  f"and x{t['throughput_ratio']:.3f} the seq-frames/s of A; host API calls "
+                  f"{p['api_calls_per_frame']:.1f} per frame {p['api_calls']}", flush=True)
         for k, p in r["profile"].items():
             print(f"[21c profile {k}] {p['frames']} frames: host waits {p['host_syncs']}; by card "
                   f"{p['by_card']}", flush=True)
@@ -3450,16 +3559,25 @@ def main(argv=None) -> int:
 
     done("4d")
 
-    # 5. the main path
-    res = run_main_path(dev, B, T, extra=EXTRA, timer=CudaTimer())
+    # 5. the main path: run (its first frame eager and captured, the rest
+    # replayed), after run_eager over the same frames from the same states
+    # and generator states (the per-op dispatch, held to bit for bit)
+    res = run_main_path(dev, B, T, extra=EXTRA, timer=CudaTimer(), eager=True)
     check_main_path(res, B, T)
-    run_s = res["run_ms"] / 1e3
+    step5, e5 = res["step_ms"], res["eager"]
     print(f"[5 main] B={B} 640x480, warm 11 + {T} steady frames: "
-          f"{T / run_s:.2f} steps/s = {B * T / run_s:.2f} sequence-frames/s "
-          f"({res['run_ms'] / T:.2f} ms/step, CUDA events); launches {res['counts']}; "
-          f"ATE m {[round(a, 4) for a in res['ates']]} (bounds "
+          f"{1e3 / step5:.2f} steps/s = {B * 1e3 / step5:.2f} sequence-frames/s "
+          f"({step5:.2f} ms/step over the {T - 1} replayed frames, CUDA events; the first "
+          f"frame with its warm-up and capture {res['capture_s']:.3f} s); launches "
+          f"{res['counts']}; ATE m {[round(a, 4) for a in res['ates']]} (bounds "
           f"{[round(b, 3) for b in res['bounds']]}); features/seq "
           f"{res['n_features'][-1].tolist()}", flush=True)
+    print(f"[5 eager] run_eager over the same {T} frames: {e5['eager_step_ms']:.2f} "
+          f"ms/step (x{e5['eager_step_ms'] / step5:.2f} the replayed step); run against it: "
+          f"outputs bit-equal {e5['bit_equal']}, end states bit-equal {e5['states_equal']}, "
+          f"first difference {e5['first_difference']}, max|dP| {e5['max_dP_m']:.3e} m, max "
+          f"cost rel {e5['max_cost_rel']:.3e}, keyframes equal {e5['keyframes_equal']}",
+          flush=True)
 
     done("5")
 
@@ -3490,9 +3608,11 @@ def main(argv=None) -> int:
     time_k2(k2_in, tcfg_run, f"{B}x{N}")
     stages = stage_breakdown(res, res["extra_batch"][0])
     print(f"[6 stages] ms per steady frame, synchronised per stage: {stages}", flush=True)
-    prof = profile_frames(res, os.path.join(OUT_DIR, "profile_steady.txt"), res["run_ms"] / T)
-    print(f"[6 profile] {prof}", flush=True)
-    require(prof["host_syncs"] == 0, "no host synchronisation inside run()")
+    prof = profile_frames(res, os.path.join(OUT_DIR, "profile_steady.txt"), step5)
+    print(f"[6 profile] replayed frames: {prof}", flush=True)
+    check_replay_profile(prof, {"fast_nms": 1, "lk_level": res["levels"]}, "phase 6")
+
+    res["runner"].close()  # its captured frame and the graph's memory pool
 
     done("6")
 
@@ -3623,7 +3743,6 @@ def main(argv=None) -> int:
                                path=os.path.join(OUT_DIR, "profile_batched_loop.txt"))
     require(bl["profile"] is not None, "phase 10 profiled")
     check_batched_loop_path(bl)
-    step5 = res["run_ms"] / T
     print(f"[10 batched loop] B={bl['B']} 640x480, {bl['n_revisit']} revisit sequences, "
           f"{bl['n_timed']} timed lock-step frames through the threaded closer: "
           f"{bl['seq_frames_per_s']:.2f} seq-frames/s drain-inclusive, "
@@ -3810,18 +3929,21 @@ def main(argv=None) -> int:
     # counts), and a profile of 3 more steady frames
     vob = run_main_path(dev, B, T, max_cnt=250, extra=6, timer=CudaTimer(), vo=True)
     check_main_path(vob, B, T)
-    step15 = vob["run_ms"] / T
+    step15 = vob["step_ms"]
     prof15 = profile_frames(vob, os.path.join(OUT_DIR, "profile_batched_vo.txt"), step15)
-    require(prof15["host_syncs"] == 0, ("no host wait inside run()", prof15))
+    check_replay_profile(prof15, {"fast_nms": 1, "lk_level": vob["levels"]}, "phase 15")
     vob["profile"] = prof15
     print(f"[15 batched VO] B={B} 640x480, no IMU, max_cnt 250 "
           f"({vob['runner'].ecfg.maxf} slots), cold LK on {vob['levels']} levels, warm 11 + "
-          f"{T} steady frames: {step15:.2f} ms/step (phase 5 in this run: "
-          f"{res['run_ms'] / T:.2f}) = {B * T / (vob['run_ms'] / 1e3):.2f} sequence-frames/s "
-          f"(CUDA events); launches {vob['counts']} over {vob['frames']} frames; ATE m "
+          f"{T} steady frames: {step15:.2f} ms/step over the {T - 1} replayed frames (phase 5 "
+          f"in this run: {step5:.2f}) = {B * 1e3 / step15:.2f} sequence-frames/s (CUDA events; "
+          f"first frame and capture {vob['capture_s']:.3f} s); launches {vob['counts']} over "
+          f"{vob['frames']} frames; ATE m "
           f"{[round(a, 4) for a in vob['ates']]} (bounds "
           f"{[round(b, 3) for b in vob['bounds']]}); features/seq "
           f"{vob['n_features'][-1].tolist()}; profile {prof15}", flush=True)
+
+    vob["runner"].close()
 
     done("15")
 
@@ -3893,8 +4015,9 @@ def main(argv=None) -> int:
     check_main_path(kbb, B, T_KB)
     require(kbb["camera"] == "EquidistantCamera", ("the batched camera", kbb["camera"]))
     kbb["profile"] = None
+    kbb["runner"].close()
     print(f"[16d batched KB] B={B} 640x480 Kannala-Brandt, warm 11 + {T_KB} steady frames: "
-          f"{kbb['run_ms'] / T_KB:.2f} ms/step (phase 5 in this run: {res['run_ms'] / T:.2f}); "
+          f"{kbb['step_ms']:.2f} ms/step replayed (phase 5 in this run: {step5:.2f}); "
           f"launches {kbb['counts']} over {kbb['frames']} frames; ATE m "
           f"{[round(a, 4) for a in kbb['ates']]} (bounds "
           f"{[round(b, 3) for b in kbb['bounds']]})", flush=True)
@@ -3908,10 +4031,11 @@ def main(argv=None) -> int:
         r = run_main_path(dev, B, T_KB, timer=CudaTimer(), camera=m)
         check_main_path(r, B, T_KB)
         r["profile"] = None
+        r["runner"].close()
         bcams[m] = r
         print(f"[16e batched {m}] B={B} 640x480 {r['camera']}, warm 11 + {T_KB} steady frames: "
-              f"{r['run_ms'] / T_KB:.2f} ms/step (phase 16d in this run: "
-              f"{kbb['run_ms'] / T_KB:.2f}); launches {r['counts']} over {r['frames']} frames; "
+              f"{r['step_ms']:.2f} ms/step replayed (phase 16d in this run: "
+              f"{kbb['step_ms']:.2f}); launches {r['counts']} over {r['frames']} frames; "
               f"ATE m {[round(a, 4) for a in r['ates']]} (bounds "
               f"{[round(b, 3) for b in r['bounds']]})", flush=True)
     require(bcams["MEI"]["camera"] == "MeiCamera"
@@ -3981,9 +4105,10 @@ def main(argv=None) -> int:
     t1 = time.perf_counter()
     graft.dryrun_multichip_backend(8, mesh=[dev] * 8)
     dryb_s = time.perf_counter() - t1
-    print(f"[19 runner API] run_chained bit-equal to run and run_sharded over two shards of "
-          f"{dev} to run over {api['frames']} frames: {api['chained_equal']}, "
-          f"{api['sharded_equal']}; misplaced inputs refused: {api['misplaced_refused']}; "
+    print(f"[19 runner API] run_chained bit-equal to run, run_sharded over two shards of "
+          f"{dev} within JAX's tolerances of it, and run_eager bit-equal to it over "
+          f"{api['frames']} frames: {api['chained_equal']}, {api['sharded_equal']}, "
+          f"{api['eager_bit_equal']}; misplaced inputs refused: {api['misplaced_refused']}; "
           f"stack_states of two warmed pipelines {stacked}; dryrun_multichip(8) and "
           f"dryrun_multichip_backend(8) over eight shards of {dev} (they share the card): "
           f"{dry_s:.1f} s, {dryb_s:.1f} s", flush=True)
@@ -3999,13 +4124,14 @@ def main(argv=None) -> int:
                                timer=CudaTimer(),
                                path=os.path.join(OUT_DIR, "profile_batched_dyn.txt"))
     check_batched_rig_path(r20)
-    s20 = r20["run_ms"] / 1e3
+    s20 = r20["step_ms"]
     print(f"[20 batched dyn] OpenLORIS rig 848x480, B={B} lanes (seeds 7-{6 + B}; lanes "
           f"{r20['mono_lanes']} with depth withheld until init): initialized at frames "
           f"{r20['init_frames']} by {[a[-1][0] if a else 'static' for a in r20['attempts']]}, "
           f"stacked at frame {r20['common_frame']} ({r20['warm_s']:.1f} s of warm-up), "
-          f"{T} steady frames: {r20['run_ms'] / T:.2f} ms/step (phase 5 in this run: "
-          f"{res['run_ms'] / T:.2f}) = {B * T / s20:.2f} sequence-frames/s (CUDA events); "
+          f"{T} steady frames: {s20:.2f} ms/step over the {T - 1} replayed frames (phase 5 in "
+          f"this run: {step5:.2f}) = {B * 1e3 / s20:.2f} sequence-frames/s (CUDA events; first "
+          f"frame and capture {r20['capture_s']:.3f} s); "
           f"relative motion m {[(round(x['d_est'], 4), round(x['d_gt'], 4)) for x in r20['lanes']]}"
           f" (error {[round(x['err'], 4) for x in r20['lanes']]}, bounds "
           f"{[round(x['bound'], 3) for x in r20['lanes']]})"
@@ -4030,6 +4156,7 @@ def main(argv=None) -> int:
            kernel_bounds(B, 480, 848, N, 0, pairs=fast_pairs(f0_20, thr))["fast_nms"], phase=20)
     time_k2(k2_20, tcfg_20, f"{B}x{tcfg_20.maxc} on 848x480", phase=20)
     del fr20, f0_20, f1_20, k2_20
+    r20["runner"].close()
 
     done("20")
 
@@ -4045,8 +4172,8 @@ def main(argv=None) -> int:
           f"(truth {TD_TRUE} s), rolling shutter, extrinsic refined: initialized at frames "
           f"{r20b['init_frames']}, stacked at frame {r20b['common_frame']} "
           f"({r20b['warm_s']:.1f} s of warm-up), {T} steady frames: "
-          f"{r20b['run_ms'] / T:.2f} ms/step (phase 5 in this run: {res['run_ms'] / T:.2f}) = "
-          f"{B * T / (r20b['run_ms'] / 1e3):.2f} sequence-frames/s; ATE m "
+          f"{r20b['step_ms']:.2f} ms/step replayed (phase 5 in this run: {step5:.2f}) = "
+          f"{B * 1e3 / r20b['step_ms']:.2f} sequence-frames/s; ATE m "
           f"{[round(x['ate_m'], 4) for x in r20b['lanes']]} (bounds "
           f"{[round(x['bound'], 3) for x in r20b['lanes']]}; lanes {REFERENCE_MISSES['td']} "
           f"alone on the latency pipeline where they missed it: {lane_refs(r20b)}); "
@@ -4063,6 +4190,7 @@ def main(argv=None) -> int:
     k2_err = max(k2_err, check_parity("K2", rep20b))
     print(f"[20b K2] {B}x{tcfg_20b.maxc} on 640x480: " + summary(rep20b), flush=True)
     time_k2(k2_20b, tcfg_20b, f"{B}x{tcfg_20b.maxc} on 640x480", phase="20b")
+    r20b["runner"].close()
     r20, r20b = batched_rig_summary(r20), batched_rig_summary(r20b)
     del fr20b, k2_20b
 
@@ -4095,7 +4223,8 @@ def main(argv=None) -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi, cards=smi_cards, kernels=kernels, timings=timings, k2=rep,
                        k3=rep3, main={
-            k: res[k] for k in ("ates", "bounds", "counts", "run_ms", "wall_s", "frames")},
+            k: res[k] for k in ("ates", "bounds", "counts", "step_ms", "capture_s", "eager",
+                                "wall_s", "frames")},
             stages=stages, profile=prof, extraction=ext, latency=lat,
             latency_loop=jsonable(loop), latency_loop_no_graph=alone, abba_ms=ms,
             worker_cost=worker_cost, latency_loop_eager=jsonable(eager),
@@ -4103,15 +4232,15 @@ def main(argv=None) -> int:
             latency_vo=jsonable(vo), vo_map=mp, vo_checkpoint=ck, latency_td=td,
             latency_td_calib=cal, latency_dyn=dyn, latency_mono=mono, bag_replay=bagr,
             tum_replay=tumr, png_decode=png, fisheye=fish, k2_vo=rep2_vo,
-            batched_vo={k: vob[k] for k in ("ates", "bounds", "counts", "run_ms", "wall_s",
-                                            "frames", "profile")},
+            batched_vo={k: vob[k] for k in ("ates", "bounds", "counts", "step_ms", "capture_s",
+                                            "wall_s", "frames", "profile")},
             batched_vo_loop={k: v for k, v in bvl.items() if k not in ("cost", "segments")},
             latency_kb=kb, cameras=cams, latency_mei=rigs["MEI"],
             latency_scaramuzza=rigs["SCARAMUZZA"],
-            batched_kb={k: kbb[k] for k in ("ates", "bounds", "counts", "run_ms", "wall_s",
-                                            "frames")},
+            batched_kb={k: kbb[k] for k in ("ates", "bounds", "counts", "step_ms", "capture_s",
+                                            "wall_s", "frames")},
             latency_harsh=harsh, batched_cameras={
-                m: {k: r[k] for k in ("ates", "bounds", "counts", "run_ms", "frames")}
+                m: {k: r[k] for k in ("ates", "bounds", "counts", "step_ms", "frames")}
                 for m, r in bcams.items()}, latency_ocam_affine=ocs, kb_run_vio=kbe,
             calibration=calr, runner_api=api, stack_states=stacked, batched_dyn=r20,
             batched_td=r20b, k2_batched_dyn=rep20, k2_batched_td=rep20b, batched_sharded=r21,

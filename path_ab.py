@@ -10,7 +10,8 @@ lists).  Each turn runs one checkout's own ``chip_smoke`` cell functions in
 a fresh process started in that checkout (its package, its kernel build),
 in the order old, new, new, old (``--rounds`` times):
   * batched: phase 5's step (``run_main_path``, B = 8 at 640×480, 11 warm-up
-    and 40 steady frames; ms per step by CUDA events);
+    and 40 steady frames; ms per step by CUDA events, over the replayed
+    frames in a checkout whose ``run`` replays a captured frame);
   * latency: phase 7's cell (``run_latency_path``, 16 warm-up and 96 timed
     frames; ms per frame, CUDA-synchronised wall);
   * loop: phase 9's cell (``run_loop_path``, the pose graph on the worker;
@@ -66,9 +67,11 @@ for _ in range(200):
     m._schur_sqrt_prior(H, bv, m._DROP_OLD, m._KEEP_OLD, pos)
 e1.record()
 torch.cuda.synchronize()
-print(json.dumps(dict(batched=b["run_ms"] / 40, latency=lat["latency_ms_per_frame"],
+def step(r):  # replayed frames' step, or (before the replay) the whole run's
+    return r["step_ms"] if "step_ms" in r else r["run_ms"] / 40
+print(json.dumps(dict(batched=step(b), latency=lat["latency_ms_per_frame"],
                       loop=loop["latency_ms_per_frame"], loops=loop["latency_loops"],
-                      vo=vo["run_ms"] / 40, marg=e0.elapsed_time(e1) / 200,
+                      vo=step(vo), marg=e0.elapsed_time(e1) / 200,
                       ate=[float(a) for a in b["ates"]] + [lat["latency_ate_m"],
                                                            loop["latency_ate_m"]]
                       + [float(a) for a in vo["ates"]])))

@@ -14,7 +14,6 @@ scan (``tests/test_sharded_runner.py``: P within 5e-4 m, cost within rtol
 draws and generator states bit-equal."""
 
 import threading
-import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -172,8 +171,8 @@ def test_lane_draws_do_not_depend_on_the_split(warmed):
 def test_refusals(warmed):
     """(d) B not divisible by the mesh, inputs not split over the runner's
     mesh or a shard on the wrong device, and more cards than present are
-    refused; an exception in one shard's thread reaches the caller after
-    every shard has been joined."""
+    refused; an exception in one shard reaches the caller, noted with the
+    shard, and no thread ran a shard."""
     args = warmed["args"]
     trk, st = warmed["state"]
     mesh4 = ttp.make_mesh(4, device="cpu")
@@ -199,28 +198,33 @@ def test_refusals(warmed):
     # a batch wrongly shaped for shard 1 (IMU intervals one sample short)
     bad = tbp.Sharded(placed[2].mesh, [placed[2].parts[0], placed[2].parts[1]._replace(
         imu_dts=placed[2].parts[1].imu_dts[..., :-1].contiguous())], 1)
+    before = set(threading.enumerate())
     with pytest.raises(Exception) as info:
         r.run_sharded(*placed[:2], bad)
     assert any("in shard 1 of 2" in note for note in getattr(info.value, "__notes__", []))
+    # the shards ran on the caller's thread: no thread was started for them
+    assert set(threading.enumerate()) <= before
     assert not any(t.name.startswith("shard-") for t in threading.enumerate())
 
 
-def test_on_shards_joins_every_thread_before_raising():
-    """A shard that raises at once: the others still finish before the
-    exception reaches the caller, and each ran in a thread of its own."""
-    finished, names = [], {}
+def test_on_shards_runs_every_shard_in_turn_before_raising():
+    """Shards that raise: every shard still runs, in shard order, on the
+    caller's own thread; then the first one's exception reaches the
+    caller, with a note naming the shard and its device."""
+    ran, threads = [], set()
 
     def fn(i):
-        names[i] = threading.current_thread().name
-        if i == 1:
-            raise KeyError("shard 1")
-        time.sleep(0.05)
-        finished.append(i)
+        threads.add(threading.get_ident())
+        ran.append(i)
+        if i in (1, 2):
+            raise KeyError(f"shard {i}")
         return i
 
-    with pytest.raises(KeyError):
-        tbp.on_shards([torch.device("cpu")] * 3, fn)
-    assert sorted(finished) == [0, 2] and len(set(names.values())) == 3
+    with pytest.raises(KeyError) as info:
+        tbp.on_shards([torch.device("cpu")] * 4, fn)
+    assert ran == [0, 1, 2, 3] and threads == {threading.get_ident()}
+    assert info.value.args == ("shard 1",)
+    assert "in shard 1 of 4, on cpu" in info.value.__notes__
     assert tbp.on_shards([torch.device("cpu")] * 3, lambda i: i * i) == [0, 1, 4]
 
 

@@ -45,12 +45,17 @@ def _jax_configs(tcfg, ecfg, cam):
     return jtcfg, jecfg, jcam
 
 
-def test_frame_step_matches_jax_from_jax_warmed_state():
+def jax_steady_frames(B: int, steady: int):
+    """B sequences warmed by the JAX package in lock step, then ``steady``
+    frames of its ``fused_frame_step``; returns the port's runner and
+    staged batch (frames 0 .. 10 + steady), the bridged warmed states and
+    per steady frame JAX's RANSAC uniforms (B, trials, maxc) and newest
+    positions (B, 3), with the sequences."""
     rig, tcfg, ecfg, cam = chip_smoke.slice_config(W, H, MAX_CNT)
     runner = tbp.BatchedVioRunner(tcfg, cam, ecfg, "cpu", B)
     tcfg = runner.tcfg
     jtcfg, jecfg, jcam = _jax_configs(tcfg, ecfg, cam)
-    n = 11 + STEADY
+    n = 11 + steady
     seqs, rendered, bufs = chip_smoke.make_sequences(rig, B, n, "cpu")
     batch = tbp.stage_frames([r[1] for r in rendered], [r[2] for r in rendered],
                              [r[0] for r in rendered], bufs, 0, n, "cpu")
@@ -82,7 +87,8 @@ def test_frame_step_matches_jax_from_jax_warmed_state():
     trk = bridge.to_torch(bridge.stack(jtrk))
     st = bridge.to_torch(bridge.stack(jst))
     base_keys = jax.random.split(jax.random.PRNGKey(17), B)
-    for i in range(STEADY):
+    steps = []
+    for i in range(steady):
         k = 11 + i
         us, jP = [], []
         for b in range(B):
@@ -92,10 +98,19 @@ def test_frame_step_matches_jax_from_jax_warmed_state():
                                         jest.ImuInterval(dts, acc, gyr), key)
             jP.append(np.asarray(out.P))
             us.append(jax_ransac_uniforms(key, jtcfg.ransac_trials, jtcfg.maxc))
+        steps.append((np.stack(us), np.stack(jP)))
+    return runner, batch, trk, st, steps, seqs
+
+
+def test_frame_step_matches_jax_from_jax_warmed_state():
+    runner, batch, trk, st, steps, seqs = jax_steady_frames(B, STEADY)
+    for i, (us, jP) in enumerate(steps):
+        k = 11 + i
         imu = tes.ImuInterval(batch.imu_dts[k], batch.imu_acc[k], batch.imu_gyr[k])
-        trk, st, sout = tbp.fused_frame_step(tcfg, cam, ecfg, trk, st, batch.imgs[k],
-                                             batch.depths[k], batch.ts[k], imu, tt(np.stack(us)))
-        err = np.abs(tn(sout.P) - np.stack(jP)).max()
+        trk, st, sout = tbp.fused_frame_step(runner.tcfg, runner.cam, runner.ecfg, trk, st,
+                                             batch.imgs[k], batch.depths[k], batch.ts[k], imu,
+                                             tt(us))
+        err = np.abs(tn(sout.P) - jP).max()
         assert err < 5e-3, (i, err)
         assert np.all(np.isfinite(tn(sout.cost)))
         for b in range(B):

@@ -8,10 +8,16 @@ a name carrying the hash of the sources, so an edited source triggers a
 rebuild; ptxas's report of each kernel's registers, shared memory and
 spills goes beside it (``<library>.log``).  Nothing here runs at import
 time: the CPU tests import every module of the package.
+
+Each kernel's wrapper counts its launches in a ``LaunchCount``.  A launch
+made while the calling thread captures a CUDA graph (``capture``) runs only
+when the graph is replayed, so it is noted for the graph instead, and each
+``Captured.replay`` adds it to its counter then.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -31,6 +37,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lib = None
 _lock = threading.Lock()
+_count_lock = threading.Lock()  # launches come from the frame thread and from workers
+_tls = threading.local()  # ``recording``'s launches of the thread that captures
 
 
 def _sources():
@@ -120,3 +128,88 @@ def launch(name: str, device: torch.device, *args) -> None:
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         check(fn(*args, device.index, stream), name)
+
+
+class LaunchCount:
+    """One kernel's launches: ``total``, and ``by_device`` (CUDA device
+    index -> launches).  While the calling thread records (``recording``),
+    a launch is noted for the graph being captured and counted by its
+    replays (``Captured.replay``), not here."""
+
+    def __init__(self):
+        self.total = 0
+        self.by_device = {}
+
+    def add(self, device: int, n: int = 1) -> None:
+        noted = getattr(_tls, "launches", None)
+        if noted is not None:
+            noted[(self, device)] = noted.get((self, device), 0) + n
+            return
+        with _count_lock:
+            self.total += n
+            self.by_device[device] = self.by_device.get(device, 0) + n
+
+    def reset(self) -> None:
+        with _count_lock:
+            self.total = 0
+            self.by_device.clear()
+
+
+@contextlib.contextmanager
+def recording():
+    """Within: this thread's launches are noted, not counted; yields the
+    notes, {(LaunchCount, device index): launches}."""
+    prev = getattr(_tls, "launches", None)
+    _tls.launches = noted = {}
+    try:
+        yield noted
+    finally:
+        _tls.launches = prev
+
+
+class Captured:
+    """A captured CUDA graph and the launches its capture noted."""
+
+    def __init__(self, graph, launches: dict):
+        self.graph = graph
+        self.launches = dict(launches)
+
+    def replay(self) -> None:
+        """The graph's work on the current stream; each noted launch is
+        counted, on its device."""
+        self.graph.replay()
+        for (count, device), n in self.launches.items():
+            count.add(device, n)
+
+    def reset(self) -> None:
+        """Release the graph and its memory pool."""
+        self.graph.reset()
+
+
+def capture(fn, stream) -> Captured:
+    """``fn``'s work recorded on ``stream`` as a CUDA graph, the kernels'
+    launches noted for its replays (``recording``).  Capture errors are
+    confined to the calling thread, so a worker thread launching on a
+    stream of its own goes on.  A call that capture refuses raises, with a
+    note naming the last PyTorch op dispatched before it."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class LastOp(TorchDispatchMode):
+        op = None
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.op = func
+            return func(*args, **(kwargs or {}))
+
+    graph = torch.cuda.CUDAGraph()
+    last = LastOp()
+    with recording() as launches:
+        try:
+            with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+                with last:
+                    fn()
+        except Exception as e:
+            e.add_note(f"while capturing a CUDA graph on {stream.device}; the last op "
+                       f"dispatched: {last.op}")
+            raise
+    return Captured(graph, launches)

@@ -13,7 +13,6 @@ to ``ring_differences`` and ``arc_terms`` here.
 
 from __future__ import annotations
 
-import threading
 from typing import Tuple
 
 import torch
@@ -28,9 +27,7 @@ FAST_OFFSETS = (
 )
 ARC_LEN = 9
 
-launches = 0  # K1 launches (the CUDA path only)
-launches_by_device = {}  # the same launches by CUDA device index
-_count_lock = threading.Lock()  # the tracker and the loop-closure worker both launch K1
+launches = native.LaunchCount()  # K1 launches (the CUDA path only), by device too
 
 
 def ring_differences(f: torch.Tensor) -> torch.Tensor:
@@ -81,7 +78,6 @@ def nms3(score: torch.Tensor) -> torch.Tensor:
 
 def fast_nms(img: torch.Tensor, threshold: float = 10.0) -> torch.Tensor:
     """NMS'd FAST-9/16 score map for a batch of images (B, H, W) f32."""
-    global launches
     if img.device.type == "cpu":
         return nms3(fast_score(img, threshold))
     if img.device.type != "cuda":
@@ -94,10 +90,7 @@ def fast_nms(img: torch.Tensor, threshold: float = 10.0) -> torch.Tensor:
     out = torch.empty_like(img)
     native.launch("fast_nms_launch", img.device, img.data_ptr(), out.data_ptr(), B, H, W,
                   float(threshold))
-    with _count_lock:
-        launches += 1
-        d = img.device.index
-        launches_by_device[d] = launches_by_device.get(d, 0) + 1
+    launches.add(img.device.index)
     return out
 
 

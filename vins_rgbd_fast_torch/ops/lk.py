@@ -43,18 +43,14 @@ Level semantics of the matmul sampler (shared by every engine):
 
 from __future__ import annotations
 
-import threading
 from typing import List, NamedTuple
 
 import torch
 
 from .. import native
 
-level_launches = 0    # K2 launches (the CUDA path only)
-iterate_launches = 0  # K3 launches (the CUDA path only)
-level_launches_by_device = {}    # the same launches by CUDA device index
-iterate_launches_by_device = {}
-_count_lock = threading.Lock()  # launches may come from more than one thread
+level_launches = native.LaunchCount()    # K2 launches (the CUDA path only), by device too
+iterate_launches = native.LaunchCount()  # K3 launches (the CUDA path only), by device too
 K2_WIN = 21           # K2's and K3's compile-time patch side (both pipelines run 21)
 MAX_WIN = 48          # the largest search window K2 and K3 take
 K3_WARPS = 4          # K3's warps per point (``K3_WARPS`` of csrc/lk_level.cu)
@@ -243,7 +239,6 @@ def _check_args(name: str, ref: torch.Tensor, specs) -> None:
 
 def _lk_level_cuda(prev, cur, pts_l, flow, active, ax, ay, win, search_margin,
                    iters, eps, min_eig):
-    global level_launches
     B, H, W = prev.shape
     N = pts_l.shape[1]
     WIN = win + 1 + 2 * search_margin
@@ -265,16 +260,12 @@ def _lk_level_cuda(prev, cur, pts_l, flow, active, ax, ay, win, search_margin,
                   active.data_ptr(), ax.data_ptr(), ay.data_ptr(), u.data_ptr(),
                   ok.data_ptr(), err.data_ptr(), B, N, H, W, win, search_margin, iters,
                   float(eps) * float(eps), float(min_eig))
-    with _count_lock:
-        level_launches += 1
-        d = prev.device.index
-        level_launches_by_device[d] = level_launches_by_device.get(d, 0) + 1
+    level_launches.add(prev.device.index)
     return u, ok, err
 
 
 def _lk_iterate_cuda(tmpl, Ix, Iy, win_img, px, py, u0, done0, inv_det, Gxx, Gxy, Gyy,
                      iters, eps):
-    global iterate_launches
     B, N, win, _ = tmpl.shape
     WIN = win_img.shape[-1]
     if win != K2_WIN or WIN > MAX_WIN:
@@ -296,10 +287,7 @@ def _lk_iterate_cuda(tmpl, Ix, Iy, win_img, px, py, u0, done0, inv_det, Gxx, Gxy
                   inv_det.data_ptr(), Gxx.data_ptr(), Gxy.data_ptr(), Gyy.data_ptr(),
                   u.data_ptr(), err.data_ptr(), B, N, win, WIN, iters,
                   float(eps) * float(eps))
-    with _count_lock:
-        iterate_launches += 1
-        d = tmpl.device.index
-        iterate_launches_by_device[d] = iterate_launches_by_device.get(d, 0) + 1
+    iterate_launches.add(tmpl.device.index)
     return u, err
 
 

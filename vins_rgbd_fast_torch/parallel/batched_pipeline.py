@@ -14,23 +14,35 @@ and are stacked at the end.  Loop closure rides on the outputs between
 segments (``parallel/loop_closer.BatchedLoopCloser``,
 ``ThreadedLoopCloser``).
 
+``run`` is JAX's compiled scan: on a CUDA device each shard's steady
+frame is captured once as a CUDA graph (``_FrameProgram``: static input
+slots, states and output slots; the first frame of a shape runs eagerly on
+the capture stream, the warm-up PyTorch asks for, then the capture) and
+replayed for every later frame, with each lane's draws made outside the
+graph from its generators, as before.  The graph is kept across calls of
+one shape and captured again when B, the image size or a dtype changes;
+``close`` releases it.  On the CPU the same static-buffer program runs
+eagerly.  ``run_chained`` is ``run`` (JAX's per-frame twin replays the same
+step); ``run_eager`` is the per-op dispatch, the plain version the tests
+and ``chip_smoke.py`` hold the replay to.  Code on the step keeps the
+capture's rules: no constant built on the host after the warm-up (see
+``utils.quaternion.const``), no host wait, no draw inside the step.
+
 The multi-device program (JAX's ``run_sharded`` under ``shard_map``): a
 runner built with a ``mesh`` (a list of devices, one shard each; a device
 may appear more than once) splits its B lanes over the mesh in lane order.
 ``shard_spec``, ``put_states`` and ``put_batch`` place each shard's lanes on
-its device as a ``Sharded`` tree, and ``run_sharded`` runs every shard's T
-frames of ``fused_frame_step`` as a complete local program in a host thread
-of its own, current device its shard's, on that device's current stream
-(shards of one device take turns); no shard talks to another.  Lane b's
-generators live on lane b's device whatever the split, so a lane's draws
-do not depend on it (JAX builds the per-lane keys outside the shard).
-States and outputs come back sharded; ``Sharded.gather`` brings a tree
-onto one device.
-``run_chained`` is ``run`` (both dispatch frame by frame); ``run`` and
-``warm`` are the one-device path.  ``stack_states`` turns per-sequence
-``VinsPipeline``s (warmed by their own initialization programs) into the
-runner's batched states; ``stage_frames_arrays`` stages pre-rendered device
-stacks with each lane's IMU intervals.
+its device as a ``Sharded`` tree, and ``run_sharded`` replays every shard's
+frame in turn from the calling thread, frame by frame, each under its
+device, on that device's current stream (``on_shards``); no shard talks
+to another.  Lane b's generators live on lane b's device whatever the
+split, so a lane's draws do not depend on it (JAX builds the per-lane keys
+outside the shard).  States and outputs come back sharded;
+``Sharded.gather`` brings a tree onto one device.
+``run`` and ``warm`` are the one-device path.  ``stack_states`` turns
+per-sequence ``VinsPipeline``s (warmed by their own initialization
+programs) into the runner's batched states; ``stage_frames_arrays`` stages
+pre-rendered device stacks with each lane's IMU intervals.
 
 Without an IMU (VO, the TUM RGB-D rig: ``EstimatorConfig.use_imu`` and
 ``TrackerConfig.use_imu_prediction`` off) the staged intervals are empty,
@@ -45,12 +57,12 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
-import threading
 from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .. import native
 from ..backend import estimator as est
 from ..backend.state import WINDOW_SIZE
 from ..config import EstimatorConfig, TrackerConfig
@@ -122,6 +134,125 @@ def fused_frame_step(tcfg: TrackerConfig, cam: CameraModel, ecfg: EstimatorConfi
     return trk, st, sout
 
 
+def _scan_outputs(sout: est.StepOutput) -> ScanOutputs:
+    return ScanOutputs(P=sout.P, Q=sout.Q, V=sout.V, cost=sout.cost,
+                       is_keyframe=sout.is_keyframe, n_features=sout.n_features,
+                       wp_world=sout.wp_world, wp_uv=sout.wp_uv, wp_norm=sout.wp_norm,
+                       wp_valid=sout.wp_valid, wp_ids=sout.wp_ids)
+
+
+def _layout(tree) -> tuple:
+    """Shape, dtype and device of every leaf: what a captured frame fixes."""
+    return tuple((tuple(a.shape), a.dtype, a.device) for a in leaves(tree))
+
+
+def _assign(dst, src) -> None:
+    """Copy tree ``src`` into the buffers of tree ``dst`` (same layout).  A
+    leaf that is its own buffer stays; one that shares memory with another
+    buffer is cloned first, so no copy reads a buffer already written."""
+    bufs, new = leaves(dst), leaves(src)
+    if _layout(dst) != _layout(src):
+        raise ValueError("the frame's states and outputs keep their layout from frame to "
+                         "frame")
+    held = {b.untyped_storage().data_ptr() for b in bufs}
+    srcs = [None if n is b else n.clone() if n.untyped_storage().data_ptr() in held else n
+            for b, n in zip(bufs, new)]
+    for b, n in zip(bufs, srcs):
+        if n is not None:
+            b.copy_(n)
+
+
+class _FrameProgram:
+    """One shard's steady frame over static buffers, the port's twin of one
+    step of JAX's scanned ``run``: input slots (the frame of a
+    ``FrameBatch``, the RANSAC and, in VO, the PnP uniforms), the tracker and
+    estimator states and the ``ScanOutputs`` slots, allocated once; the
+    step is ``fused_frame_step`` on them, then in-place copies of the new
+    states and of the outputs into their buffers.  On a CUDA device the
+    first frame runs the step eagerly on a side stream (the warm-up a
+    capture needs: the kernels' build and opt-ins, the solver libraries'
+    handles and workspaces, the cached constants), then the step is
+    captured on that stream (``native.capture``) and every later frame
+    replays it on the current stream; a failed capture or replay raises.
+    On the CPU every frame runs the step eagerly.  The program holds no
+    reference to its runner: releasing the runner releases the graph and
+    its memory pool."""
+
+    def __init__(self, tcfg: TrackerConfig, cam: CameraModel, ecfg: EstimatorConfig,
+                 layout: tuple, trk, st, frame: FrameBatch):
+        self.cfg = (tcfg, cam, ecfg)
+        self.layout = layout
+        self.device = frame.imgs.device
+        self.trk = map_tree(torch.empty_like, trk)
+        self.st = map_tree(torch.empty_like, st)
+        self.inp = map_tree(torch.empty_like, frame)
+        self.u = None    # (RANSAC, PnP or None) uniform slots, shaped by the first draws
+        self.out = None  # the ScanOutputs slots, shaped by the first step
+        self.graph: Optional[native.Captured] = None
+        self.outs = None
+
+    def load(self, trk, st, T: int) -> None:
+        """Start a call of T frames from the caller's states."""
+        _assign((self.trk, self.st), (trk, st))
+        self.T, self.outs = T, None
+
+    def step(self) -> None:
+        """The frame on the buffers: what the graph records."""
+        i = self.inp
+        trk, st, sout = fused_frame_step(*self.cfg, self.trk, self.st, i.imgs, i.depths, i.ts,
+                                         est.ImuInterval(i.imu_dts, i.imu_acc, i.imu_gyr),
+                                         self.u[0], pnp_u=self.u[1])
+        out = _scan_outputs(sout)
+        if self.out is None:
+            self.out = map_tree(torch.empty_like, out)
+        _assign(self.out, out)  # first: an output may be a view of an old state buffer
+        _assign((self.trk, self.st), (trk, st))
+
+    def frame(self, batch: FrameBatch, k: int, ransac_u, pnp_u) -> None:
+        """Frame k of ``batch`` with these draws: into the slots, the step
+        (replayed, or its warm-up and capture, or on the CPU eager), and the
+        outputs into the call's (T, B, ...) ``ScanOutputs``."""
+        if self.u is None:
+            self.u = (torch.empty_like(ransac_u), None if pnp_u is None
+                      else torch.empty_like(pnp_u))
+        for slot, a in zip(self.inp, batch):
+            slot.copy_(a[k])
+        self.u[0].copy_(ransac_u)
+        if pnp_u is not None:
+            self.u[1].copy_(pnp_u)
+        if self.device.type != "cuda":
+            self.step()
+        elif self.graph is not None:
+            self.graph.replay()
+        else:
+            self._warm_and_capture()
+        if self.outs is None:
+            self.outs = map_tree(lambda a: a.new_empty((self.T,) + tuple(a.shape)), self.out)
+        for o, a in zip(leaves(self.outs), leaves(self.out)):
+            o[k].copy_(a)
+
+    def _warm_and_capture(self) -> None:
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            self.step()
+        for a in leaves(self.out):  # made on the side stream, read on the current one
+            a.record_stream(current)
+        self.graph = native.capture(self.step, side)
+        current.wait_stream(side)
+
+    def result(self):
+        """(trk, st, ScanOutputs) of the call: states copied out of the
+        buffers, so the next call does not change them."""
+        return map_tree(torch.clone, self.trk), map_tree(torch.clone, self.st), self.outs
+
+    def close(self) -> None:
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = self.trk = self.st = self.inp = self.u = self.out = self.outs = None
+
+
 def stage_frames(imgs: Sequence[torch.Tensor], depths: Sequence[torch.Tensor],
                  seq_ts: Sequence[np.ndarray],
                  buffers: Optional[Sequence[est.ImuIntervalBuffer]],
@@ -161,9 +292,11 @@ class BatchedVioRunner:
     ``VinsPipeline`` and stacked (``stack_states``), or, with static init,
     by ``warm``, which runs the window-filling frames and the static
     initialization in lock step; ``run`` then processes T steady frames on
-    ``device``.  With ``mesh`` (devices, one shard each, B divisible by
-    their number; ``device`` defaults to its first), ``run_sharded`` runs
-    shard i's lanes on ``mesh[i]``.  RANSAC draws come from one
+    ``device``, replaying the frame it captured (``_FrameProgram``; each
+    shard keeps one until its layout changes or ``close``).  With ``mesh``
+    (devices, one shard each, B divisible by their number; ``device``
+    defaults to its first), ``run_sharded`` runs shard i's lanes on
+    ``mesh[i]``.  RANSAC draws come from one
     ``torch.Generator`` per sequence, seeded ``seed + b``, on lane b's
     device; in VO mode the PnP draws from another, seeded
     ``seed + PNP_SEED + b``."""
@@ -190,6 +323,7 @@ class BatchedVioRunner:
         self.B = B
         self.generators = self._generators(seed)
         self.pnp_generators = None if ecfg.use_imu else self._generators(seed + self.PNP_SEED)
+        self._prog: Optional[_FrameProgram] = None
         self._shards = [self._shard(i) for i in range(len(self.mesh))]
 
     def _generators(self, seed: int) -> List[torch.Generator]:
@@ -210,7 +344,7 @@ class BatchedVioRunner:
         view.generators = self.generators[i * n:(i + 1) * n]
         if self.pnp_generators is not None:
             view.pnp_generators = self.pnp_generators[i * n:(i + 1) * n]
-        view._shards = [view]
+        view._prog, view._shards = None, []  # no reference back: no cycle keeps a graph alive
         return view
 
     def _one_device(self, name: str) -> None:
@@ -260,9 +394,28 @@ class BatchedVioRunner:
         return trk, st, out
 
     def run(self, trk, st, batch: FrameBatch):
-        """T steady frames on ``device``; returns (trk, st, ScanOutputs
-        (T, B, ...))."""
+        """T steady frames on ``device``: per frame, each lane's draws from
+        its generators, then the captured frame replayed (``_FrameProgram``;
+        the first frame of a new shape warms up and captures it; on the CPU
+        the same program runs eagerly); returns (trk, st, ScanOutputs
+        (T, B, ...)), states of the caller's own."""
         self._one_device("run")
+        prog = self._program(trk, st, batch)
+        for k in range(batch.ts.shape[0]):
+            prog.frame(batch, k, self.ransac_uniforms(), self.pnp_uniforms())
+        return prog.result()
+
+    def run_chained(self, trk, st, batch: FrameBatch):
+        """JAX's host-dispatched twin of its scanned ``run`` (one compiled
+        step per frame): here ``run`` itself replays one captured step per
+        frame, so this is ``run``."""
+        return self.run(trk, st, batch)
+
+    def run_eager(self, trk, st, batch: FrameBatch):
+        """``run`` dispatched op by op (``fused_frame_step`` per frame, no
+        static buffers, no graph): the plain version ``run``'s replay is
+        held to."""
+        self._one_device("run_eager")
         outs = []
         for k in range(batch.ts.shape[0]):
             imu = est.ImuInterval(batch.imu_dts[k], batch.imu_acc[k], batch.imu_gyr[k])
@@ -270,17 +423,27 @@ class BatchedVioRunner:
             trk, st, sout = fused_frame_step(self.tcfg, self.cam, self.ecfg, trk, st,
                                              batch.imgs[k], batch.depths[k], batch.ts[k],
                                              imu, ransac_u, pnp_u=self.pnp_uniforms())
-            outs.append(ScanOutputs(P=sout.P, Q=sout.Q, V=sout.V, cost=sout.cost,
-                                    is_keyframe=sout.is_keyframe, n_features=sout.n_features,
-                                    wp_world=sout.wp_world, wp_uv=sout.wp_uv,
-                                    wp_norm=sout.wp_norm, wp_valid=sout.wp_valid,
-                                    wp_ids=sout.wp_ids))
+            outs.append(_scan_outputs(sout))
         return trk, st, ScanOutputs(*[torch.stack(f) for f in zip(*outs)])
 
-    def run_chained(self, trk, st, batch: FrameBatch):
-        """JAX's host-dispatched twin of its scanned ``run``: here ``run``
-        itself dispatches frame by frame, so this is ``run``."""
-        return self.run(trk, st, batch)
+    def _program(self, trk, st, batch: FrameBatch) -> _FrameProgram:
+        """This shard's frame program for these layouts (kept while they
+        stay, made anew when they change), loaded with the states."""
+        frame = FrameBatch(*(a[0] for a in batch))
+        layout = _layout((trk, st, frame))
+        if self._prog is None or self._prog.layout != layout:
+            self.close()
+            self._prog = _FrameProgram(self.tcfg, self.cam, self.ecfg, layout, trk, st, frame)
+        self._prog.load(trk, st, batch.ts.shape[0])
+        return self._prog
+
+    def close(self) -> None:
+        """Release every shard's frame program: its buffers, its graph and
+        the graph's memory pool (a later ``run`` captures again)."""
+        for r in [self] + [v for v in self._shards if v is not self]:
+            if r._prog is not None:
+                r._prog.close()
+                r._prog = None
 
     # -- the mesh ----------------------------------------------------------
     def shard_spec(self, ndim_batch_axis: int = 0) -> "ShardSpec":
@@ -299,17 +462,24 @@ class BatchedVioRunner:
         return self.shard_spec(0).place(tree)
 
     def run_sharded(self, trk: "Sharded", st: "Sharded", batch: "Sharded"):
-        """T frames of every shard, each on its own device in a thread of
-        its own (``on_shards``), from states placed by ``put_states`` and a
-        batch placed by ``put_batch`` (or ``Sharded`` trees of the same
-        layout, such as this method's own results); returns (trk, st,
-        ScanOutputs), all ``Sharded`` (the outputs on lane axis 1).  A
-        shard's exception is raised here once every shard has ended."""
+        """T frames of every shard, each on its own device, from states
+        placed by ``put_states`` and a batch placed by ``put_batch`` (or
+        ``Sharded`` trees of the same layout, such as this method's own
+        results): frame by frame, shard 0, 1, ... replays its captured frame
+        in turn from the calling thread (``on_shards``), as ``run`` does;
+        returns (trk, st, ScanOutputs), all ``Sharded`` (the outputs on lane
+        axis 1).  A shard's exception is raised once every shard has run
+        that frame."""
         for name, tree, axis in (("tracker states", trk, 0), ("estimator states", st, 0),
                                  ("batch", batch, 1)):
             self.shard_spec(axis).check(tree, f"run_sharded: the {name}")
-        res = on_shards(self.mesh, lambda i: self._shards[i].run(
+        shards = self._shards
+        progs = on_shards(self.mesh, lambda i: shards[i]._program(
             trk.parts[i], st.parts[i], batch.parts[i]))
+        for k in range(batch.parts[0].ts.shape[0]):
+            on_shards(self.mesh, lambda i: progs[i].frame(
+                batch.parts[i], k, shards[i].ransac_uniforms(), shards[i].pnp_uniforms()))
+        res = [p.result() for p in progs]
         return (Sharded(self.mesh, [r[0] for r in res], 0),
                 Sharded(self.mesh, [r[1] for r in res], 0),
                 Sharded(self.mesh, [r[2] for r in res], 1))
@@ -390,37 +560,24 @@ class ShardSpec(NamedTuple):
 
 
 def on_shards(mesh: Sequence[torch.device], fn: Callable[[int], object]) -> list:
-    """``fn(i)`` for every shard i of ``mesh``, each in a host thread of its
-    own whose current device is ``mesh[i]`` (so its current stream is that
-    device's); the results in shard order.  Shards of one device take turns
-    (each holds the device's lock while it runs): their work meets on the
-    device's one stream anyway, and threads that dispatch to one device at
-    once contend for the interpreter lock and the device's context at
-    every launch.  Every thread is joined; then the exception of the first
-    shard that raised, if any, is raised here, with a note naming the
-    shard."""
-    results: list = [None] * len(mesh)
-    errors: list = [None] * len(mesh)
-    turns = {d: threading.Lock() for d in set(mesh)}
-
-    def work(i: int) -> None:
+    """``fn(i)`` for every shard i of ``mesh`` in turn, from the calling
+    thread, each under its device (so on that device's current stream);
+    the results in shard order.  Every shard runs; then the exception of
+    the first shard that raised, if any, is raised here, with a note
+    naming the shard and its device."""
+    results: list = []
+    first = None
+    for i, d in enumerate(mesh):
         try:
-            with turns[mesh[i]], (torch.cuda.device(mesh[i]) if mesh[i].type == "cuda"
-                                  else contextlib.nullcontext()):
-                results[i] = fn(i)
-        except BaseException as e:  # raised in the caller below
-            errors[i] = e
-
-    threads = [threading.Thread(target=work, args=(i,), name=f"shard-{i}")
-               for i in range(len(mesh))]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    for i, e in enumerate(errors):
-        if e is not None:
-            e.add_note(f"in shard {i} of {len(mesh)}, on {mesh[i]}")
-            raise e
+            with torch.cuda.device(d) if d.type == "cuda" else contextlib.nullcontext():
+                results.append(fn(i))
+        except Exception as e:  # raised below, once every shard has run
+            results.append(None)
+            if first is None:
+                e.add_note(f"in shard {i} of {len(mesh)}, on {d}")
+                first = e
+    if first is not None:
+        raise first
     return results
 
 

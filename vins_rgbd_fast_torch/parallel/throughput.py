@@ -8,8 +8,9 @@ axis of every state, so each shard's step is ``vio_step`` itself: a mesh
 is a list of devices (a device may appear more than once, each entry its
 own shard), ``batch_shard`` splits the lane axis over it in lane order
 (``Sharded``), and ``make_batched_step`` runs one ``vio_step`` per shard,
-each on its device in a host thread of its own, with no cross-sequence
-work.  A mesh is never reduced to fewer devices than asked for.
+each on its device, in turn from the calling thread (``on_shards``; JAX's
+jitted step has no host threads either), with no cross-sequence work.  A
+mesh is never reduced to fewer devices than asked for.
 """
 
 from __future__ import annotations
@@ -46,10 +47,11 @@ def batch_shard(mesh: List[torch.device], tree) -> Sharded:
 
 
 def make_batched_step(cfg: EstimatorConfig, mesh: List[torch.device]):
-    """The batched VIO step over (states, feats, imus, draws): one
-    ``vio_step`` per shard of the mesh, each on its own device, no
-    cross-sequence work; inputs ``Sharded`` over the mesh (a plain batched
-    tree is placed by ``batch_shard`` first), outputs (states, StepOutput)
+    """The batched VIO step over (states, feats, imus, draws): one eager
+    ``vio_step`` per shard of the mesh, shard after shard from the caller's
+    thread, each on its own device, no cross-sequence work; inputs
+    ``Sharded`` over the mesh (a plain batched tree is placed by
+    ``batch_shard`` first), outputs (states, StepOutput)
     ``Sharded`` alike.  ``draws`` takes the place of JAX's per-sequence
     keys: the VO pose init's PnP uniforms (B, 32, MAXF), None with an IMU
     (where JAX's step does not read its key)."""
