@@ -57,10 +57,17 @@ Phases (each prints one line; any failure raises and exits non-zero):
      and gives each kernel's device ms per frame by name;
   7. the latency path: ``VinsPipeline`` over one 640×480 stream (the bench's
      ``run_latency`` with ``BENCH_LAT_LOOP=0``): 16 warm-up frames through
-     ``spin_once``, then 48 timed frames (CUDA-synchronised wall time);
+     ``spin_once``, then 48 timed frames (CUDA-synchronised wall time),
+     first dispatched op by op (``replay=False``, the plain version), then
+     replayed (the first steady frame of the pipeline runs eagerly and is
+     captured as a CUDA graph; its seconds are kept apart, ``capture_s``);
+     the replayed frames equal the plain ones bit for bit in every output,
+     end state and generator (else the first differing leaf is named);
      NON_LINEAR after the warm-up, ATE under max(0.05·travelled, 0.08 m),
      K1 once and K3 twice per frame and K2 never, and a profile of a few
-     more frames that must show no host wait inside ``spin_once``;
+     more frames of each that must show no host wait inside ``spin_once``
+     and K1 once and K3 twice per frame by name (host CUDA API calls per
+     frame and the busy share beside);
   8. K3 timings per level at 1×200 and 8×200, as in phase 6, at the
      VO shape 1×376 on levels 3..0 and at 1×200 on the 848×480 levels 1
      and 0; K1 at 1×480×848; K2 per level at phase 4d's 8×376 cold tracks;
@@ -77,13 +84,16 @@ Phases (each prints one line; any failure raises and exits non-zero):
      thread inside ``spin_once`` (the worker's own waits are allowed and
      counted apart); the worker's seconds by stage, beside
      phase 7's ms per frame; 9b. the same scene and configuration without
-     the pose graph (the relo block in every solve, never active), and 9c.
+     the pose graph (the relo block in every solve, never active), plain
+     and replayed, held bit for bit as in phase 7, and 9c.
      9b and 9 once more in the reverse order, for what the worker costs the
      frame thread; 9d. the loop cell with the pose graph inline
      (``eager_outputs``), with phase 9's checks but the profile.  Phase 9
      counts the relocalizations the worker consumes (the solver's relo pose
      fed back into the graph) and needs one when a loop was accepted in the
-     timed frames;
+     timed frames, and holds its last loop's check, replayed from a captured
+     graph as the worker runs it, to the same check dispatched op by op,
+     bit for bit;
  10. the batched path with loop closure (the bench's default ``run_batched``,
      ``BENCH_LOOP=1``): B = 8 at 640×480, four revisit sequences with a gyro
      pulse and four clean ones, ``BatchedVioRunner`` warmed on frames 0-10,
@@ -108,7 +118,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
      and one 6-DoF solve, the loop-corrected keyframe ATE at most 5 mm
      above the VO keyframes', K1 once per frame plus once per extracted
      keyframe, K3 four times per frame, K2 never, and a profile with no
-     host wait on the frame thread; 11b. that run's map saved
+     host wait on the frame thread; before it, the same cell plain and
+     replayed with the frame thread waiting for the worker after each
+     hand-over (a loop's relocalization then reaches the solve at a fixed
+     frame), held bit for bit as in phase 7 and to the same gates;
+     11b. that run's map saved
      (``PoseGraph.save``) and loaded into a fresh VO pipeline that replays
      the last 48 frames from its own origin: at least one loop onto a
      loaded keyframe, and the map through the reference's directory format
@@ -161,7 +175,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
      and of one 640×480 RGB PNG of Paeth rows; 14c. 8 frames of the
      latency tracker with ``fisheye`` on, with the analytic circle and with
      a mask file of a non-circular field of view: no live point outside
-     the mask, read on the device;
+     the mask, read on the device; and phase 7's stream through the latency
+     pipeline with the circle and CLAHE, plain and replayed, bit for bit;
  15. batched VO (the TUM RGB-D rig's knobs on ``BatchedVioRunner``: no IMU,
      ``max_cnt`` 250 = 376 slots, cold LK on 4 levels through K2, the PnP
      pose init from each sequence's own draws): phase 5's B = 8 sequences,
@@ -254,7 +269,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
 Phases 5, 7, 9, 10, 11, 12, 13, 14, 14b, 15, 15b, 16, 16c (once per
 camera), 16d, 16e (once per camera), 16f, 17, 20, 20b and 21 (each
 sharded run of 21b) each zero the kernels' launch counters just before
-their path and read them just after; the ``kernels`` line sums them.  A
+their path and read them just after; the ``kernels`` line sums them.
+Every latency-pipeline phase replays its steady frames; its first steady
+frame (eager warm-up and capture) is timed apart, and a capture inside
+the timed frames fails the phase.  A
 line before the card's lists each phase's wall seconds.
 ``python3 chip_smoke.py --phases 21`` runs phases 1-2 and 21 alone (the
 call on several cards); its ``kernels`` line holds card 0's timings and
@@ -288,6 +306,7 @@ from vins_rgbd_fast_torch.config import EstimatorConfig, TrackerConfig, VinsConf
 from vins_rgbd_fast_torch.frontend import feature_tracker as ft
 from vins_rgbd_fast_torch.io import synthetic as syn
 from vins_rgbd_fast_torch.io.stream import ate_rmse
+from vins_rgbd_fast_torch.loop import pose_graph as pg
 from vins_rgbd_fast_torch.loop.pose_graph import (KeyframeGate, PoseGraphConfig,
                                                   extract_kf_device)
 from vins_rgbd_fast_torch.models.camera import PinholeCamera
@@ -721,15 +740,115 @@ def envelope(pipe: VinsPipeline) -> VinsPipeline:
     return pipe
 
 
+def graph_of(pipe: VinsPipeline):
+    """The CUDA graph of a latency pipeline's steady-frame program, or None."""
+    return getattr(pipe._prog, "graph", None)
+
+
+def capture_clock(pipe: VinsPipeline) -> list:
+    """Time a latency pipeline's capture frames apart: on CUDA, with
+    ``replay``, wraps ``pipe.spin_once`` so that a frame that may capture
+    (the estimator NON_LINEAR and no graph yet) runs between two
+    synchronisations; if it captured, its seconds (its eager warm-up frame
+    and the capture) go to the returned list (``timed_ms``)."""
+    caps: list = []
+    if pipe.device.type != "cuda" or not (pipe.replay and pipe._fused_enabled):
+        return caps
+    spin = pipe.spin_once
+
+    def spin_once():
+        if graph_of(pipe) is not None or \
+                pipe.estimator.solver_flag != est.VinsEstimator.NON_LINEAR:
+            return spin()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = spin()
+        torch.cuda.synchronize()
+        if graph_of(pipe) is not None:
+            caps.append(time.perf_counter() - t0)
+        return out
+
+    pipe.spin_once = spin_once
+    return caps
+
+
+def timed_ms(elapsed: float, n: int, caps: list, k0: int) -> float:
+    """ms per frame of a timed window of ``n`` frames that took ``elapsed``
+    s; ``caps[k0:]``, the capture frames inside it, must be none."""
+    require(len(caps) == k0, ("a capture inside the timed frames", caps[k0:]))
+    return 1e3 * elapsed / n
+
+
+def replay_note(res, plain=None) -> str:
+    """A latency cell's replay figures: the seconds of its capture frames
+    (the first steady frame's eager warm-up and capture); host CUDA API
+    calls per frame, busy share and device ms per frame of its profile, and
+    of the plain run's if given."""
+    parts = [f"capture s {[round(c, 3) for c in res.get('capture_s', [])]}"]
+    for what, r in (("", res), ("plain: ", plain)):
+        p = r.get("profile") if r else None
+        if p:
+            parts.append(f"{what}host CUDA API calls per frame {p['api_calls_per_frame']:.1f}, "
+                         f"busy {p['busy_share']}, device ms per frame "
+                         f"{p['device_ms_per_frame']}")
+    return "; ".join(parts)
+
+
+def frames_record(pipe: VinsPipeline, t_end: float) -> dict:
+    """What ``replay_against_plain`` compares, up to the frame at
+    ``t_end``: the steady outputs (every ``StepOutput``), the states and the
+    generators' states (RANSAC, VO PnP)."""
+    return dict(steps=[o for t, o in pipe.estimator._pending if t <= t_end],
+                end_state=bp.map_tree(torch.clone, (pipe.tracker_state, pipe.estimator.state)),
+                generators=[pipe._generator.get_state(),
+                            pipe.estimator.pnp_generator.get_state()])
+
+
+def same_bits(x: torch.Tensor, y: torch.Tensor) -> bool:
+    """Equal dtype, shape and bytes (NaN payloads included)."""
+    def bits(a):
+        return a.detach().reshape(-1).contiguous().view(torch.uint8)
+    return x.dtype == y.dtype and x.shape == y.shape and torch.equal(bits(x), bits(y))
+
+
+def replay_against_plain(plain: dict, replay: dict) -> dict:
+    """The replayed frames against the plain per-op frames of the same
+    stream (``frames_record`` of each): every field of every output, the
+    end states and the generators, bit for bit, with the first differing
+    leaf named (the output's frame and field, or the state leaf)."""
+    def max_abs(u, v):
+        return float((u.double() - v.double()).abs().max()) if u.shape == v.shape else None
+
+    a, b = plain["steps"], replay["steps"]
+    out_diff = dict(outputs=(len(a), len(b))) if len(a) != len(b) else next(
+        (dict(output=k, field=f, max_abs=max_abs(getattr(x, f), getattr(y, f)))
+         for k, (x, y) in enumerate(zip(a, b)) for f in est.StepOutput._fields
+         if not same_bits(getattr(x, f), getattr(y, f))), None)
+    state_diff = next((dict(state_leaf=i, shape=list(u.shape), max_abs=max_abs(u, v))
+                       for i, (u, v) in enumerate(zip(bp.leaves(plain["end_state"]),
+                                                      bp.leaves(replay["end_state"])))
+                       if not same_bits(u, v)), None)
+    gens = all(torch.equal(g, h) for g, h in zip(plain["generators"], replay["generators"]))
+    return dict(outputs=len(b), outputs_equal=out_diff is None, states_equal=state_diff is None,
+                generators_equal=gens,
+                bit_equal=out_diff is None and state_diff is None and gens,
+                first_difference=out_diff or state_diff)
+
+
 def run_latency_path(device, n_frames: int = 112, warmup: int = 16, W: int = 640,
                      H: int = 480, max_cnt: int = 130, profile: int = 0, path=None,
                      revisit: bool = False, camera: str = "", degrade=None,
-                     workdir: str = OUT_DIR):
+                     workdir: str = OUT_DIR, replay: bool = True, record: bool = False):
     """bench.py run_latency with BENCH_LAT_LOOP=0 on the port: one stream
     (make_trajectory seed 7), frames rendered on the device first, the
     fused steady state with no read-back per frame (eager_outputs off,
     failure check every 10**9 frames) and the envelope (LM 2 iterations,
-    LK 12/6).  ``profile`` more frames run under the profiler afterwards.
+    LK 12/6), its steady frames replayed (``replay=False``: dispatched op
+    by op, the plain version).  The first steady frame (its warm-up and
+    capture) is timed apart (``capture_s``) and must fall before the timed
+    frames.  ``profile`` more frames run under the
+    profiler afterwards.  With ``record``, the result's ``record`` is what
+    ``replay_against_plain`` compares, up to the last timed frame.
     With ``revisit``, the loop cell's scene and configuration but no pose
     graph: fast relocalization on, its constraint never active.  With
     ``camera`` (a non-pinhole model type), the rig of ``camera_config``
@@ -768,7 +887,9 @@ def run_latency_path(device, n_frames: int = 112, warmup: int = 16, W: int = 640
     else:
         ts, imgs, deps = syn.render_sequence(seq, rig, device)
     pipe = envelope(VinsPipeline(cfg, device, eager_outputs=False,
-                                 failure_check_interval=10 ** 9, fused_steady_state=True))
+                                 failure_check_interval=10 ** 9, fused_steady_state=True,
+                                 replay=replay))
+    caps = capture_clock(pipe)
     for (t, a, g) in seq.imu:
         pipe.push_imu(t, a, g)
 
@@ -786,24 +907,29 @@ def run_latency_path(device, n_frames: int = 112, warmup: int = 16, W: int = 640
     feed(0, warmup)
     flag = pipe.estimator.solver_flag
     sync()
+    k_cap = len(caps)
     t0 = time.perf_counter()
     feed(warmup, n_frames)
     sync()
     elapsed = time.perf_counter() - t0
     counts = read_counts()
+    n_timed = n_frames - warmup
+    ms = timed_ms(elapsed, n_timed, caps, k_cap)
+    kept = frames_record(pipe, ts[n_frames - 1]) if record else None
     prof = None
     if profile:
         prof = profile_span(lambda: feed(n_frames, n_frames + profile), SPIN_SPAN, profile,
-                            path, 1e3 * elapsed / (n_frames - warmup))
+                            path, ms)
+    pipe.close()
     traj = [r for r in pipe.estimator.trajectory if r["t"] <= ts[n_frames - 1]]
     ate = ate_rmse([r["t"] for r in traj], [r["P"] for r in traj], seq.times, seq.P,
                    align=False) if len(traj) >= 5 else float("nan")
     travelled = float(np.sum(np.linalg.norm(np.diff(seq.P[:n_frames], axis=0), axis=1)))
-    n_timed = n_frames - warmup
     bound = max(0.08 * travelled, 0.12) if degrade is not None else max(0.05 * travelled, 0.08)
     n_dyn = ([o.n_dynamic[0] for _, o in pipe.estimator._pending] if degrade is not None
              else None)
-    return dict(latency_fps=n_timed / elapsed, latency_ms_per_frame=1e3 * elapsed / n_timed,
+    return dict(latency_fps=1e3 / ms, latency_ms_per_frame=ms, capture_s=caps,
+                replay=replay, record=kept,
                 latency_ate_m=ate, bound=bound, frames=n_frames,
                 n_records=len(traj), solver_flag_after_warmup=flag, counts=counts,
                 profile=prof, timer=pipe.timer.summary(), rig_file=rig_file,
@@ -821,6 +947,8 @@ def check_latency_path(res, on_gpu: bool = True) -> None:
         require(res["counts"] == {"fast_nms": n, "lk_level": 0, "lk_iterate": 2 * n},
                 ("latency launches", res["counts"]))
         require(res["profile"]["host_syncs"] == 0, "no host wait inside spin_once")
+        check_replay_profile(res["profile"], {"fast_nms": 1, "lk_iterate": 2},
+                             "the latency path's profile")
 
 
 def loop_config(rig, seq, max_cnt: int = 130, max_kp: int = 192):
@@ -859,7 +987,8 @@ def revisit_scene(rig, n_frames: int, extra: int = 0, seed: int = 207, imu_seed:
 
 def run_loop_path(device, n_frames: int = 112, warmup: int = 16, W: int = 640, H: int = 480,
                   max_cnt: int = 130, max_kp: int = 192, profile: int = 0, path=None,
-                  eager: bool = False, vo: bool = False, lockstep: bool = False):
+                  eager: bool = False, vo: bool = False, lockstep: bool = False,
+                  replay: bool = True, record: bool = False):
     """bench.py run_latency with BENCH_LAT_LOOP=1 on the port: the revisit
     scene rendered on the device first, the fused steady state with no
     read-back per frame, the envelope, and the pose graph on the
@@ -867,28 +996,36 @@ def run_loop_path(device, n_frames: int = 112, warmup: int = 16, W: int = 640, H
     ``spin_once``, every frame read back).  The launch counters are zeroed
     after the warm-up and the stager's warm-up, just before the timed
     frames; ``profile`` frames (async only) run under the profiler after.
+    ``relo_consumed`` counts the relocalizations the worker fed back to
+    the graph by the end of the timed frames' drain.
     With ``vo``, VO mode (``vo_config``: no IMU pushed, cold LK on 4
     levels, PnP pose init, the 6-DoF graph).  With ``lockstep`` the frame
-    thread waits for the worker after each batch of frames it hands over,
+    thread waits for the worker after each hand-over (then one per frame),
     so a loop's relocalization reaches the estimator at a fixed frame and
-    the run does not depend on thread timing (the CPU rehearsals).  The
-    result keeps the pose graph (``graph``) and the scene (``scene``)."""
+    the run does not depend on thread timing (the CPU rehearsals, and the
+    card's comparison of replayed and plain frames).  The steady frames are
+    replayed (``replay=False``: dispatched op by op); the first (its
+    warm-up and capture) is timed apart and must fall before the timed
+    frames.
+    The result keeps the pose graph (``graph``), the scene (``scene``) and,
+    with ``record``, what ``replay_against_plain`` compares (``record``)."""
     rig, _, _, _ = slice_config(W, H, max_cnt)
     seq = revisit_scene(rig, n_frames, profile)
     ts, imgs, deps = syn.render_sequence(seq, rig, device)
     cfg, pg_cfg = (vo_config if vo else loop_config)(rig, seq, max_cnt, max_kp)
     pipe = envelope(VinsPipeline(cfg, device, eager_outputs=eager,
                                  failure_check_interval=10 ** 9, fused_steady_state=True,
-                                 pose_graph_config=pg_cfg))
+                                 pose_graph_config=pg_cfg, replay=replay))
+    caps = capture_clock(pipe)
     graph = pipe.pose_graph
     stager = pipe._loop_stager  # None with eager
     consumed = []  # relocalizations the worker fed back to the graph
     if stager is not None:
         consume_relo = stager._consume_relo
 
-        def counted(p):
+        def counted(p, prev):
             consumed.append(stager._relo_sent_kf)
-            consume_relo(p)
+            consume_relo(p, prev)
 
         stager._consume_relo = counted
     for (t, a, g) in ([] if vo else seq.imu):
@@ -917,12 +1054,16 @@ def run_loop_path(device, n_frames: int = 112, warmup: int = 16, W: int = 640, H
         kf0, relo0 = len(graph.keyframes), len(consumed)
         loops0 = stager.n_loops if stager is not None else None
         reset_counts()
+        k_cap = len(caps)
         t0 = time.perf_counter()
         feed(warmup, n_frames)
         pipe.drain()
         sync()
         elapsed = time.perf_counter() - t0
         counts = read_counts()
+        n_timed = n_frames - warmup
+        ms = timed_ms(elapsed, n_timed, caps, k_cap)
+        kept = frames_record(pipe, ts[n_frames - 1]) if record else None
         kf_timed = len(graph.keyframes) - kf0
         relo_timed = len(consumed) - relo0 if stager is not None else None
         loops_timed = stager.n_loops - loops0 if stager is not None else None
@@ -935,8 +1076,7 @@ def run_loop_path(device, n_frames: int = 112, warmup: int = 16, W: int = 640, H
                 stager._worker.put(lambda: stager._warmup(imgs[0]))
                 feed(n_frames, n_frames + profile)
 
-            prof = profile_span(busy_feed, SPIN_SPAN, profile, path,
-                                1e3 * elapsed / (n_frames - warmup))
+            prof = profile_span(busy_feed, SPIN_SPAN, profile, path, ms)
             pipe.drain()
     finally:
         pipe.close()
@@ -950,8 +1090,8 @@ def run_loop_path(device, n_frames: int = 112, warmup: int = 16, W: int = 640, H
                 else float("nan"))
 
     travelled = float(np.sum(np.linalg.norm(np.diff(seq.P[:n_frames], axis=0), axis=1)))
-    n_timed = n_frames - warmup
-    return dict(latency_fps=n_timed / elapsed, latency_ms_per_frame=1e3 * elapsed / n_timed,
+    return dict(latency_fps=1e3 / ms, latency_ms_per_frame=ms, capture_s=caps,
+                replay=replay, record=kept,
                 latency_ate_m=ate([r["t"] for r in traj], [r["P"] for r in traj]),
                 latency_loop_ate_m=ate([p[0] for p in path_c], [p[1] for p in path_c]),
                 latency_vio_kf_ate_m=ate([k.t for k in kfs], [k.P_vio for k in kfs]),
@@ -961,7 +1101,7 @@ def run_loop_path(device, n_frames: int = 112, warmup: int = 16, W: int = 640, H
                 bound=max(0.05 * travelled, 0.08), frames=n_frames, timed=n_timed,
                 kf_timed=kf_timed, solver_flag_after_warmup=flag, counts=counts,
                 loops_timed=loops_timed, relo_consumed=relo_timed, relo_keyframes=consumed,
-                worker_s=stages, profile=prof, timer=pipe.timer.summary(), vo=vo,
+                max_round=stager.max_round if stager is not None else None, worker_s=stages, profile=prof, timer=pipe.timer.summary(), vo=vo,
                 lk_levels=pipe.tcfg.pyr_levels_cold if vo else pipe.tcfg.pyr_levels_predicted,
                 solves_6dof=graph.n_solves_6dof, graph=graph,
                 scene=(seq, ts, imgs, deps, cfg, pg_cfg))
@@ -995,6 +1135,19 @@ def check_loop_path(res, on_gpu: bool = True) -> None:
     if res["profile"] is not None:
         require(res["profile"]["host_syncs"] == 0,
                 ("no host wait on the frame thread", res["profile"]["host_sync_calls"]))
+
+
+def verify_replay_against_plain(graph) -> dict:
+    """The loop check (``pose_graph.verify_row``) of the graph's last loop,
+    replayed from a graph captured here, against the same check dispatched
+    op by op on the same inputs, bit for bit."""
+    lp = graph.loops[-1]
+    inputs = graph._verify_inputs(graph.keyframes[lp["cur"]], graph.keyframes[lp["old"]])
+    gates = (float(graph.cfg.match_thresh), int(graph.cfg.min_loop_num))
+    replayed = pg.verify_row(inputs, *gates, {}).clone()
+    plain = pg._verify_row(*inputs, *gates)
+    return dict(bit_equal=same_bits(replayed, plain),
+                max_abs=float((replayed.double() - plain.double()).abs().max()))
 
 
 def run_map_roundtrip(device, vo_res, tail: int = 48, workdir: str = OUT_DIR):
@@ -1228,17 +1381,17 @@ def lane_accuracy(times, Ps, seq, dynamic: bool, mono: bool) -> dict:
 
 def rig_lane(device, cfg: VinsConfig, seq, depthless: bool = False, imu_shift: float = 0.0,
              failure_check_interval: int = 10 ** 9, fused: bool = True,
-             dtype=torch.float32) -> dict:
+             dtype=torch.float32, replay: bool = True) -> dict:
     """One stream's ``VinsPipeline`` with a rig's knobs (phases 12-13b and
     the lanes of 20 and 20b): the envelope, no read-back per frame but the
     failure check every ``failure_check_interval`` frames and the td
     refresh, its IMU stamps shifted by ``imu_shift`` (a known td); with
     ``depthless`` every depth image before the estimator initializes is
-    withheld as zeros, so only the monocular program can.  ``feed_lane``
-    feeds it."""
+    withheld as zeros, so only the monocular program can; ``replay=False``
+    dispatches the steady frames op by op.  ``feed_lane`` feeds it."""
     pipe = envelope(VinsPipeline(cfg, device, dtype, eager_outputs=False,
                                  failure_check_interval=failure_check_interval,
-                                 fused_steady_state=fused))
+                                 fused_steady_state=fused, replay=replay))
     for (t, a, g) in seq.imu:
         pipe.push_imu(t + imu_shift, a, g)
     return dict(pipe=pipe, ric=seq.ric, depthless=depthless, fed=0, attempts=[],
@@ -1273,16 +1426,20 @@ def feed_lane(lane: dict, ts, imgs, deps, k1: int, stop_at_init: bool = False) -
 def run_rig_path(device, cfg: VinsConfig, rig, seq, n_frames: int = 112, warmup: int = 16,
                  profile: int = 0, path=None, fused: bool = True,
                  failure_check_interval: int = 10 ** 9, imu_shift: float = 0.0,
-                 depthless: bool = False):
+                 depthless: bool = False, replay: bool = True):
     """One stream through ``VinsPipeline`` with a rig's knobs (phases 12,
     12b, 13 and 13b; ``rig_lane``): frames rendered on the device first,
     ``warmup`` frames, then the timed ones (CUDA-synchronised wall time)
     with the launch counters zeroed before the warm-up, then ``profile``
-    frames under the profiler.  Returns what ``feed_lane`` records and the
+    frames under the profiler.  The first steady frame (its warm-up and
+    capture) is timed apart (``capture_s``) and must fall before the timed
+    frames.  Returns what ``feed_lane`` records and the
     stream's accuracy (``lane_accuracy``)."""
     ts, imgs, deps = syn.render_sequence(seq, rig, device)
-    lane = rig_lane(device, cfg, seq, depthless, imu_shift, failure_check_interval, fused)
+    lane = rig_lane(device, cfg, seq, depthless, imu_shift, failure_check_interval, fused,
+                    replay=replay)
     pipe = lane["pipe"]
+    caps = capture_clock(pipe)
     e = pipe.estimator
 
     def sync():
@@ -1293,6 +1450,7 @@ def run_rig_path(device, cfg: VinsConfig, rig, seq, n_frames: int = 112, warmup:
     feed_lane(lane, ts, imgs, deps, warmup)
     flag = e.solver_flag
     sync()
+    k_cap = len(caps)
     t0 = time.perf_counter()
     feed_lane(lane, ts, imgs, deps, n_frames)
     sync()
@@ -1301,13 +1459,15 @@ def run_rig_path(device, cfg: VinsConfig, rig, seq, n_frames: int = 112, warmup:
     tracked = pipe._frame_idx  # the frames the pairer's rate gate let through
     prof = None
     n_timed = n_frames - warmup
+    ms = timed_ms(elapsed, n_timed, caps, k_cap)
     if profile:
         prof = profile_span(lambda: feed_lane(lane, ts, imgs, deps, n_frames + profile),
-                            SPIN_SPAN, profile, path, 1e3 * elapsed / n_timed)
+                            SPIN_SPAN, profile, path, ms)
+    pipe.close()
     traj = [r for r in e.trajectory if r["t"] <= ts[n_frames - 1]]
     acc = lane_accuracy([r["t"] for r in traj], [r["P"] for r in traj], seq,
                         not cfg.static_init, depthless)
-    return dict(latency_fps=n_timed / elapsed, latency_ms_per_frame=1e3 * elapsed / n_timed,
+    return dict(latency_fps=1e3 / ms, latency_ms_per_frame=ms, capture_s=caps,
                 latency_ate_m=acc.pop("ate_m"), **acc, frames=n_frames, tracked=tracked,
                 timed=n_timed, n_records=len(traj), solver_flag_after_warmup=flag,
                 init_frame=lane["init_frame"], attempts=lane["attempts"],
@@ -1741,6 +1901,7 @@ def run_bag_path(device, n_frames: int = 64, warmup: int = 16, W: int = 640, H: 
 
         pipe = envelope(VinsPipeline(load_config(yaml_path), device, eager_outputs=False,
                                      failure_check_interval=4, fused_steady_state=True))
+        caps = capture_clock(pipe)
         spin = pipe.spin_once
         spin_s = [0.0]
 
@@ -1767,6 +1928,7 @@ def run_bag_path(device, n_frames: int = 64, warmup: int = 16, W: int = 640, H: 
         flag = pipe.estimator.solver_flag
         sync()
         dec0, spin_s[0], tracked0 = pipe.timer.total["decode"], 0.0, pipe._frame_idx
+        k_cap = len(caps)
         t0 = time.perf_counter()
         replay(warmup, n_frames)
         sync()
@@ -1774,11 +1936,12 @@ def run_bag_path(device, n_frames: int = 64, warmup: int = 16, W: int = 640, H: 
         counts, tracked = read_counts(), pipe._frame_idx
         n_timed = tracked - tracked0
         decode_ms = 1e3 * (pipe.timer.total["decode"] - dec0) / n_timed
-        spin_ms = 1e3 * spin_s[0] / n_timed
+        spin_ms = timed_ms(spin_s[0], n_timed, caps, k_cap)
+        ms = timed_ms(elapsed, n_timed, caps, k_cap)
         prof = None
         if profile:
             prof = profile_span(lambda: replay(n_frames, n_frames + profile), SPIN_SPAN, profile,
-                                os.path.join(workdir, "profile_bag.txt"), 1e3 * elapsed / n_timed)
+                                os.path.join(workdir, "profile_bag.txt"), ms)
         pipe.run()
         pipe.close()
     finally:
@@ -1797,7 +1960,7 @@ def run_bag_path(device, n_frames: int = 64, warmup: int = 16, W: int = 640, H: 
                                                    seq.P, align=False)
                                           if len(csv_in) >= 5 else float("nan")),
         bound=max(0.05 * travelled, 0.08), solver_flag_after_warmup=flag, counts=counts,
-        tracked=tracked, timed=n_timed, latency_ms_per_frame=1e3 * elapsed / n_timed,
+        tracked=tracked, timed=n_timed, latency_ms_per_frame=ms, capture_s=caps,
         decode_ms_per_frame=decode_ms, spin_ms_per_frame=spin_ms,
         td=float(e.state.x.td[0]), clahe_changed=not torch.equal(level0, raw),
         clahe_err=float((level0 - image.clahe(raw)).abs().max()), profile=prof,
@@ -1875,6 +2038,7 @@ def run_tum_path(device, n_frames: int = 64, warmup: int = 16, W: int = 640, H: 
         pipe = envelope(VinsPipeline(load_config(yaml_path), device, eager_outputs=False,
                                      failure_check_interval=10 ** 9, fused_steady_state=True,
                                      pose_graph_config=pg_cfg))
+        caps = capture_clock(pipe)
         frames = tum.frames()
         decode_s = [0.0]
 
@@ -1897,6 +2061,7 @@ def run_tum_path(device, n_frames: int = 64, warmup: int = 16, W: int = 640, H: 
         pipe.drain()
         sync()
         decode_s[0] = 0.0
+        k_cap = len(caps)
         t0 = time.perf_counter()
         feed(inproc_frames - warmup)
         pipe.drain()
@@ -1905,10 +2070,11 @@ def run_tum_path(device, n_frames: int = 64, warmup: int = 16, W: int = 640, H: 
         counts, tracked = read_counts(), pipe._frame_idx
         n_timed = inproc_frames - warmup
         decode_ms = 1e3 * decode_s[0] / n_timed
+        ms = timed_ms(elapsed, n_timed, caps, k_cap)
         prof = None
         if profile:
             prof = profile_span(lambda: feed(profile), SPIN_SPAN, profile,
-                                os.path.join(workdir, "profile_tum.txt"), 1e3 * elapsed / n_timed)
+                                os.path.join(workdir, "profile_tum.txt"), ms)
         pipe.close()
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -1920,7 +2086,8 @@ def run_tum_path(device, n_frames: int = 64, warmup: int = 16, W: int = 640, H: 
                     if len(est_rows) >= 5 else float("nan")),
         loop_rows=loop_rows, bound=max(0.05 * travelled, 0.08),
         solver_flag_after_warmup=flag, counts=counts, tracked=tracked, timed=n_timed,
-        latency_ms_per_frame=1e3 * elapsed / n_timed, decode_ms_per_frame=decode_ms,
+        latency_ms_per_frame=ms, capture_s=caps,
+        decode_ms_per_frame=decode_ms,
         profile=prof, timer=pipe.timer.summary())
 
 
@@ -1988,6 +2155,45 @@ def run_fisheye(device, n_frames: int = 8, W: int = 640, H: int = 480, max_cnt: 
             live.append(int(ok.sum()))
         out[name] = dict(live=live, outside=outside, fov_share=float(mask.float().mean()))
     return out
+
+
+def run_fisheye_pipeline(device, n_frames: int = 28, W: int = 640, H: int = 480,
+                         max_cnt: int = 130) -> dict:
+    """Phase 14c's pipeline: phase 7's stream with ``fisheye`` (the analytic
+    circle) and ``equalize`` (CLAHE) on, through ``VinsPipeline`` fused,
+    dispatched op by op and then replayed (the mask built and CLAHE run in
+    the warm-up frames before the capture); what ``replay_against_plain``
+    compares, the replayed run's launches and whether it captured."""
+    rig, _, _, _ = slice_config(W, H, max_cnt)
+    seq = syn.make_trajectory(n_frames, rig, seed=7, omega_scale=0.15, acc_scale=0.3)
+    cfg = dataclasses.replace(latency_config(rig, seq, max_cnt), fisheye=True, equalize=True)
+    ts, imgs, deps = syn.render_sequence(seq, rig, device)
+    runs = {}
+    for rp in (False, True):
+        pipe = envelope(VinsPipeline(cfg, device, eager_outputs=False,
+                                     failure_check_interval=10 ** 9, fused_steady_state=True,
+                                     replay=rp))
+        for (t, a, g) in seq.imu:
+            pipe.push_imu(t, a, g)
+        reset_counts()
+        for k in range(n_frames):
+            pipe.push_image(ts[k], imgs[k])
+            pipe.push_depth(ts[k], deps[k])
+            pipe.spin_once()
+        runs[rp] = (frames_record(pipe, ts[n_frames - 1]), read_counts(),
+                    graph_of(pipe) is not None)
+        pipe.close()
+    return dict(frames=n_frames, compare=replay_against_plain(runs[False][0], runs[True][0]),
+                counts=runs[True][1], captured=runs[True][2])
+
+
+def check_fisheye_pipeline(res, on_gpu: bool = True) -> None:
+    require(res["compare"]["bit_equal"], ("fisheye and CLAHE: replay against plain", res))
+    if on_gpu:
+        n = res["frames"]
+        require(res["captured"] and res["counts"] == {"fast_nms": n, "lk_level": 0,
+                                                      "lk_iterate": 2 * n},
+                ("fisheye and CLAHE: captured, and its launches", res))
 
 
 def check_fisheye(res) -> None:
@@ -2913,7 +3119,7 @@ def png_decode_ms(decode=None, H: int = 480, W: int = 640, filt: int = 4, reps: 
 
 def jsonable(res) -> dict:
     """A loop-path result without its pose graph and scene."""
-    return {k: v for k, v in res.items() if k not in ("graph", "scene")}
+    return {k: v for k, v in res.items() if k not in ("graph", "scene", "record")}
 
 
 def require(ok, what) -> None:
@@ -3209,10 +3415,20 @@ def check_replay_profile(prof: dict, per_frame: dict, what: str) -> None:
 def host_waits(prof, name: str):
     """Host waits (``HOST_SYNC_CALLS``) that start and end inside the span
     ``name``, on the span's own OS thread and on others (a worker thread
-    may wait; the frame thread may not), with the names of the former.
-    Read from the exported trace, whose events carry the OS thread id of
-    their caller (the profiler's event list gives CUDA runtime calls no
-    usable thread)."""
+    may wait; the frame thread may not), with the names of the former
+    (``span_trace``)."""
+    t = span_trace(prof, name)
+    return t["own_waits"], t["other_waits"]
+
+
+def span_trace(prof, name: str) -> dict:
+    """What the exported trace shows inside the span ``name``: the host
+    waits (``HOST_SYNC_CALLS``) of the span's own OS thread (``own_waits``,
+    by name) and of others (``other_waits``, counted), and the CUDA API
+    calls of its own thread (the trace's ``cuda_*`` categories; ``own_api``,
+    name -> count).  Read from the exported trace, whose events carry the
+    OS thread id of their caller (the profiler's event list gives CUDA
+    runtime calls no usable thread)."""
     with tempfile.TemporaryDirectory(dir=OUT_DIR) as d:
         trace = os.path.join(d, "trace.json")
         prof.export_chrome_trace(trace)
@@ -3220,10 +3436,15 @@ def host_waits(prof, name: str):
             events = json.load(f)["traceEvents"]
     span = next(e for e in events if e.get("name") == name and e.get("cat") == "user_annotation")
     t0, t1 = span["ts"], span["ts"] + span["dur"]
-    waits = [e for e in events if e.get("cat") == "cuda_runtime"
-             and e.get("name") in HOST_SYNC_CALLS and t0 <= e["ts"] and e["ts"] + e["dur"] <= t1]
+    inside = [e for e in events if str(e.get("cat", "")).startswith("cuda_")
+              and t0 <= e["ts"] and e["ts"] + e["dur"] <= t1]
+    waits = [e for e in inside if e.get("name") in HOST_SYNC_CALLS]
     own = [e["name"] for e in waits if e.get("tid") == span.get("tid")]
-    return own, len(waits) - len(own)
+    api = {}
+    for e in inside:
+        if e.get("tid") == span.get("tid"):
+            api[e["name"]] = api.get(e["name"], 0) + 1
+    return dict(own_waits=own, other_waits=len(waits) - len(own), own_api=api)
 
 
 def profile_span(fn, name: str, frames: int, path: str, step_ms: float):
@@ -3238,7 +3459,8 @@ def profile_span(fn, name: str, frames: int, path: str, step_ms: float):
         with record_function(name):
             fn()
         torch.cuda.synchronize()
-    own, other_syncs = host_waits(prof, name)
+    trace = span_trace(prof, name)
+    own, other_syncs, api = trace["own_waits"], trace["other_waits"], trace["own_api"]
     events = prof.key_averages()
     # the span also shows as a device-side annotation; it is not a kernel
     kernels = [e for e in events if e.device_type == DeviceType.CUDA and e.key != name]
@@ -3258,6 +3480,8 @@ def profile_span(fn, name: str, frames: int, path: str, step_ms: float):
                        device_ms_per_launch=us / 1e3 / n if n else "not launched")
     return dict(frames=frames, kernels_per_frame=n_kernels / frames, host_syncs=len(own),
                 host_sync_calls=sorted(set(own)), other_thread_syncs=other_syncs,
+                api_calls_per_frame=sum(api.values()) / frames,
+                api_calls=dict(sorted(api.items(), key=lambda kv: -kv[1])[:6]),
                 device_ms_per_frame=round(dev_ms, 3),
                 busy_share=round(dev_ms / step_ms, 4) if dev_ms > 0 else "not measured",
                 top_ms_per_frame=[(e.key[:50], round(e.self_device_time_total / 1e3 / frames, 3))
@@ -3617,17 +3841,28 @@ def main(argv=None) -> int:
     done("6")
 
     # 7. the latency path (its own launch counts, zeroed just before it), at a
-    # depth of 16 + 48 frames and 3 profiled (each profiled frame's trace
-    # takes seconds to export and read): the script's time goes to the later
-    # phases
-    lat = run_latency_path(dev, n_frames=64, profile=3,
+    # depth of 16 + 48 frames: first the plain per-op frames (1 profiled),
+    # then the replayed ones (3 profiled), from the same states and generator
+    # states (two pipelines built alike and fed the same frames); the replay
+    # held to the plain frames bit for bit.  Each profiled frame's trace
+    # takes seconds to export and read when it holds ~9 k launches
+    lat_plain = run_latency_path(dev, n_frames=64, profile=1, replay=False, record=True,
+                                 path=os.path.join(OUT_DIR, "profile_latency_plain.txt"))
+    check_latency_path(lat_plain)
+    lat = run_latency_path(dev, n_frames=64, profile=3, record=True,
                            path=os.path.join(OUT_DIR, "profile_latency.txt"))
     check_latency_path(lat)
-    print(f"[7 latency] 1 stream 640x480, warm 16 + {lat['frames'] - 16} timed frames: "
-          f"latency_fps {lat['latency_fps']:.2f}, latency_ms_per_frame "
-          f"{lat['latency_ms_per_frame']:.3f} (CUDA-synchronised wall), latency_ate_m "
-          f"{lat['latency_ate_m']:.4f} (bound {lat['bound']:.3f}); launches {lat['counts']}; "
-          f"profile {lat['profile']}", flush=True)
+    cmp7 = replay_against_plain(lat_plain.pop("record"), lat.pop("record"))
+    require(cmp7["bit_equal"], ("phase 7: the replayed frames against the plain ones", cmp7))
+    print(f"[7 latency] 1 stream 640x480, warm 16 + {lat['frames'] - 16} timed frames, "
+          f"replayed: latency_fps {lat['latency_fps']:.2f}, latency_ms_per_frame "
+          f"{lat['latency_ms_per_frame']:.3f} (CUDA-synchronised wall; the plain per-op frames "
+          f"in this call {lat_plain['latency_ms_per_frame']:.3f}, x"
+          f"{lat_plain['latency_ms_per_frame'] / lat['latency_ms_per_frame']:.2f}), "
+          f"latency_ate_m {lat['latency_ate_m']:.4f} (bound {lat['bound']:.3f}); "
+          f"{replay_note(lat, lat_plain)}; replay against plain over {cmp7['outputs']} "
+          f"outputs: {cmp7}; launches {lat['counts']}; profile {lat['profile']}; plain profile "
+          f"{lat_plain['profile']}", flush=True)
 
     done("7")
 
@@ -3677,6 +3912,9 @@ def main(argv=None) -> int:
     loop = run_loop_path(dev, profile=3, path=os.path.join(OUT_DIR, "profile_loop.txt"))
     require(loop["profile"] is not None, "phase 9 profiled")
     check_loop_path(loop)
+    cmp_verify = verify_replay_against_plain(loop["graph"])
+    require(cmp_verify["bit_equal"], ("phase 9: the replayed loop check against the plain one",
+                                      cmp_verify))
     print(f"[9 loop] 1 stream 640x480 revisit scene, warm 16 + {loop['timed']} timed frames, "
           f"pose graph on the worker thread: latency_ms_per_frame "
           f"{loop['latency_ms_per_frame']:.3f} (phase 7 in this run: "
@@ -3687,24 +3925,33 @@ def main(argv=None) -> int:
           f"latency_loops {loop['latency_loops']} {loop['loops']}; launches {loop['counts']} "
           f"({loop['kf_timed']} keyframes extracted in the timed frames); "
           f"{loop['loops_timed']} loops accepted and {loop['relo_consumed']} relocalizations "
-          f"consumed by the worker in the timed frames (keyframes {loop['relo_keyframes']}); "
-          f"worker seconds by stage {loop['worker_s']}; profile {loop['profile']}", flush=True)
+          f"consumed by the worker in the timed frames and their drain (keyframes "
+          f"{loop['relo_keyframes']}), at most {loop['max_round']} frames handed over at once; "
+          f"the replayed loop check against the plain one: {cmp_verify}; "
+          f"worker seconds by stage {loop['worker_s']}; {replay_note(loop)}; profile "
+          f"{loop['profile']}", flush=True)
 
     done("9")
 
     # 9b. the same scene and configuration with no pose graph (the relo
-    # block in the solve, never active): what the worker costs the frame thread
-    alone = run_latency_path(dev, profile=3, revisit=True,
+    # block in the solve, never active): what the worker costs the frame
+    # thread; the plain per-op frames first, the replay held to them bit for bit
+    alone_plain = run_latency_path(dev, revisit=True, replay=False, record=True)
+    check_latency_path(alone_plain, on_gpu=False)
+    alone = run_latency_path(dev, profile=3, revisit=True, record=True,
                              path=os.path.join(OUT_DIR, "profile_loop_no_graph.txt"))
     check_latency_path(alone, on_gpu=False)
-    print(f"[9b no graph] the loop cell without the pose graph: latency_ms_per_frame "
-          f"{alone['latency_ms_per_frame']:.3f} (phase 9: {loop['latency_ms_per_frame']:.3f}, "
-          f"phase 7: {lat['latency_ms_per_frame']:.3f}), latency_ate_m "
-          f"{alone['latency_ate_m']:.4f}; launches {alone['counts']}; profile: "
+    cmp9b = replay_against_plain(alone_plain.pop("record"), alone.pop("record"))
+    require(cmp9b["bit_equal"], ("phase 9b: the replayed frames against the plain ones", cmp9b))
+    print(f"[9b no graph] the loop cell without the pose graph, replayed: latency_ms_per_frame "
+          f"{alone['latency_ms_per_frame']:.3f} (plain per-op frames "
+          f"{alone_plain['latency_ms_per_frame']:.3f}; phase 9: "
+          f"{loop['latency_ms_per_frame']:.3f}, phase 7: {lat['latency_ms_per_frame']:.3f}), "
+          f"latency_ate_m {alone['latency_ate_m']:.4f}; launches {alone['counts']}; "
+          f"{replay_note(alone)}; replay against plain: {cmp9b}; profile: "
           f"{alone['profile']['kernels_per_frame']:.1f} launches and "
-          f"{alone['profile']['device_ms_per_frame']} device ms per frame, busy "
-          f"{alone['profile']['busy_share']}, {alone['profile']['host_syncs']} host waits",
-          flush=True)
+          f"{alone['profile']['device_ms_per_frame']} device ms per frame, "
+          f"{alone['profile']['host_syncs']} host waits", flush=True)
 
     done("9b")
 
@@ -3760,7 +4007,26 @@ def main(argv=None) -> int:
     done("10")
 
     # 11. VO mode: the loop cell with the TUM rig's knobs, no IMU, the 6-DoF
-    # graph on the worker (its own launch counts)
+    # graph on the worker (its own launch counts).  First the plain per-op
+    # frames and the replayed ones in lock step with the worker (a loop's
+    # relocalization then reaches the estimator at a fixed frame), the replay
+    # held to the plain frames bit for bit; then the timed run
+    vo_lock = {}
+    for rp in (False, True):
+        vo_lock[rp] = run_loop_path(dev, max_cnt=250, vo=True, lockstep=True, replay=rp,
+                                    record=True)
+        check_loop_path(vo_lock[rp])
+    cmp11 = replay_against_plain(vo_lock[False].pop("record"), vo_lock[True].pop("record"))
+    require(cmp11["bit_equal"], ("phase 11: the replayed frames against the plain ones", cmp11))
+    print(f"[11 VO lock step] the VO loop cell with the worker drained after each hand-over, "
+          f"plain / replayed: latency_ms_per_frame "
+          f"{vo_lock[False]['latency_ms_per_frame']:.3f} / "
+          f"{vo_lock[True]['latency_ms_per_frame']:.3f}, relocalizations consumed "
+          f"{vo_lock[False]['relo_consumed']} / {vo_lock[True]['relo_consumed']}, loops "
+          f"{vo_lock[True]['loops']}, latency_loop_ate_m "
+          f"{vo_lock[True]['latency_loop_ate_m']:.4f} against the VO keyframes' "
+          f"{vo_lock[True]['latency_vio_kf_ate_m']:.4f}; replay against plain: {cmp11}",
+          flush=True)
     vo = run_loop_path(dev, max_cnt=250, profile=6, vo=True,
                        path=os.path.join(OUT_DIR, "profile_vo.txt"))
     require(vo["profile"] is not None, "phase 11 profiled")
@@ -3774,8 +4040,10 @@ def main(argv=None) -> int:
           f"latency_vio_kf_ate_m {vo['latency_vio_kf_ate_m']:.4f}, latency_kf "
           f"{vo['latency_kf']}, latency_loops {vo['latency_loops']} {vo['loops']}, 6-DoF solves "
           f"{vo['solves_6dof']}; launches {vo['counts']} ({vo['kf_timed']} keyframes extracted "
-          f"in the timed frames); {vo['relo_consumed']} relocalizations consumed; worker "
-          f"seconds by stage {vo['worker_s']}; profile {vo['profile']}", flush=True)
+          f"in the timed frames); {vo['relo_consumed']} relocalizations consumed in the timed "
+          f"frames and their drain, at most {vo['max_round']} frames handed over at once; worker "
+          f"seconds by stage {vo['worker_s']}; {replay_note(vo)}; profile {vo['profile']}",
+          flush=True)
 
     done("11")
 
@@ -3811,7 +4079,7 @@ def main(argv=None) -> int:
           f"{lat['latency_ms_per_frame']:.3f}), latency_ate_m {td['latency_ate_m']:.4f} (bound "
           f"{td['bound']:.3f}); final td {td['td']:.5f} s (host pairing td "
           f"{td['td_cache']:.5f}); extrinsic drift {td['ric_err_deg']:.3f} deg; launches "
-          f"{td['counts']} over {td['tracked']} tracked frames; profile "
+          f"{td['counts']} over {td['tracked']} tracked frames; {replay_note(td)}; profile "
           f"{td['profile']}", flush=True)
 
     done("12")
@@ -3845,8 +4113,8 @@ def main(argv=None) -> int:
           f"frames, fused: initialized at frame {dyn['init_frame']} by {dyn['attempts']}; "
           f"latency_ms_per_frame {dyn['latency_ms_per_frame']:.3f}; relative motion "
           f"{dyn['d_est']:.4f} m against {dyn['d_gt']:.4f} m; aligned ATE "
-          f"{dyn['aligned_ate_m']:.4f} m; launches {dyn['counts']}; profile {dyn['profile']}",
-          flush=True)
+          f"{dyn['aligned_ate_m']:.4f} m; launches {dyn['counts']}; {replay_note(dyn)}; profile "
+          f"{dyn['profile']}", flush=True)
 
     done("13")
 
@@ -3860,7 +4128,7 @@ def main(argv=None) -> int:
           f"initialized at frame {mono['init_frame']} by {mono['attempts']}; relative motion "
           f"{mono['d_est']:.4f} m against {mono['d_gt']:.4f} m; aligned ATE "
           f"{mono['aligned_ate_m']:.4f} m; latency_ms_per_frame "
-          f"{mono['latency_ms_per_frame']:.3f}", flush=True)
+          f"{mono['latency_ms_per_frame']:.3f}; {replay_note(mono)}", flush=True)
 
     done("13b")
 
@@ -3881,7 +4149,8 @@ def main(argv=None) -> int:
           f"+ spin_once {bagr['spin_ms_per_frame']:.3f} + the rest (phase 12 in this run: "
           f"{td['latency_ms_per_frame']:.3f}); td {bagr['td']:.5f} s; CLAHE on level 0 "
           f"(max |level 0 - clahe(raw)| {bagr['clahe_err']:.2e}); launches {bagr['counts']} "
-          f"over {bagr['tracked']} tracked frames; profile {bagr['profile']}", flush=True)
+          f"over {bagr['tracked']} tracked frames; {replay_note(bagr)}; profile "
+          f"{bagr['profile']}", flush=True)
 
     done("14")
 
@@ -3900,7 +4169,8 @@ def main(argv=None) -> int:
           f"worker: latency_ms_per_frame {tumr['latency_ms_per_frame']:.3f} (phase 11 in this "
           f"run: {vo['latency_ms_per_frame']:.3f}), PNG decode {tumr['decode_ms_per_frame']:.3f} "
           f"ms per frame (grey + depth); launches {tumr['counts']} over {tumr['tracked']} "
-          f"frames; profile {tumr['profile']}; one 640x480 RGB PNG of Paeth rows decodes in "
+          f"frames; {replay_note(tumr)}; profile {tumr['profile']}; one 640x480 RGB PNG of "
+          f"Paeth rows decodes in "
           f"{png['ms']:.2f} ms on the host", flush=True)
 
     done("14b")
@@ -3910,6 +4180,11 @@ def main(argv=None) -> int:
     check_fisheye(fish)
     print(f"[14c fisheye] 8 frames of the latency tracker 640x480, live points per frame and "
           f"points outside the mask (read on the device): {fish}", flush=True)
+    fishp = run_fisheye_pipeline(dev)
+    check_fisheye_pipeline(fishp)
+    print(f"[14c fisheye pipeline] phase 7's stream with the circle mask and CLAHE, "
+          f"{fishp['frames']} frames, replayed against plain: {fishp['compare']}; captured "
+          f"{fishp['captured']}; launches {fishp['counts']}", flush=True)
 
     done("14c")
 
@@ -3974,7 +4249,8 @@ def main(argv=None) -> int:
           f"from {kb['rig_file']}, warm 16 + {kb['frames'] - 16} timed frames, fused: "
           f"latency_ms_per_frame {kb['latency_ms_per_frame']:.3f} (phase 7 in this run: "
           f"{lat['latency_ms_per_frame']:.3f}), latency_ate_m {kb['latency_ate_m']:.4f} (bound "
-          f"{kb['bound']:.3f}); launches {kb['counts']}; profile {kb['profile']}", flush=True)
+          f"{kb['bound']:.3f}); launches {kb['counts']}; {replay_note(kb)}; profile "
+          f"{kb['profile']}", flush=True)
 
     done("16")
 
@@ -4000,8 +4276,8 @@ def main(argv=None) -> int:
               f"{r['frames'] - 16} timed frames, fused: latency_ms_per_frame "
               f"{r['latency_ms_per_frame']:.3f} (phase 7 in this run: "
               f"{lat['latency_ms_per_frame']:.3f}), latency_ate_m {r['latency_ate_m']:.4f} "
-              f"(bound {r['bound']:.3f}); launches {r['counts']}; profile {r['profile']}",
-              flush=True)
+              f"(bound {r['bound']:.3f}); launches {r['counts']}; {replay_note(r)}; profile "
+              f"{r['profile']}", flush=True)
     require(rigs["MEI"]["camera"] == "MeiCamera"
             and rigs["SCARAMUZZA"]["camera"] == "ScaramuzzaCamera",
             ("the rigs' cameras", [r["camera"] for r in rigs.values()]))
@@ -4058,7 +4334,7 @@ def main(argv=None) -> int:
           f"{ocs['latency_ms_per_frame']:.3f}, latency_ate_m {ocs['latency_ate_m']:.4f} (bound "
           f"{ocs['bound']:.3f}); project(lift(uv)) - uv up to {ocs['lift_project_px']:.3f} px "
           f"on the card (JAX's note: ~1 px, as in the reference); launches {ocs['counts']}; "
-          f"profile {ocs['profile']}", flush=True)
+          f"{replay_note(ocs)}; profile {ocs['profile']}", flush=True)
 
     done("16f")
 
@@ -4073,8 +4349,8 @@ def main(argv=None) -> int:
           f"{harsh['latency_ms_per_frame']:.3f} (phase 7 in this run: "
           f"{lat['latency_ms_per_frame']:.3f}), latency_ate_m {harsh['latency_ate_m']:.4f} "
           f"(bound {harsh['bound']:.3f}); features flagged dynamic per frame "
-          f"{harsh['n_dynamic']}; launches {harsh['counts']}; profile {harsh['profile']}",
-          flush=True)
+          f"{harsh['n_dynamic']}; launches {harsh['counts']}; {replay_note(harsh)}; profile "
+          f"{harsh['profile']}", flush=True)
 
     done("17")
 
@@ -4225,13 +4501,18 @@ def main(argv=None) -> int:
                        k3=rep3, main={
             k: res[k] for k in ("ates", "bounds", "counts", "step_ms", "capture_s", "eager",
                                 "wall_s", "frames")},
-            stages=stages, profile=prof, extraction=ext, latency=lat,
-            latency_loop=jsonable(loop), latency_loop_no_graph=alone, abba_ms=ms,
+            stages=stages, profile=prof, extraction=ext, latency=lat, latency_plain=lat_plain,
+            latency_replay_vs_plain=cmp7, latency_loop=jsonable(loop),
+            latency_loop_no_graph=alone, latency_loop_no_graph_plain=alone_plain,
+            no_graph_replay_vs_plain=cmp9b, abba_ms=ms,
             worker_cost=worker_cost, latency_loop_eager=jsonable(eager),
             batched_loop={k: v for k, v in bl.items() if k not in ("cost", "segments")},
-            latency_vo=jsonable(vo), vo_map=mp, vo_checkpoint=ck, latency_td=td,
+            latency_vo=jsonable(vo), vo_lockstep={"plain": jsonable(vo_lock[False]),
+                                                  "replayed": jsonable(vo_lock[True])},
+            vo_replay_vs_plain=cmp11, vo_map=mp, vo_checkpoint=ck, latency_td=td,
             latency_td_calib=cal, latency_dyn=dyn, latency_mono=mono, bag_replay=bagr,
-            tum_replay=tumr, png_decode=png, fisheye=fish, k2_vo=rep2_vo,
+            tum_replay=tumr, png_decode=png, fisheye=fish, fisheye_pipeline=fishp,
+            k2_vo=rep2_vo,
             batched_vo={k: vob[k] for k in ("ates", "bounds", "counts", "step_ms", "capture_s",
                                             "wall_s", "frames", "profile")},
             batched_vo_loop={k: v for k, v in bvl.items() if k not in ("cost", "segments")},

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """The end-to-end cells of ``chip_smoke.py`` for two checkouts, on one
-card, in turns.
+card, in turns; or, with ``--plain``, this checkout's latency cells plain
+and replayed.
 
     python3 path_ab.py --old OTHER
+    python3 path_ab.py --plain [--cells latency,loop,...]
 
 ``OTHER`` is another checkout of this repository (for example the parent
 commit, unpacked with ``git archive`` into a directory that ``.gitignore``
@@ -27,6 +29,22 @@ Prints one line per turn; the last line is one JSON object with each cell's
 mean per checkout and the new/old ratio of the means (the turns go to
 ``path_ab.json`` in ``chip_smoke.py``'s output directory).  Compare the
 ratio with the spread (max − min over the mean) of one checkout's turns.
+
+``--plain`` runs, in this process, each latency cell of ``chip_smoke.py``
+with its steady frames dispatched op by op (``VinsPipeline(replay=False)``,
+the plain version) and replayed from the captured frame, in the order
+plain, replayed, replayed, plain (``--rounds`` times), each turn a fresh
+pipeline over the cell's frames: latency (phase 7: 16 warm-up + 48 timed
+frames), loop (phase 9: the revisit scene, the pose graph on the worker,
+16 + 96), no_graph (phase 9b), vo_loop (phase 11: VO, the 6-DoF graph on
+the worker), td (phase 12: the RealSense rig, 16 + 48), dyn (phase 13: the
+OpenLORIS rig, 848×480, dynamic init), mono (phase 13b), kb (phase 16: a
+Kannala-Brandt rig file) and harsh (phase 17: the harsh degradations).  A
+turn's ms per frame is CUDA-synchronised wall time over the timed frames
+(a replayed pipeline's capture frame falls before them).  It prints the
+card's name and power limit, a line per turn and per cell (the means, the
+plain/replayed ratio of the means, each side's spread), and as the last
+line one JSON object, also written to ``path_ab_plain.json``.
 Exits non-zero without CUDA or when a turn fails.
 """
 
@@ -86,14 +104,77 @@ def turn(checkout: str) -> dict:
     return json.loads(res.stdout.strip().splitlines()[-1])
 
 
+def latency_cells(dev) -> dict:
+    """name -> fn(replay) returning a latency cell's result dict (its ms
+    per frame under ``latency_ms_per_frame``)."""
+    import chip_smoke as c
+
+    rig_r, seq_r, cfg_r = c.realsense_scene(64 + 4)  # phase 12's scene
+    rig_o, seq_o, cfg_o = c.openloris_scene(64 + 3)  # phase 13's scene
+    return {
+        "latency": lambda rp: c.run_latency_path(dev, n_frames=64, replay=rp),
+        "loop": lambda rp: c.run_loop_path(dev, replay=rp),
+        "no_graph": lambda rp: c.run_latency_path(dev, revisit=True, replay=rp),
+        "vo_loop": lambda rp: c.run_loop_path(dev, max_cnt=250, vo=True, replay=rp),
+        "td": lambda rp: c.run_rig_path(dev, cfg_r, rig_r, seq_r, n_frames=64,
+                                        failure_check_interval=4, imu_shift=c.TD_TRUE,
+                                        replay=rp),
+        "dyn": lambda rp: c.run_rig_path(dev, cfg_o, rig_o, seq_o, n_frames=64, replay=rp),
+        "mono": lambda rp: c.run_rig_path(dev, cfg_o, rig_o, seq_o, n_frames=64,
+                                          depthless=True, replay=rp),
+        "kb": lambda rp: c.run_latency_path(dev, n_frames=64, camera="KANNALA_BRANDT",
+                                            replay=rp),
+        "harsh": lambda rp: c.run_latency_path(dev, n_frames=64, degrade=c.HARSH, replay=rp),
+    }
+
+
+def plain_against_replayed(rounds: int, names: list) -> int:
+    """``--plain``: this checkout's latency cells, plain and replayed in turns."""
+    import chip_smoke as c
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = c.nvidia_smi_line()
+    print(card, flush=True)
+    table = latency_cells(torch.device("cuda", 0))
+    out = {}
+    for name in names or list(table):
+        turns = {False: [], True: []}
+        for rp in (False, True, True, False) * rounds:
+            r = table[name](rp)
+            turns[rp].append(r["latency_ms_per_frame"])
+            print(f"[{name}] {'replayed' if rp else 'plain'}: {turns[rp][-1]:.3f} ms per frame, "
+                  f"capture s {[round(x, 3) for x in r.get('capture_s', [])]}", flush=True)
+        mean = {rp: statistics.fmean(v) for rp, v in turns.items()}
+        out[name] = dict(plain_ms=turns[False], replayed_ms=turns[True],
+                         plain_mean_ms=mean[False], replayed_mean_ms=mean[True],
+                         ratio=mean[False] / mean[True],
+                         spread={("replayed" if rp else "plain"): (max(v) - min(v)) / mean[rp]
+                                 for rp, v in turns.items()})
+        print(f"[{name}] plain {mean[False]:.3f} ms, replayed {mean[True]:.3f} ms per frame: "
+              f"x{out[name]['ratio']:.2f}; spread {out[name]['spread']}", flush=True)
+    res = dict(card=card, cells=out)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "path_ab_plain.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    print(json.dumps(res))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--old", required=True, help="another checkout of this repository")
-    ap.add_argument("--rounds", type=int, default=1, help="old-new-new-old rounds (default 1)")
+    side = ap.add_mutually_exclusive_group(required=True)
+    side.add_argument("--old", help="another checkout of this repository")
+    side.add_argument("--plain", action="store_true",
+                      help="this checkout's latency cells, plain against replayed")
+    ap.add_argument("--rounds", type=int, default=1, help="rounds of four turns (default 1)")
+    ap.add_argument("--cells", default="", help="--plain: comma-separated cells (default all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("path_ab: CUDA is not available; this script runs only on a GPU", file=sys.stderr)
         return 2
+    if args.plain:
+        return plain_against_replayed(args.rounds, [n for n in args.cells.split(",") if n])
     new = os.path.dirname(os.path.abspath(__file__))
     turns = []
     order = (("old", args.old), ("new", new), ("new", new), ("old", args.old)) * args.rounds

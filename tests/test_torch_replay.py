@@ -151,7 +151,7 @@ def test_first_frame_draws_equal_run_eager(lanes):
     u = runner.ransac_uniforms()
     assert not all(torch.equal(a, b) for a, b in zip(chip_smoke.generator_states(runner), g0))
     _assert_equal_trees(got, ref, "frame 0")
-    assert torch.equal(runner._prog.u[0], u)  # the slot holds frame 0's draws
+    assert torch.equal(runner._prog.inp[1], u)  # the slot holds frame 0's draws
     runner.close()
 
 
@@ -164,7 +164,7 @@ def test_program_matches_jax_fed_its_draws():
     steady = tbp.FrameBatch(*(a[11:] for a in batch))
     frame = tbp.FrameBatch(*(a[0] for a in steady))
     prog = tbp._FrameProgram(runner.tcfg, runner.cam, runner.ecfg,
-                             tbp._layout((trk, st, frame)), trk, st, frame)
+                             tbp._layout((trk, st, frame)), trk, st)
     prog.load(trk, st, len(steps))
     for i, (us, jP) in enumerate(steps):
         prog.frame(steady, i, tt(us), None)

@@ -35,12 +35,15 @@ on the graph's device draws them.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
+import threading
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from .. import native
 from ..models.camera import CameraModel
 from ..ops import fast as fast_ops
 from ..ops import ransac as ransac_ops
@@ -247,6 +250,61 @@ def verify_loops_batch(u, wp_world, wp_desc, wp_valid, kp_desc, kp_valid, kp_nor
                                       threshold=10.0 / 460.0, min_inliers=min_loop_num)
     enough = torch.sum(ok, -1) >= min_loop_num
     return idx_b, res.ok & enough, res.model, res.n_inliers, res.inliers
+
+
+def _verify_row(u, wp_world, wp_desc, wp_valid, kp_desc, kp_valid, kp_norm, R_init, t_init,
+                match_thresh: float, min_loop_num: int) -> torch.Tensor:
+    """One candidate's ``verify_loops_batch`` as one row: the match index
+    per window point (n), ok, the model (12), the inlier count, the inlier
+    mask (n)."""
+    f32 = torch.float32
+    idx_b, ok, model, ninl, inl = verify_loops_batch(u, wp_world, wp_desc, wp_valid, kp_desc,
+                                                     kp_valid, kp_norm, R_init, t_init,
+                                                     match_thresh, min_loop_num)
+    return torch.cat([idx_b[0].to(f32), ok.to(f32), model[0].reshape(-1), ninl.to(f32),
+                      inl[0].to(f32)])
+
+
+class _Replayed:
+    """``fn`` over CUDA tensors, run once eagerly on a side stream (its
+    warm-up), then captured as a CUDA graph; each call copies its inputs
+    into the graph's slots, replays it on the current stream and returns
+    its output, which the next call overwrites."""
+
+    def __init__(self, fn, inputs):
+        self.slots = [x.clone() for x in inputs]
+        side = torch.cuda.Stream(inputs[0].device)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn(*self.slots)
+        torch.cuda.current_stream().wait_stream(side)
+        out = []
+        self.cap = native.capture(lambda: out.append(fn(*self.slots)), side)
+        self.out = out[0]
+
+    def __call__(self, inputs) -> torch.Tensor:
+        for s, x in zip(self.slots, inputs):
+            s.copy_(x)
+        self.cap.replay()
+        return self.out
+
+
+def verify_row(inputs, match_thresh: float, min_loop_num: int,
+               programs: dict) -> torch.Tensor:
+    """``_verify_row`` of ``inputs``; on CUDA replayed from a graph in
+    ``programs``, captured at the calling thread's first check of a layout
+    (the check dispatches ~4 k small ops, which a loop stager's worker would
+    pay for with its latency; one graph per thread, so no two threads share
+    its slots)."""
+    fn = functools.partial(_verify_row, match_thresh=match_thresh, min_loop_num=min_loop_num)
+    if inputs[0].device.type != "cuda":
+        return fn(*inputs)
+    key = (threading.get_ident(), tuple((x.shape, x.dtype) for x in inputs), match_thresh,
+           min_loop_num)
+    prog = programs.get(key)
+    if prog is None:
+        prog = programs[key] = _Replayed(fn, inputs)
+    return prog(inputs)
 
 
 def verify_loops_device(u, ints, flts, wld_chunk, wd_chunk, wv_chunk, dbs, dbvs, dbns,
@@ -500,6 +558,21 @@ def relo_relative_pose(P_relo, Q_relo, P_cur, Q_cur):
     return R_relo.T @ (P_cur - P_relo), nq.qmul(nq.qconj(Q_relo), Q_cur), rel_yaw
 
 
+def relo_keyframe_pose(P_cur, Q_cur, P_prev, Q_prev, P_kf, Q_kf):
+    """The relocalized keyframe's pose in the frame of a later solve.  The
+    solve returns its relo pose beside its pose of the window's
+    second-newest frame, ``(P_cur, Q_cur)``: the frame before the solve's,
+    which is the keyframe only when the constraint reached the frame right
+    after it.  That frame's own output ``(P_prev, Q_prev)`` and the
+    keyframe's ``(P_kf, Q_kf)`` give the odometry between them, which
+    carries the solve's pose back to the keyframe."""
+    P_cur, Q_cur, P_prev, Q_prev, P_kf, Q_kf = (
+        np.asarray(a, np.float64) for a in (P_cur, Q_cur, P_prev, Q_prev, P_kf, Q_kf))
+    dQ = nq.qmul(Q_cur, nq.qconj(Q_prev))
+    Q = nq.qmul(dQ, Q_kf)
+    return P_cur + nq.q2R(dQ) @ (P_kf - P_prev), Q / np.linalg.norm(Q)
+
+
 class PoseGraph:
     """Keyframes, retrieval, loops and optimization on one device."""
 
@@ -514,6 +587,7 @@ class PoseGraph:
         self._pnp_uniforms = pnp_uniforms
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(0)
+        self._verify_programs: dict = {}  # the loop check's graphs on CUDA (``verify_row``)
         self.keyframes: list = []
         self._dev_db: Optional[torch.Tensor] = None  # (cap, width, 256) int8
         self._dev_valid: Optional[torch.Tensor] = None  # (cap, width) bool
@@ -538,6 +612,7 @@ class PoseGraph:
         g = PoseGraph(self.cfg, self.cam, self.ric, self.tic, self.device, self.dtype,
                       self._pnp_uniforms)
         g._gen.set_state(self._gen.get_state())
+        g._verify_programs = self._verify_programs  # graphs of the loop check, per thread
         g.keyframes = list(self.keyframes)
         if self._dev_db is not None:
             g._dev_db = self._dev_db.clone()
@@ -932,22 +1007,24 @@ class PoseGraph:
         t_wc = old.P_vio + R_wi @ self.tic
         return R_wc.T, -R_wc.T @ t_wc
 
-    def _find_connection(self, cur: KeyFrameData, old: KeyFrameData) -> Optional[dict]:
-        """Match + PnP (one candidate) and the acceptance gates; one read-back."""
+    def _verify_inputs(self, cur: KeyFrameData, old: KeyFrameData) -> tuple:
+        """``verify_row``'s inputs for one candidate (its PnP uniforms drawn)."""
         f32, dev = torch.float32, self.device
         okd, okv, okn = combined_old_rows(old, dev)
         R_init, t_init = self._pnp_init_guess(old)
         n = int(np.asarray(cur.wp_valid).shape[0])
-        idx_b, okf, model, ninl, inl = verify_loops_batch(
-            self.pnp_uniforms(cur.index, n)[None],
-            torch.as_tensor(np.asarray(cur.wp_world), dtype=f32, device=dev)[None],
-            self._tensor(cur.wp_desc, torch.int8)[None],
-            self._tensor(cur.wp_valid, torch.bool)[None], okd[None], okv[None], okn[None],
-            torch.as_tensor(R_init, dtype=f32, device=dev)[None],
-            torch.as_tensor(t_init, dtype=f32, device=dev)[None],
-            float(self.cfg.match_thresh), int(self.cfg.min_loop_num))
-        row = _host(torch.cat([idx_b[0].to(f32), okf.to(f32), model[0].reshape(-1),
-                               ninl.to(f32), inl[0].to(f32)]))  # the one read-back
+        return (self.pnp_uniforms(cur.index, n)[None],
+                torch.as_tensor(np.asarray(cur.wp_world), dtype=f32, device=dev)[None],
+                self._tensor(cur.wp_desc, torch.int8)[None],
+                self._tensor(cur.wp_valid, torch.bool)[None], okd[None], okv[None], okn[None],
+                torch.as_tensor(R_init, dtype=f32, device=dev)[None],
+                torch.as_tensor(t_init, dtype=f32, device=dev)[None])
+
+    def _find_connection(self, cur: KeyFrameData, old: KeyFrameData) -> Optional[dict]:
+        """Match + PnP (one candidate) and the acceptance gates; one read-back."""
+        n = int(np.asarray(cur.wp_valid).shape[0])
+        row = _host(verify_row(self._verify_inputs(cur, old), float(self.cfg.match_thresh),
+                               int(self.cfg.min_loop_num), self._verify_programs))
         return self._loop_from_pnp(cur, old, bool(row[n] > 0.5),
                                    row[n + 1:n + 13].reshape(3, 4).astype(np.float64),
                                    int(row[n + 13]), row[:n].astype(np.int64),

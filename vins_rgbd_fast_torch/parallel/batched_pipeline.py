@@ -26,7 +26,9 @@ eagerly.  ``run_chained`` is ``run`` (JAX's per-frame twin replays the same
 step); ``run_eager`` is the per-op dispatch, the plain version the tests
 and ``chip_smoke.py`` hold the replay to.  Code on the step keeps the
 capture's rules: no constant built on the host after the warm-up (see
-``utils.quaternion.const``), no host wait, no draw inside the step.
+``utils.quaternion.const``), no host wait, no draw inside the step.  The
+latency pipeline (``pipeline.VinsPipeline``) runs its steady frame through
+the same ``_FrameProgram``.
 
 The multi-device program (JAX's ``run_sharded`` under ``shard_map``): a
 runner built with a ``mesh`` (a list of devices, one shard each; a device
@@ -162,70 +164,84 @@ def _assign(dst, src) -> None:
             b.copy_(n)
 
 
+def _batch_args(inp):
+    """``fused_frame_step``'s frame arguments from a runner program's slots:
+    (the frame of a ``FrameBatch``, the RANSAC uniforms, the PnP uniforms or
+    None)."""
+    f, ransac_u, pnp_u = inp
+    return (f.imgs, f.depths, f.ts, est.ImuInterval(f.imu_dts, f.imu_acc, f.imu_gyr),
+            ransac_u, None, pnp_u)
+
+
 class _FrameProgram:
-    """One shard's steady frame over static buffers, the port's twin of one
-    step of JAX's scanned ``run``: input slots (the frame of a
-    ``FrameBatch``, the RANSAC and, in VO, the PnP uniforms), the tracker and
-    estimator states and the ``ScanOutputs`` slots, allocated once; the
-    step is ``fused_frame_step`` on them, then in-place copies of the new
-    states and of the outputs into their buffers.  On a CUDA device the
-    first frame runs the step eagerly on a side stream (the warm-up a
-    capture needs: the kernels' build and opt-ins, the solver libraries'
-    handles and workspaces, the cached constants), then the step is
-    captured on that stream (``native.capture``) and every later frame
+    """One steady frame over static buffers, the port's twin of one of JAX's
+    compiled frames: a step of the batched runner's scanned ``run`` (one
+    shard) or the latency pipeline's jitted ``fused`` frame
+    (``VinsPipeline``).  Input slots (shaped by the first frame's inputs),
+    the tracker and estimator states and the output slots, allocated once;
+    the step is ``fused_frame_step`` on them (``args(slots)`` gives its frame
+    arguments: image, depth, t, IMU interval, RANSAC uniforms, relo,
+    PnP uniforms), then in-place copies of the outputs (``outputs`` of its
+    ``StepOutput``: ``ScanOutputs`` for the runner, the whole ``StepOutput``
+    for the pipeline) and of the new states into their buffers.  On a CUDA
+    device the first frame runs the step eagerly on a side stream (the
+    warm-up a capture needs: the kernels' build and opt-ins, the solver
+    libraries' handles and workspaces, the cached constants), then the step
+    is captured on that stream (``native.capture``) and every later frame
     replays it on the current stream; a failed capture or replay raises.
-    On the CPU every frame runs the step eagerly.  The program holds no
-    reference to its runner: releasing the runner releases the graph and
-    its memory pool."""
+    On the CPU every frame runs the step eagerly.  ``args`` and
+    ``outputs`` are module-level functions (or partials of them): the
+    program holds no reference to its owner, so releasing the owner
+    releases the graph and its memory pool."""
 
     def __init__(self, tcfg: TrackerConfig, cam: CameraModel, ecfg: EstimatorConfig,
-                 layout: tuple, trk, st, frame: FrameBatch):
+                 layout: tuple, trk, st, args: Callable = _batch_args,
+                 outputs: Callable = _scan_outputs):
         self.cfg = (tcfg, cam, ecfg)
         self.layout = layout
-        self.device = frame.imgs.device
+        self.device = leaves(trk)[0].device
         self.trk = map_tree(torch.empty_like, trk)
         self.st = map_tree(torch.empty_like, st)
-        self.inp = map_tree(torch.empty_like, frame)
-        self.u = None    # (RANSAC, PnP or None) uniform slots, shaped by the first draws
-        self.out = None  # the ScanOutputs slots, shaped by the first step
+        self.args, self.outputs = args, outputs
+        self.inp = None  # the input slots, shaped by the first frame's inputs
+        self.out = None  # the output slots, shaped by the first step
         self.graph: Optional[native.Captured] = None
-        self.outs = None
+        self.outs = None  # a runner call's (T, B, ...) ScanOutputs (``frame``)
+        self.handed = None  # the states the owner last took (``states``), if it keeps them
 
-    def load(self, trk, st, T: int) -> None:
-        """Start a call of T frames from the caller's states."""
+    def load(self, trk, st, T: int = 0) -> None:
+        """Start from the caller's states (a runner call of T frames)."""
         _assign((self.trk, self.st), (trk, st))
         self.T, self.outs = T, None
 
     def step(self) -> None:
         """The frame on the buffers: what the graph records."""
-        i = self.inp
-        trk, st, sout = fused_frame_step(*self.cfg, self.trk, self.st, i.imgs, i.depths, i.ts,
-                                         est.ImuInterval(i.imu_dts, i.imu_acc, i.imu_gyr),
-                                         self.u[0], pnp_u=self.u[1])
-        out = _scan_outputs(sout)
+        trk, st, sout = fused_frame_step(*self.cfg, self.trk, self.st, *self.args(self.inp))
+        out = self.outputs(sout)
         if self.out is None:
             self.out = map_tree(torch.empty_like, out)
         _assign(self.out, out)  # first: an output may be a view of an old state buffer
         _assign((self.trk, self.st), (trk, st))
 
-    def frame(self, batch: FrameBatch, k: int, ransac_u, pnp_u) -> None:
-        """Frame k of ``batch`` with these draws: into the slots, the step
-        (replayed, or its warm-up and capture, or on the CPU eager), and the
-        outputs into the call's (T, B, ...) ``ScanOutputs``."""
-        if self.u is None:
-            self.u = (torch.empty_like(ransac_u), None if pnp_u is None
-                      else torch.empty_like(pnp_u))
-        for slot, a in zip(self.inp, batch):
-            slot.copy_(a[k])
-        self.u[0].copy_(ransac_u)
-        if pnp_u is not None:
-            self.u[1].copy_(pnp_u)
+    def run(self, inputs) -> None:
+        """One frame: ``inputs`` (the tree ``args`` reads) into the slots,
+        then the step (replayed, or its warm-up and capture, or on the CPU
+        eager); its outputs are left in ``out``."""
+        if self.inp is None:
+            self.inp = map_tree(torch.empty_like, inputs)
+        for slot, a in zip(leaves(self.inp), leaves(inputs)):
+            slot.copy_(a)
         if self.device.type != "cuda":
             self.step()
         elif self.graph is not None:
             self.graph.replay()
         else:
             self._warm_and_capture()
+
+    def frame(self, batch: FrameBatch, k: int, ransac_u, pnp_u) -> None:
+        """A runner's frame k of ``batch`` with these draws (``run``), its
+        outputs into the call's (T, B, ...) ``ScanOutputs``."""
+        self.run((FrameBatch(*(a[k] for a in batch)), ransac_u, pnp_u))
         if self.outs is None:
             self.outs = map_tree(lambda a: a.new_empty((self.T,) + tuple(a.shape)), self.out)
         for o, a in zip(leaves(self.outs), leaves(self.out)):
@@ -242,15 +258,20 @@ class _FrameProgram:
         self.graph = native.capture(self.step, side)
         current.wait_stream(side)
 
+    def states(self):
+        """(trk, st) copied out of the buffers, so no later frame changes
+        them."""
+        return map_tree(torch.clone, self.trk), map_tree(torch.clone, self.st)
+
     def result(self):
-        """(trk, st, ScanOutputs) of the call: states copied out of the
-        buffers, so the next call does not change them."""
-        return map_tree(torch.clone, self.trk), map_tree(torch.clone, self.st), self.outs
+        """(trk, st, ScanOutputs) of a runner call, the states ``states``."""
+        return (*self.states(), self.outs)
 
     def close(self) -> None:
         if self.graph is not None:
             self.graph.reset()
-        self.graph = self.trk = self.st = self.inp = self.u = self.out = self.outs = None
+        self.graph = self.trk = self.st = self.inp = self.out = self.outs = None
+        self.handed = None
 
 
 def stage_frames(imgs: Sequence[torch.Tensor], depths: Sequence[torch.Tensor],
@@ -433,7 +454,7 @@ class BatchedVioRunner:
         layout = _layout((trk, st, frame))
         if self._prog is None or self._prog.layout != layout:
             self.close()
-            self._prog = _FrameProgram(self.tcfg, self.cam, self.ecfg, layout, trk, st, frame)
+            self._prog = _FrameProgram(self.tcfg, self.cam, self.ecfg, layout, trk, st)
         self._prog.load(trk, st, batch.ts.shape[0])
         return self._prog
 

@@ -20,19 +20,28 @@ ride the per-sequence drift.  ``ThreadedLoopCloser`` runs the stages on a
 worker thread and CUDA stream, so the frame thread only launches.
 
 **The latency path** (``AsyncLoopStager``): the frame thread only packs a
-23-float gating row per frame on its own
-stream (is_keyframe, pose, the relocalization round trip) and, every
-``FETCH_EVERY`` frames, stacks the rows, records an event after them and
-queues the batch.  The worker thread runs on a stream of its own that
-waits on that event, so it reads those frames' outputs and images and
-nothing queued after them; it reads the rows back (one wait, on the
-worker), gates keyframes, extracts their features (kernel K1 again on the
-card), queries the retrieval DB, verifies a candidate, optimizes the pose
-graph, and hands a relocalization constraint back to the estimator as host
-arrays (``VinsEstimator.set_relo_frame``); the frame thread uploads it with
-its next frame's packed inputs.  Tensors that cross to the worker's stream
-are marked with ``record_stream``.  An exception on the worker is raised by
-the next ``drain``.
+23-float gating row per frame on its own stream (is_keyframe, pose, the
+relocalization round trip), starts its copy to the host (``HostCopy``:
+pinned memory, then an event) and, whenever the worker is idle, hands the
+frames it holds over as one round; it never waits for the worker, and
+holds frames while the worker is busy (JAX's stager queues a batch every
+8 frames and reads it back once: replayed frames run faster than the
+worker, and frames that wait in a queue, or for the last frame of their
+batch, reach the pose graph later).  The worker thread reads each frame's
+row when that frame is done (a wait on its event, on the worker), gates
+keyframes and, for a keyframe, orders its own stream after that event, so
+it reads the frame's outputs and images and nothing queued after them;
+it extracts their features (kernel K1 again on the card), queries the
+retrieval DB, verifies a candidate (on the card the check is replayed from
+a captured graph, ``pose_graph.verify_row``), hands a relocalization
+constraint back to the estimator as host arrays
+(``VinsEstimator.set_relo_frame``) and optimizes the pose graph; the frame
+thread uploads the constraint with its next frame's packed inputs.  The
+solve that takes it refines the loop edge against the window's
+second-newest frame, which the worker carries back to the loop's keyframe
+by the odometry between their outputs (``relo_keyframe_pose``).  Tensors
+that cross to the worker's stream are marked with ``record_stream``.  An
+exception on the worker is raised by the next ``drain``.
 """
 
 from __future__ import annotations
@@ -51,15 +60,12 @@ import torch
 from ..loop.pose_graph import (KeyframeGate, PoseGraph, PoseGraphConfig, _host, _on,
                                combine_db_rows, combined_old_rows, db_query_all,
                                db_query_multi, extract_kf_device, optimize_4dof,
-                               relo_relative_pose, verify_loops_batch, verify_loops_device)
+                               relo_keyframe_pose, relo_relative_pose, verify_loops_batch,
+                               verify_loops_device)
 from ..models.camera import CameraModel
 from .batched_pipeline import FrameBatch, ScanOutputs
 
 STAGES = ("gating", "extract", "query", "verify", "pgo")
-# frames per gating read-back; under the window's 10 frames, because the
-# relocalization constraint a loop sends back binds window features by id,
-# and they leave the window after 10
-FETCH_EVERY = 8
 
 
 def _pad_pow2(n: int, lo: int = 4) -> int:
@@ -147,6 +153,10 @@ class _Worker:
         for x in tensors:
             if isinstance(x, torch.Tensor) and x.is_cuda:
                 x.record_stream(self.stream)
+
+    def idle(self) -> bool:
+        """Whether every job put so far has finished (does not wait)."""
+        return self._q.unfinished_tasks == 0
 
     def wait(self):
         """Wait until the queue is empty and the thread idle; raise a job's
@@ -831,8 +841,9 @@ def pack_latency_gating(sout) -> torch.Tensor:
 
 class AsyncLoopStager:
     """Pose graph for the latency pipeline with no host wait on the frame
-    thread: keyframes reach the graph at most ``FETCH_EVERY`` frames (plus
-    the worker's backlog) after they were made."""
+    thread: frames go to the worker whenever it is idle, so a keyframe
+    reaches the graph once the worker has finished the round it was busy
+    with when the keyframe was made."""
 
     def __init__(self, pose_graph: PoseGraph, estimator=None, skip_cnt: int = 0,
                  skip_dis: float = 0.0, fast_relocalization: bool = False):
@@ -846,24 +857,27 @@ class AsyncLoopStager:
         self.n_keyframes = 0
         self.n_loops = 0
         self.stage_s = dict.fromkeys(STAGES, 0.0)  # the worker's wall seconds by stage
-        self._buf: list = []  # (packed row, t, StepOutput, img, depth)
+        self.max_round = 0  # the most frames handed over at once
+        self._buf: list = []  # (gating row on its way to the host, t, StepOutput, img, depth)
+        self._prev: Optional[tuple] = None  # (t, gating row) of the worker's last frame
         self._worker = _Worker(self.device, "loop-stager")
 
     # -- frame thread ----------------------------------------------------
     def on_frame(self, sout, img: torch.Tensor, t: float, depth: Optional[torch.Tensor] = None):
         """Record a steady frame: ``sout`` its (B = 1) ``StepOutput``,
-        ``img``/``depth`` (H, W) device images.  Launches only."""
-        self._buf.append((pack_latency_gating(sout), float(t), sout, img, depth))
-        if len(self._buf) >= FETCH_EVERY:
+        ``img``/``depth`` (H, W) device images.  Launches only; hands the
+        frames held so far over when the worker is idle."""
+        # the copy and its event go on the frame thread's stream, after this frame
+        self._buf.append((HostCopy([pack_latency_gating(sout)]), float(t), sout, img, depth))
+        if self._worker.idle():
             self._flush_buf()
 
     def _flush_buf(self):
         if not self._buf:
             return
         toks, self._buf = self._buf, []
-        stacked = torch.stack([tk[0] for tk in toks])
-        # the event is recorded on the frame thread's stream, after these frames
-        self._worker.put(functools.partial(self._process, stacked, toks, self._worker.record()))
+        self.max_round = max(self.max_round, len(toks))
+        self._worker.put(functools.partial(self._process, toks))
 
     @property
     def pending(self) -> int:
@@ -893,19 +907,18 @@ class AsyncLoopStager:
             self._worker.close()
 
     # -- worker thread ---------------------------------------------------
-    def _process(self, stacked, toks, ready):
-        t0 = time.perf_counter()
-        self._worker.adopt(ready, stacked, *(x for (_, _, sout, img, depth) in toks
-                                             for x in (img, depth, sout.wp_uv, sout.wp_valid,
-                                                       sout.wp_world, sout.wp_norm,
-                                                       sout.wp_ids)))
-        rows = _host(stacked).astype(np.float64)  # the one read-back of the batch
-        self.stage_s["gating"] += time.perf_counter() - t0
-        for row, (_, t, sout, img, depth) in zip(rows, toks):
+    def _process(self, toks):
+        for hc, t, sout, img, depth in toks:
+            t0 = time.perf_counter()
+            row = hc.get()[0].astype(np.float64)  # waits for this frame alone
+            self.stage_s["gating"] += time.perf_counter() - t0
             if row[8] > 0.5 and self._relo_sent_kf is not None:
-                self._consume_relo(row)
+                self._consume_relo(row, self._prev)
+            self._prev = (t, row)
             if not self.gate.admit(bool(row[0] > 0.5), row[1:4]):
                 continue
+            self._worker.adopt(hc._event, img, depth, sout.wp_uv, sout.wp_valid, sout.wp_world,
+                               sout.wp_norm, sout.wp_ids)
             self._handle_keyframe(t, row[1:4], row[4:8], sout, img, depth)
 
     def _handle_keyframe(self, t, P, Q, sout, img, depth):
@@ -951,20 +964,29 @@ class AsyncLoopStager:
             return
         self.n_loops += 1
         g.accept_loop(kf, cand, info)
-        g.optimize()
-        if self.fast_relo and self.est is not None:
+        if self.fast_relo and self.est is not None:  # the constraint needs no PGO: send it first
             old = g.keyframes[info["old"]]
             self.est.set_relo_frame(info["matched_old_norm"], info["inlier_mask"],
                                     _host(sout.wp_ids[0]), old.P_vio, old.Q_vio)
             self._relo_sent_kf = info["cur"]
+        g.optimize()
         self.stage_s["pgo"] += time.perf_counter() - t3
 
-    def _consume_relo(self, p: np.ndarray):
+    def _consume_relo(self, p: np.ndarray, prev: Optional[tuple]):
         """The estimator's optimized relo pose -> the loop's refined
-        relative pose -> ``PoseGraph.update_keyframe_loop``."""
+        relative pose -> ``PoseGraph.update_keyframe_loop``.  ``p`` is the
+        gating row of the frame whose solve took the constraint, ``prev``
+        (t, gating row) the frame before it: the solve's second-newest
+        frame, carried back to the loop's keyframe unless it is that
+        keyframe."""
         kf_index, self._relo_sent_kf = self._relo_sent_kf, None
-        self.g.update_keyframe_loop(kf_index, *relo_relative_pose(p[9:12], p[12:16], p[16:19],
-                                                                  p[19:23]))
+        P_cur, Q_cur = p[16:19], p[19:23]
+        kf = self.g.keyframes[kf_index]
+        if prev is not None and prev[0] != kf.t:
+            P_cur, Q_cur = relo_keyframe_pose(P_cur, Q_cur, prev[1][1:4], prev[1][4:8],
+                                              kf.P_vio, kf.Q_vio)
+        self.g.update_keyframe_loop(kf_index, *relo_relative_pose(p[9:12], p[12:16], P_cur,
+                                                                  Q_cur))
 
     def _warmup(self, img: torch.Tensor):
         cfg = self.cfg

@@ -10,9 +10,25 @@ B = 1 (on-device gyro prediction → tracker → depth lookup → ``vio_step``)
 with one small upload: the timestamp and IMU interval packed into one
 buffer, staged through a ring of pinned host buffers so the copy does not
 wait on the host; with fast relocalization the buffer also carries the
-pending relocalization constraint (inactive when none is pending).  Frames
-pushed as numpy arrays (decoded bag or TUM frames) go to the card the same
-way, through a ring of their own for the images and one for the depths.
+pending relocalization constraint (inactive when none is pending: the
+constraint is data, so one program serves both).  Frames pushed as numpy
+arrays (decoded bag or TUM frames) go to the card the same way, through a
+ring of their own for the images and one for the depths.
+
+That steady frame is JAX's one-dispatch ``fused`` frame: with ``replay``
+(the default) it runs as a ``_FrameProgram`` (``parallel/
+batched_pipeline.py``), which on CUDA captures the first steady frame of
+a layout as a CUDA graph and replays it for every later frame (on the CPU
+the same static-buffer step runs eagerly); ``replay=False`` dispatches it
+op by op, the plain version the program is held to.  The host keeps, on
+either path, the td refresh and copy, the IMU pairing, the relo queue, the
+draws, the failure check and the bookkeeping.  Each frame's outputs and
+new states are copied out of the program's buffers, so an output or state
+the caller keeps does not change under it; a state the program did not
+hand out (after the unfused frames, a failure reset, a stream
+discontinuity, a resumed checkpoint or a caller's own) is loaded into the
+buffers at the next steady frame, and a tracker or estimator config
+replaced after construction makes a new program (JAX retraces ``fused``).
 
 With ``loop_closure`` the pipeline owns a ``PoseGraph``.  With
 ``eager_outputs`` every keyframe goes to it inline, in the frame's
@@ -51,6 +67,7 @@ and ``ex_uniforms(step, n)`` (``VinsEstimator``).
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional
 
 import numpy as np
@@ -62,11 +79,46 @@ from .frontend import feature_tracker as ft
 from .io import stream as io_stream
 from .loop.pose_graph import KeyframeGate, PoseGraph, PoseGraphConfig, relo_relative_pose
 from .ops import solver as slv
-from .parallel.batched_pipeline import fused_frame_step
+from .parallel.batched_pipeline import _FrameProgram, _layout, fused_frame_step, map_tree
 from .parallel.loop_closer import AsyncLoopStager
 from .utils.timing import StageTimer
 
 _RING = 4  # pinned upload buffers in flight
+
+
+def _unpack_relo(dev: torch.Tensor, maxf: int) -> slv.ReloData:
+    """The relo block of the packed upload (``VinsPipeline._pack_relo``) as
+    views of it."""
+    return slv.ReloData(active=dev[0:1] > 0.5, P=dev[None, 1:4], Q=dev[None, 4:8],
+                        match_pts=dev[8:8 + 2 * maxf].reshape(1, maxf, 2),
+                        match_valid=dev[None, 8 + 2 * maxf:8 + 3 * maxf] > 0.5,
+                        match_ids=dev[8 + 3 * maxf:].view(torch.int32)[None])
+
+
+def _unpack_packed(ecfg, dev: torch.Tensor):
+    """The packed upload of a steady frame as views: (t (1,), its
+    ``ImuInterval``, its ``ReloData`` with ``fast_relo``, else None)."""
+    maxi = ecfg.max_imu
+    n_imu = 1 + maxi + 6 * (maxi + 1)
+    imu = est.ImuInterval(dts=dev[None, 1:1 + maxi],
+                          acc=dev[1 + maxi:1 + maxi + 3 * (maxi + 1)].reshape(1, maxi + 1, 3),
+                          gyr=dev[1 + maxi + 3 * (maxi + 1):n_imu].reshape(1, maxi + 1, 3))
+    relo = _unpack_relo(dev[n_imu:], ecfg.maxf) if ecfg.fast_relo else None
+    return dev[0:1], imu, relo
+
+
+def _frame_args(ecfg, inp):
+    """``fused_frame_step``'s frame arguments from the latency program's
+    slots: (image, depth, packed upload, RANSAC uniforms, PnP uniforms or
+    None)."""
+    img, depth, packed, u, pnp_u = inp
+    t, imu, relo = _unpack_packed(ecfg, packed)
+    return img, depth, t, imu, u, relo, pnp_u
+
+
+def _whole_output(sout: est.StepOutput) -> est.StepOutput:
+    """The latency program keeps the whole ``StepOutput``."""
+    return sout
 
 
 class VinsPipeline:
@@ -80,7 +132,7 @@ class VinsPipeline:
                  pnp_uniforms: Optional[Callable] = None,
                  vo_pnp_uniforms: Optional[Callable] = None,
                  init_uniforms: Optional[Callable] = None,
-                 ex_uniforms: Optional[Callable] = None):
+                 ex_uniforms: Optional[Callable] = None, replay: bool = True):
         self.vcfg = vcfg
         self.device = torch.device(device)
         self.dtype = dtype
@@ -110,6 +162,8 @@ class VinsPipeline:
         self._imu_for_predict: list = []  # (t, gyr)
         self._bg_cache = np.zeros(3)
         self._fused_enabled = fused_steady_state
+        self.replay = replay
+        self._prog: Optional[_FrameProgram] = None  # the steady frame's program (``replay``)
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(0)
         self._ransac_uniforms = ransac_uniforms
@@ -296,16 +350,10 @@ class VinsPipeline:
         out[8 + 3 * maxf:] = ids.view(np.float32)
         return out
 
-    @staticmethod
-    def _unpack_relo(dev: torch.Tensor, maxf: int) -> slv.ReloData:
-        return slv.ReloData(active=dev[0:1] > 0.5, P=dev[None, 1:4], Q=dev[None, 4:8],
-                            match_pts=dev[8:8 + 2 * maxf].reshape(1, maxf, 2),
-                            match_valid=dev[None, 8 + 2 * maxf:8 + 3 * maxf] > 0.5,
-                            match_ids=dev[8 + 3 * maxf:].view(torch.int32)[None])
-
     def _spin_fused(self, img: torch.Tensor, depth: torch.Tensor, t: float):
-        """A steady frame as ``fused_frame_step`` at B = 1; the bookkeeping
-        of ``VinsEstimator.process_features`` (NON_LINEAR arm)."""
+        """A steady frame as ``fused_frame_step`` at B = 1, replayed from its
+        program (``replay``) or dispatched op by op; the bookkeeping of
+        ``VinsEstimator.process_features`` (NON_LINEAR arm)."""
         est_ = self.estimator
         maxi = est_.cfg.max_imu
         est_.refresh_td_cache()
@@ -316,22 +364,25 @@ class VinsPipeline:
         else:  # VO: an empty interval
             dts, acc, gyr = np.zeros(maxi), np.zeros((maxi + 1, 3)), np.zeros((maxi + 1, 3))
         est_.prev_time = cur_time
-        n_imu = 1 + maxi + 6 * (maxi + 1)
         parts = [[t], dts, acc.ravel(), gyr.ravel()]
         if est_.cfg.fast_relo:
             parts.append(self._pack_relo(est_.take_relo(), est_.cfg.maxf))
         dev = self._pinned_upload(np.concatenate(parts).astype(np.float32), "packed")
-        imu = est.ImuInterval(dts=dev[None, 1:1 + maxi],
-                              acc=dev[1 + maxi:1 + maxi + 3 * (maxi + 1)].reshape(1, maxi + 1, 3),
-                              gyr=dev[1 + maxi + 3 * (maxi + 1):n_imu].reshape(1, maxi + 1, 3))
-        relo = self._unpack_relo(dev[n_imu:], est_.cfg.maxf) if est_.cfg.fast_relo else None
         u = self._uniforms(True, self._fused_step)
         pnp_u = None if est_.cfg.use_imu else self._vo_uniforms(self._fused_step)
         self._fused_step += 1
         with self.timer.stage("fused"):
-            self.tracker_state, est_.state, step_out = fused_frame_step(
-                self.tcfg, self.cam, est_.cfg, self.tracker_state, est_.state,
-                img, depth, dev[0:1], imu, u, relo, pnp_u)
+            if self.replay:
+                inputs = (img, depth, dev, u, pnp_u)
+                prog = self._program(inputs)
+                prog.run(inputs)
+                step_out = map_tree(torch.clone, prog.out)
+                self.tracker_state, est_.state = prog.handed = prog.states()
+            else:
+                t_dev, imu, relo = _unpack_packed(est_.cfg, dev)
+                self.tracker_state, est_.state, step_out = fused_frame_step(
+                    self.tcfg, self.cam, est_.cfg, self.tracker_state, est_.state,
+                    img, depth, t_dev, imu, u, relo, pnp_u)
         self._frame_idx += 1
         est_.headers = est_.headers[1:] + [t]
         if est_._step % est_.failure_check_interval == 0 and bool(step_out.failure[0]):
@@ -344,6 +395,32 @@ class VinsPipeline:
         est_._step += 1
         est_.stage_td_copy()
         return out
+
+    def _program(self, inputs) -> _FrameProgram:
+        """The steady frame's program for the current configs and layouts
+        (kept while they stay; made anew when a config object or a layout
+        changes), loaded with the pipeline's states unless they are the
+        ones it handed out last."""
+        est_ = self.estimator
+        cfg = (self.tcfg, self.cam, est_.cfg)
+        states = (self.tracker_state, est_.state)
+        layout = _layout((states, inputs))
+        prog = self._prog
+        if prog is None or prog.layout != layout or any(a is not b for a, b in zip(prog.cfg, cfg)):
+            self._release_program()
+            prog = self._prog = _FrameProgram(*cfg, layout, *states,
+                                              functools.partial(_frame_args, est_.cfg),
+                                              _whole_output)
+        if prog.handed is None or any(a is not b for a, b in zip(prog.handed, states)):
+            prog.load(*states)
+        return prog
+
+    def _release_program(self) -> None:
+        """Release the steady frame's program: its buffers, its graph and
+        the graph's memory pool (the next steady frame makes a new one)."""
+        if self._prog is not None:
+            self._prog.close()
+            self._prog = None
 
     # ------------------------------------------------------------------
     def _consume_relo_result(self, out: dict):
@@ -383,9 +460,13 @@ class VinsPipeline:
             self._loop_stager.drain()
 
     def close(self):
-        """Drain and stop the pose graph's worker thread."""
-        if self._loop_stager is not None:
-            self._loop_stager.close()
+        """Drain and stop the pose graph's worker thread; release the steady
+        frame's program."""
+        try:
+            if self._loop_stager is not None:
+                self._loop_stager.close()
+        finally:
+            self._release_program()
 
     def run(self, max_frames: int = 10 ** 9) -> list:
         """Drain the stream; returns the trajectory list."""
