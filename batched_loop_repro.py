@@ -9,7 +9,10 @@ MODE, in one process and in the order given (default: none none inline
 inline threaded threaded), and compares the runs' VIO costs (frames × B)
 bit for bit, every run against every other.  Modes: "none" runs the
 batched runner with no closer, "inline" the closer's serial ``consume`` on
-the frame thread, "threaded" the ``ThreadedLoopCloser``.  A suffix turns on
+the frame thread, "pipelined" its five-stage pipeline on the frame thread,
+"threaded" the ``ThreadedLoopCloser``.  ``chip_smoke.py``'s phase 23 runs
+the inline, pipelined and threaded modes from one staging on every run
+of the script and holds their closers to each other.  A suffix turns on
 ``torch.use_deterministic_algorithms(True, warn_only=True)`` and lists the
 operations that warned: "+det" for the whole run (uninitialized memory
 filled with NaN), "+det-nofill" the same without the fill, "+det-<scope>"

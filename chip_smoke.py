@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``vins_rgbd_fast_torch``) on the GPU.
 
-    python3 chip_smoke.py [--phases 21]
+    python3 chip_smoke.py [--phases 21|22|23]
 
 One card is enough; phase 21 shards over every card present.
 
@@ -266,17 +266,56 @@ Phases (each prints one line; any failure raises and exits non-zero):
      twice per shard per frame by name), device ms and busy share per
      frame; (d) both dry runs over every card (on one card phase 19's
      eight shards of it, already run).
+ 22. the failure reboot (bench.py's ``run_recovery``): phase 7's rig on
+     ``make_trajectory(80, seed 7)``, ``VinsPipeline`` with the failure
+     check on every frame, the fused steady state replayed and the
+     envelope, black frames at frames 40-42, each frame ended by a device
+     synchronisation: ``recovery_steady_fps``, ``recovery_triggered``,
+     ``recovery_frames`` and ``recovery_ms`` as bench.py computes them;
+     the failure seen within the burst, NON_LINEAR again before the last
+     frame and steady after, one capture (before the burst) whose graph
+     serves the frames after the reboot too (the reset's states loaded into
+     its buffers), the outputs before the burst under their truth bound,
+     the relative motion after the reboot printed (not gated), K1 once and
+     K3 twice per frame (the unfused frames through K3 too), K2 never, and
+     3 profiled frames with at most the failure check's host wait per
+     frame; the same run dispatched op by op (``replay=False``): the same
+     solver flag on every frame and bit-equal outputs, end states and
+     generators; 22b. the same burst with the TUM rig's VO knobs (376
+     slots, cold LK on 4 levels, the PnP pose init; K3 four times per
+     frame), the same gates; 22c. phase 9's loop cell on a three-cycle
+     revisit scene (168 frames) with the failure check on every frame and
+     the burst from the first frame after the worker accepted a loop: the
+     failure seen within the burst, NON_LINEAR again, the stager drained
+     without an exception, and every relocalization constraint a solve
+     took made in the estimator's epoch of that solve (none from before
+     the reboot after it);
+ 23. phase 10's batched-8-loop cell staged once (B = 8, 4 revisits, 212
+     frames, segments of 18) and run three times from the same states and
+     generator states, its closer driven as bench.py drives it: threaded
+     (``ThreadedLoopCloser``), pipelined (``BENCH_THREAD=0``:
+     ``pack_dispatch`` and ``pipeline_advance_packed`` after each ``run``,
+     ``pipeline_drain`` at the end) and inline (``BENCH_OVERLAP=0``: the
+     serial ``consume``); each with phase 10's gates, and per lane the same
+     keyframes, the same loops as (cur, old) pairs and ``rel_t`` within
+     5e-5 m of the threaded closer's; each segment's ``ScanOutputs`` of the
+     pipelined run its own memory and unchanged by the later segments;
+     drain-inclusive seq-frames/s, the drain tail and, pipelined, the
+     closer's host reads on the frame thread that waited for the device.
 Phases 5, 7, 9, 10, 11, 12, 13, 14, 14b, 15, 15b, 16, 16c (once per
-camera), 16d, 16e (once per camera), 16f, 17, 20, 20b and 21 (each
-sharded run of 21b) each zero the kernels' launch counters just before
-their path and read them just after; the ``kernels`` line sums them.
+camera), 16d, 16e (once per camera), 16f, 17, 20, 20b, 21 (each
+sharded run of 21b), 22 and 22b (each run), 22c and 23 (each mode) each
+zero the kernels' launch counters just before their path and read them
+just after; the ``kernels`` line sums them.
 Every latency-pipeline phase replays its steady frames; its first steady
 frame (eager warm-up and capture) is timed apart, and a capture inside
 the timed frames fails the phase.  A
 line before the card's lists each phase's wall seconds.
 ``python3 chip_smoke.py --phases 21`` runs phases 1-2 and 21 alone (the
 call on several cards); its ``kernels`` line holds card 0's timings and
-phase 21's launches.
+phase 21's launches.  ``--phases 22`` runs phases 1-2, the three kernels
+against their plain versions and timed on card 0 (22a), then 22-22c;
+``--phases 23`` the same with phase 23 (23a, 23).
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA it exits
 non-zero before printing any result.
 """
@@ -294,6 +333,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -312,7 +352,8 @@ from vins_rgbd_fast_torch.loop.pose_graph import (KeyframeGate, PoseGraphConfig,
 from vins_rgbd_fast_torch.models.camera import PinholeCamera
 from vins_rgbd_fast_torch.ops import fast, image, lk
 from vins_rgbd_fast_torch.parallel import batched_pipeline as bp
-from vins_rgbd_fast_torch.parallel.loop_closer import BatchedLoopCloser, ThreadedLoopCloser
+from vins_rgbd_fast_torch.parallel.loop_closer import (BatchedLoopCloser, HostCopy,
+                                                       ThreadedLoopCloser)
 from vins_rgbd_fast_torch.parallel.throughput import make_mesh
 from vins_rgbd_fast_torch.pipeline import VinsPipeline
 
@@ -970,16 +1011,19 @@ def vo_config(rig, seq, max_cnt: int = 250, max_kp: int = 192):
     return dataclasses.replace(cfg, imu=False), dataclasses.replace(pg, use_6dof=True)
 
 
-def revisit_scene(rig, n_frames: int, extra: int = 0, seed: int = 207, imu_seed: int = 307):
+def revisit_scene(rig, n_frames: int, extra: int = 0, seed: int = 207, imu_seed: int = 307,
+                  cycles: int = 2):
     """The bench's loop scene: ``make_revisit_trajectory(n_frames, seed,
     accel 1.5, sideways, 2 cycles)`` with the gyro pulse of ``corrupt_imu
     (imu_seed)``; ``extra`` frames past it keep the scene of the first
-    ``n_frames`` (the pulse is placed at the same times)."""
+    ``n_frames`` (the pulse is placed at the same times); ``cycles`` more
+    out-and-back cycles over ``n_frames`` make a longer stream of the same
+    period when ``n_frames`` grows with them."""
     n = n_frames + extra
-    if n // 8 != n_frames // 8:
+    if n // (4 * cycles) != n_frames // (4 * cycles):
         raise ValueError("extra frames would change the revisit period")
     seq = syn.make_revisit_trajectory(n, rig, seed=seed, accel=1.5, axis=(0.0, 1.0, 0.0),
-                                      cycles=2)
+                                      cycles=cycles)
     s = (n_frames - 1) / (n - 1)  # the pulse fractions of the n_frames scene
     return syn.corrupt_imu(seq, seed=imu_seed, gyr_noise=0.003, gyr_pulse=0.2,
                            pulse_frac=(0.18 * s, 0.3 * s))
@@ -1516,29 +1560,18 @@ def batched_loop_scene(rig, B: int, n_frames: int, n_revisit: int):
             for b in range(B)]
 
 
-def run_batched_loop_path(device, B: int = 8, n_frames: int = 212, seg_len: int = 18,
-                          W: int = 640, H: int = 480, max_cnt: int = 130, max_kp: int = 192,
-                          k_pad: int = 32, profile: int = 0, path=None,
-                          mode: str = "threaded", vo: bool = False,
-                          keep_segments: bool = False):
-    """bench.py run_batched with BENCH_LOOP=1 on the port: B sequences (half
-    of them revisits with a gyro pulse) rendered on the device, the runner's
-    warm-up on frames 0-10, an unrecorded run of frames 11-13, then segments
-    of ``seg_len`` frames from frame 14; the first is the warm segment
-    (``consume`` and the closer's warm-up), the others are timed through
-    ``ThreadedLoopCloser`` (``submit`` after each ``run``) up to the end of
-    ``drain()`` and a device synchronisation.  The launch counters are
-    zeroed just before the timed segments.  With ``profile`` n > 0, the
-    first n frames of the last segment run again under the profiler after
-    (from the runner state it started from), ``run`` then ``submit``, while
-    a second threaded closer (a clone of the first, fresh gates) advances
-    the earlier segments submitted to it just before.  ``mode`` exists for the reproducibility
-    probe (``batched_loop_repro.py``): "inline" runs the closer's serial
-    ``consume`` after each ``run`` on the frame thread, "none" runs no
-    closer (no loop metrics).  With ``vo`` the runner runs batched VO
-    (``vo_batched_config``: no IMU staged, cold LK on 4 levels) and the
-    closer the 6-DoF graphs.  ``keep_segments`` returns every segment's
-    (FrameBatch, ScanOutputs) too, the warm one first."""
+def stage_batched_loop_path(device, B: int = 8, n_frames: int = 212, seg_len: int = 18,
+                            W: int = 640, H: int = 480, max_cnt: int = 130, max_kp: int = 192,
+                            k_pad: int = 32, vo: bool = False) -> dict:
+    """bench.py run_batched with BENCH_LOOP=1 up to its timed segments: B
+    sequences (half of them revisits with a gyro pulse) rendered on the
+    device, frames 0-10 through the runner's warm-up, an unrecorded run of
+    frames 11-13, then segments of ``seg_len`` frames from frame 14 staged
+    and the first of them (the warm one) run.  What ``run_batched_loop_path``
+    starts each of its modes from: the runner (its frame captured), the
+    states and the lane generators' states after the warm segment, and its
+    outputs.  With ``vo`` batched VO (``vo_batched_config``: no IMU staged,
+    cold LK on 4 levels) and 6-DoF graphs."""
     rig, tcfg, ecfg, cam = (vo_batched_config if vo else slice_config)(W, H, max_cnt)
     n_revisit = B // 2
     seqs = batched_loop_scene(rig, B, n_frames, n_revisit)
@@ -1562,55 +1595,151 @@ def run_batched_loop_path(device, B: int = 8, n_frames: int = 212, seg_len: int 
 
     warm_batch, pre_batch = stage(0, k_w), stage(k_w, warmup)
     batches = [stage(warmup + i * seg_len, warmup + (i + 1) * seg_len) for i in range(n_seg)]
-    t_end = warmup + n_seg * seg_len
     del rendered, imgs, deps  # the staged batches hold the frames
     runner = bp.BatchedVioRunner(tcfg, cam, ecfg, device, B)
     trk, st = runner.init_states(np.stack([s.ric for s in seqs]), np.stack([s.tic for s in seqs]))
     pg_cfg = PoseGraphConfig(max_kp=max_kp, max_wp=ecfg.maxf, recency_exclusion=8,
                              score_best=0.08, score_second=0.02, pad_nodes_min=128,
                              pad_edges_min=1024, use_6dof=vo)
-    closer = BatchedLoopCloser(cam, seqs[0].ric, seqs[0].tic, B, device, pg_cfg, skip_dis=0.0,
-                               k_pad=k_pad, seq_pad=32, db_capacity=128, pgo_period=2.0)
+    trk, st, _ = runner.warm(trk, st, warm_batch)
+    trk, st, _ = runner.run(trk, st, pre_batch)
+    trk, st, outs_w = runner.run(trk, st, batches[0])
+    return dict(B=B, seqs=seqs, ts=ts, batches=batches, runner=runner, start=(trk, st),
+                generators=generator_states(runner), outs_w=outs_w, cam=cam, pg_cfg=pg_cfg,
+                k_pad=k_pad, n_revisit=n_revisit, n_frames=n_frames, seg_len=seg_len,
+                warmup=warmup, n_seg=n_seg, vo=vo)
+
+
+@contextlib.contextmanager
+def closer_reads():
+    """Within it, the reads of ``HostCopy`` on the calling thread are
+    counted (``reads``), with those that found their copy still running on
+    the device (``waited``) and the seconds they waited (``wait_s``)."""
+    tally = dict(reads=0, waited=0, wait_s=0.0)
+    get, thread = HostCopy.get, threading.get_ident()
+
+    def counted(self):
+        if threading.get_ident() != thread:
+            return get(self)
+        tally["reads"] += 1
+        if self._event is None or self._event.query():
+            return get(self)
+        t0 = time.perf_counter()
+        out = get(self)
+        tally["waited"] += 1
+        tally["wait_s"] += time.perf_counter() - t0
+        return out
+
+    HostCopy.get = counted
+    try:
+        yield tally
+    finally:
+        HostCopy.get = get
+
+
+def disjoint_outputs(outs, others) -> bool:
+    """Whether no leaf of the ``ScanOutputs`` ``outs`` shares memory with a
+    tensor of the trees ``others``."""
+    held = {a.untyped_storage().data_ptr() for a in bp.leaves(others)}
+    return not held & {a.untyped_storage().data_ptr() for a in bp.leaves(outs)}
+
+
+def run_batched_loop_path(device, B: int = 8, n_frames: int = 212, seg_len: int = 18,
+                          W: int = 640, H: int = 480, max_cnt: int = 130, max_kp: int = 192,
+                          k_pad: int = 32, profile: int = 0, path=None,
+                          mode: str = "threaded", vo: bool = False,
+                          keep_segments: bool = False, staged=None):
+    """bench.py run_batched with BENCH_LOOP=1 on the port: from
+    ``stage_batched_loop_path`` (or ``staged``, its result: the runner's
+    generators are set back to their states after the warm segment, so
+    every mode sees the same frames), a fresh closer takes the warm
+    segment (``consume`` and the closer's warm-up), then the other segments
+    are timed to the end of the closer's drain and a device
+    synchronisation, driven by ``mode`` as bench.py drives them:
+    "threaded" ``ThreadedLoopCloser`` (``submit`` after each ``run``),
+    "pipelined" (``BENCH_THREAD=0``) ``pack_dispatch`` and
+    ``pipeline_advance_packed`` after each ``run`` and ``pipeline_drain``
+    at the end, "inline" (``BENCH_OVERLAP=0``) the serial ``consume`` after
+    each ``run``; "none" runs no closer (no loop metrics).  The launch
+    counters are zeroed just before the timed segments.  "pipelined" counts
+    the closer's host reads on the frame thread that waited for the device
+    (``closer_reads``) and holds each segment's ``ScanOutputs`` to be its
+    own: no memory shared with the runner's buffers or the next segment's,
+    and unchanged by the later segments.  With ``profile`` n > 0
+    ("threaded"), the first n frames of the last segment run again under
+    the profiler after (from the runner state it started from), ``run``
+    then ``submit``, while a second threaded closer (a clone of the first,
+    fresh gates) advances the earlier segments submitted to it just before.
+    ``keep_segments`` returns every segment's (FrameBatch, ScanOutputs) too,
+    the warm one first."""
+    if staged is None:
+        staged = stage_batched_loop_path(device, B, n_frames, seg_len, W, H, max_cnt, max_kp,
+                                         k_pad, vo)
+    B, seqs, ts, batches = staged["B"], staged["seqs"], staged["ts"], staged["batches"]
+    runner, n_seg, seg_len = staged["runner"], staged["n_seg"], staged["seg_len"]
+    n_revisit, warmup, n_frames, vo = (staged[k] for k in ("n_revisit", "warmup", "n_frames",
+                                                            "vo"))
+    t_end = warmup + n_seg * seg_len
+    set_generator_states(runner, staged["generators"])
+    trk, st = staged["start"]
+    outs_w = staged["outs_w"]
+    closer = BatchedLoopCloser(staged["cam"], seqs[0].ric, seqs[0].tic, B, device,
+                               staged["pg_cfg"], skip_dis=0.0, k_pad=staged["k_pad"], seq_pad=32,
+                               db_capacity=128, pgo_period=2.0)
 
     def sync():
         if torch.device(device).type == "cuda":
             torch.cuda.synchronize()
 
-    trk, st, _ = runner.warm(trk, st, warm_batch)
-    trk, st, _ = runner.run(trk, st, pre_batch)
-    trk, st, outs_w = runner.run(trk, st, batches[0])
     if mode != "none":
         closer.consume(batches[0], outs_w)
     tc = ThreadedLoopCloser(closer) if mode == "threaded" else None
+    reads, own_outputs = None, None
     try:
         if tc is not None:
             tc.compile_warmup(batches[0], outs_w)
-        elif mode == "inline":
+        elif mode in ("inline", "pipelined"):
             closer.compile_warmup(batches[0], outs_w)
         sync()
         kf0, loops0, chunks0 = closer.n_keyframes, closer.n_loops, closer.n_chunks
         reset_counts()
-        t0 = time.perf_counter()
-        outs_all, stats = [outs_w], []
-        for k in range(1, n_seg):
-            last_state = (trk, st)  # run returns new states: the profile reruns the last segment
-            trk, st, outs = runner.run(trk, st, batches[k])
+        snaps, disjoint = [], []
+        with (closer_reads() if mode == "pipelined" else contextlib.nullcontext()) as reads:
+            t0 = time.perf_counter()
+            outs_all, stats = [outs_w], []
+            for k in range(1, n_seg):
+                last_state = (trk, st)  # the profile reruns the last segment from here
+                trk, st, outs = runner.run(trk, st, batches[k])
+                if tc is not None:
+                    tc.submit(batches[k], outs)
+                elif mode == "inline":
+                    stats.append(closer.consume(batches[k], outs))
+                elif mode == "pipelined":
+                    # the gating read of segment k waits until k + 1 is dispatched
+                    stats.append(closer.pipeline_advance_packed(closer.pack_dispatch(batches[k],
+                                                                                     outs)))
+                    prog = runner._prog
+                    disjoint.append(disjoint_outputs(outs, (outs_all[-1], prog.out, prog.trk,
+                                                            prog.st, prog.inp)))
+                    snaps.append((outs.P.clone(), outs.is_keyframe.clone()))
+                outs_all.append(outs)
+            if mode != "pipelined":
+                sync()  # every segment's frames done (bench.py's drain follows a block)
+            t_drain = time.perf_counter()
             if tc is not None:
-                tc.submit(batches[k], outs)
-            elif mode == "inline":
-                stats.append(closer.consume(batches[k], outs))
-            outs_all.append(outs)
-        sync()  # every segment's frames done
-        t_drain = time.perf_counter()
-        if tc is not None:
-            stats = tc.drain()
-        elif mode == "inline":
-            closer.pipeline_drain()  # the deferred appends, the last PGO wake-up
-            stats = [s for s in stats if s["n_keyframes"]]
-        sync()
-        t1 = time.perf_counter()
+                stats = tc.drain()
+            elif mode in ("inline", "pipelined"):
+                # the deferred appends and the last PGO wake-up; the stages in flight
+                stats += closer.pipeline_drain()
+                stats = [s for s in stats if s is not None and s["n_keyframes"]]
+            sync()
+            t1 = time.perf_counter()
         counts = read_counts()
         chunks = closer.n_chunks - chunks0
+        if mode == "pipelined":  # each segment's outputs are its own and stay as they were
+            own_outputs = all(disjoint) and all(
+                torch.equal(P, o.P) and torch.equal(kf, o.is_keyframe)
+                for (P, kf), o in zip(snaps, outs_all[1:]))
     finally:
         if tc is not None:
             tc.close()
@@ -1654,7 +1783,8 @@ def run_batched_loop_path(device, B: int = 8, n_frames: int = 212, seg_len: int 
                                    seqs[b].P, align=False))
     stage_ms = {k: sum(s[k] for s in stats) for k in
                 ("ms_sync1", "ms_dispatch", "ms_sync2", "ms_vdisp", "ms_accept", "ms_pgo")}
-    return dict(B=B, n_timed=n_timed, n_revisit=n_revisit, seq_frames_per_s=B * n_timed / elapsed,
+    return dict(B=B, mode=mode, n_timed=n_timed, n_revisit=n_revisit,
+                seq_frames_per_s=B * n_timed / elapsed,
                 ms_per_frame=1e3 * elapsed / n_timed, drain_tail_ms=1e3 * (t1 - t_drain),
                 loop_kf=closer.n_keyframes - kf0, loops_found=closer.n_loops - loops0,
                 loop_ate_m=float(np.mean(lates)) if lates else float("nan"),
@@ -1664,7 +1794,11 @@ def run_batched_loop_path(device, B: int = 8, n_frames: int = 212, seg_len: int 
                 segments_with_keyframes=len(stats),
                 loops=[[(lp["cur"], lp["old"], lp["n_inliers"]) for lp in g.loops]
                        for g in closer.graphs],
-                keyframes=[len(g.keyframes) for g in closer.graphs], profile=prof, vo=vo,
+                rel_t=[[[float(v) for v in lp["rel_t"]] for lp in g.loops]
+                       for g in closer.graphs],
+                keyframes=[len(g.keyframes) for g in closer.graphs],
+                keyframe_times=[[k.t for k in g.keyframes] for g in closer.graphs],
+                closer_reads=reads, own_outputs=own_outputs, profile=prof, vo=vo,
                 levels=runner.tcfg.pyr_levels_cold if vo else runner.tcfg.pyr_levels_predicted,
                 solves_6dof=sum(g.n_solves_6dof for g in closer.graphs),
                 segments=list(zip(batches, outs_all)) if keep_segments else None)
@@ -1700,6 +1834,305 @@ def check_batched_loop_path(res, on_gpu: bool = True) -> None:
         seen = {k: prof["by_kernel"][k]["launches_per_frame"] for k in KERNELS}
         require(seen["lk_level"] == res["levels"] and seen["fast_nms"] >= 1
                 and seen["lk_iterate"] == 0, ("kernels traced per replayed frame", seen))
+
+
+def compare_closer_modes(runs: dict) -> dict:
+    """Phase 23: each mode's closer against the first mode's, per lane:
+    the same keyframes (by stamp), the same loops as (cur, old) pairs and
+    each loop's ``rel_t`` within 5e-5 m (JAX's tolerances between its
+    modes, ``tests/test_batched_loop.py:126-131,145-146``), and whether
+    the VIO costs are the same bits."""
+    ref = next(iter(runs.values()))
+
+    def pairs(r):
+        return [[(c, o) for c, o, _ in lane] for lane in r["loops"]]
+
+    out = {}
+    for mode, r in runs.items():
+        diffs = [float(np.max(np.abs(np.subtract(a, b))))
+                 for la, lb in zip(r["rel_t"], ref["rel_t"]) for a, b in zip(la, lb)]
+        out[mode] = dict(keyframes_equal=r["keyframe_times"] == ref["keyframe_times"],
+                         loops_equal=pairs(r) == pairs(ref),
+                         rel_t_max_diff=max(diffs, default=0.0),
+                         vio_cost_bits_equal=bool(np.array_equal(r["cost"], ref["cost"])))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 22-22c: the failure reboot of the latency pipeline (bench.py
+# run_recovery)
+# ---------------------------------------------------------------------------
+
+RECOVERY_AT, RECOVERY_N = 40, 3  # bench.py run_recovery's burst of black frames
+
+
+def recovery_config(rig, seq, max_cnt: int = 0, vo: bool = False) -> VinsConfig:
+    """bench.py run_recovery's configuration (``_cfg``: the latency
+    cell's); with ``vo`` the TUM rig's VO knobs (``vo_config``) without the
+    pose graph."""
+    if vo:
+        return dataclasses.replace(vo_config(rig, seq, max_cnt or 250)[0], loop_closure=False,
+                                   fast_relocalization=False)
+    return latency_config(rig, seq, max_cnt or 130)
+
+
+@contextlib.contextmanager
+def counted_captures(frame: list):
+    """Within it, each ``native.capture`` (a steady frame's program, or the
+    pose graph's loop check) adds the frame ``frame[0]`` to the yielded
+    list."""
+    caps, capture = [], native.capture
+
+    def counted(*args, **kwargs):
+        caps.append(frame[0])
+        return capture(*args, **kwargs)
+
+    native.capture = counted
+    try:
+        yield caps
+    finally:
+        native.capture = capture
+
+
+def reboot_frames(flags: list, burst_at: int):
+    """(the frame that saw the failure: the first from ``burst_at`` whose
+    solver flag is not NON_LINEAR, the first frame after it that is
+    NON_LINEAR again); None where there is none."""
+    nl = est.VinsEstimator.NON_LINEAR
+    seen = next((k for k in range(burst_at, len(flags)) if flags[k] != nl), None)
+    back = None if seen is None else next(
+        (k for k in range(seen, len(flags)) if flags[k] == nl), None)
+    return seen, back
+
+
+def run_recovery_path(device, n_frames: int = 80, W: int = 640, H: int = 480,
+                      max_cnt: int = 0, vo: bool = False, replay: bool = True,
+                      record: bool = False, profile: int = 0, path=None) -> dict:
+    """bench.py run_recovery on the port: ``make_trajectory(80, seed 7,
+    omega 0.15, acc 0.3)`` on ``slice_config``'s rig rendered on the device,
+    ``VinsPipeline(eager_outputs=False, failure_check_interval=1,
+    fused_steady_state=True)`` with the envelope, black frames
+    (``torch.zeros_like``) at frames 40-42; each frame ended by a device
+    synchronisation and read as bench.py reads it: the steady fps over the
+    NON_LINEAR frames 16-39, the frame that sees the failure, and the
+    frames and ms from it until NON_LINEAR again.  With ``vo`` the TUM rig's
+    VO knobs (``recovery_config``); ``replay=False`` dispatches the steady
+    frames op by op.  Per frame the solver flag and the steady frame's
+    graph (``graph_of``), the frame of each capture (``counted_captures``);
+    the outputs before the burst against the truth (``lane_accuracy``: the
+    unaligned ATE and ``truth_bound``) and those after the reboot (the
+    relative motion from the first to the last: printed, not gated, as the
+    re-initialization is static on a moving stream); ``profile`` more
+    frames under the profiler after the run (its host waits on the frame
+    thread: the failure check reads a value back every frame, as JAX's
+    does); with ``record``, what ``replay_against_plain`` compares."""
+    rig, _, _, _ = slice_config(W, H, max_cnt or 130)
+    seq = syn.make_trajectory(n_frames + profile, rig, seed=7, omega_scale=0.15, acc_scale=0.3)
+    cfg = recovery_config(rig, seq, max_cnt, vo)
+    ts, imgs, deps = syn.render_sequence(seq, rig, device)
+    black = torch.zeros_like(imgs[0])
+    pipe = envelope(VinsPipeline(cfg, device, eager_outputs=False, failure_check_interval=1,
+                                 fused_steady_state=True, replay=replay))
+    for (t, a, g) in (seq.imu if cfg.imu else []):
+        pipe.push_imu(t, a, g)
+    e = pipe.estimator
+    on_cuda = torch.device(device).type == "cuda"
+    nl = est.VinsEstimator.NON_LINEAR
+
+    def feed(k, img):
+        pipe.push_image(ts[k], img)
+        pipe.push_depth(ts[k], deps[k])
+        pipe.spin_once()
+
+    frame, flags, graphs = [0], [], []
+    steady_t, steady_n = 0.0, 0
+    fail_seen_at = recover_t0 = recover_ms = None
+    recover_frames = 0
+    reset_counts()
+    with counted_captures(frame) as caps:
+        for k in range(n_frames):
+            frame[0] = k
+            t0 = time.perf_counter()
+            feed(k, black if RECOVERY_AT <= k < RECOVERY_AT + RECOVERY_N else imgs[k])
+            if on_cuda:
+                torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            flags.append(e.solver_flag)
+            graphs.append(graph_of(pipe))
+            if fail_seen_at is None:  # bench.py:648-665
+                if 16 <= k < RECOVERY_AT and e.solver_flag == nl:
+                    steady_t += dt
+                    steady_n += 1
+                if k >= RECOVERY_AT and e.solver_flag != nl:
+                    fail_seen_at = k
+                    recover_t0 = time.perf_counter() - dt
+            elif recover_ms is None:
+                recover_frames += 1
+                if e.solver_flag == nl:
+                    recover_ms = 1e3 * (time.perf_counter() - recover_t0)
+    counts = read_counts()
+    kept = frames_record(pipe, ts[n_frames - 1]) if record else None
+    prof = None
+    if profile:
+        prof = profile_span(lambda: [feed(k, imgs[k]) for k in range(n_frames, n_frames + profile)],
+                            SPIN_SPAN, profile, path, 1e3 * steady_t / max(steady_n, 1))
+    pipe.close()
+    seen, back = reboot_frames(flags, RECOVERY_AT)
+    traj = [r for r in e.trajectory if r["t"] <= ts[n_frames - 1]]
+    pre = [r for r in traj if r["t"] < ts[RECOVERY_AT]]
+    post = [r for r in traj if seen is not None and r["t"] > ts[seen]]
+    acc_pre = lane_accuracy([r["t"] for r in pre], [r["P"] for r in pre], seq, False, False)
+    acc_post = lane_accuracy([r["t"] for r in post], [r["P"] for r in post], seq, True, False)
+    return dict(recovery_steady_fps=steady_n / steady_t if steady_t else None,
+                recovery_triggered=fail_seen_at is not None,
+                recovery_frames=recover_frames if recover_ms is not None else None,
+                recovery_ms=recover_ms, fail_seen_at=seen, nonlinear_again_at=back,
+                flags=flags, captures=caps, graphs=len({id(g) for g in graphs if g is not None}),
+                graph_kept=(back is None or graphs[back + 1:] == [graphs[RECOVERY_AT - 1]]
+                            * (n_frames - back - 1)),
+                pre_burst=acc_pre, post_reboot=acc_post, frames=n_frames, vo=vo, replay=replay,
+                levels=pipe.tcfg.pyr_levels_cold if vo else pipe.tcfg.pyr_levels_predicted,
+                counts=counts, profile=prof, record=kept, timer=pipe.timer.summary())
+
+
+def check_recovery_path(res, on_gpu: bool = True) -> None:
+    """Phases 22 and 22b: the failure seen within the burst, the estimator
+    NON_LINEAR again before the last frame and steady after it, the outputs
+    before the burst under their truth bound; replayed: one capture, before
+    the burst, and the same graph after the reboot as before it (the reset's
+    states loaded into its buffers); plain: none.  On the card K1 once and
+    K3 once per pyramid level per frame (the black ones too), K2 never, and
+    at most the failure check's one host wait per profiled frame."""
+    seen, back = res["fail_seen_at"], res["nonlinear_again_at"]
+    require(res["recovery_triggered"] and seen is not None
+            and RECOVERY_AT <= seen < RECOVERY_AT + RECOVERY_N,
+            ("the failure seen within the burst", seen, res["flags"]))
+    require(back is not None and back < res["frames"] - 1
+            and res["recovery_frames"] == back - seen,
+            ("NON_LINEAR again before the last frame", back, res["flags"]))
+    nl = est.VinsEstimator.NON_LINEAR
+    require(all(f == nl for f in res["flags"][back:]), ("steady after the reboot", res["flags"]))
+    pre = res["pre_burst"]
+    require(np.isfinite(pre["err"]) and pre["err"] < pre["bound"],
+            ("the outputs before the burst against the truth", pre))
+    if on_gpu and res["replay"]:
+        require(len(res["captures"]) == 1 and res["captures"][0] < RECOVERY_AT
+                and res["graphs"] == 1 and res["graph_kept"],
+                ("one capture, kept across the reboot", res["captures"], res["graphs"]))
+    if not res["replay"]:
+        require(res["captures"] == [] and res["graphs"] == 0, ("plain: no capture",
+                                                              res["captures"]))
+    if on_gpu:
+        n = res["frames"]
+        require(res["counts"] == {"fast_nms": n, "lk_level": 0,
+                                  "lk_iterate": res["levels"] * n},
+                ("recovery launches", res["counts"]))
+    if res["profile"] is not None:
+        require(res["profile"]["host_syncs"] <= res["profile"]["frames"],
+                ("at most the failure check's host wait per frame",
+                 res["profile"]["host_sync_calls"]))
+
+
+def run_loop_recovery_path(device, n_frames: int = 168, warmup: int = 16, W: int = 640,
+                           H: int = 480, max_cnt: int = 130, max_kp: int = 192) -> dict:
+    """Phase 9's loop cell (the latency-1-loop knobs: loop closure and fast
+    relocalization, the pose graph on the ``AsyncLoopStager``'s worker
+    thread, the envelope) with the failure check on every frame and
+    bench.py's burst of three black frames from the first frame after the
+    worker accepted its first loop, on the revisit scene with three cycles
+    (phase 9's period, one cycle longer) so the stream goes on past the
+    re-initialization.  Records each relocalization constraint a solve took
+    (the frame, the estimator's epoch the constraint was made in and the
+    one at the solve), the frames where the reset dropped a queued one, and
+    those the estimator refused (made from a frame before the reset).  The
+    launch counters are zeroed after the warm-up and the stager's warm-up."""
+    rig, _, _, _ = slice_config(W, H, max_cnt)
+    seq = revisit_scene(rig, n_frames, cycles=3)
+    ts, imgs, deps = syn.render_sequence(seq, rig, device)
+    cfg, pg_cfg = loop_config(rig, seq, max_cnt, max_kp)
+    pipe = envelope(VinsPipeline(cfg, device, eager_outputs=False, failure_check_interval=1,
+                                 fused_steady_state=True, pose_graph_config=pg_cfg))
+    stager, e = pipe._loop_stager, pipe.estimator
+    frame, taken, dropped, refused = [0], [], [], []
+    take, reset, set_relo = e.take_relo, e.reset, e.set_relo_frame
+
+    def take_relo():
+        r = take()
+        if r is not None:
+            taken.append((frame[0], r["epoch"], e.epoch))
+        return r
+
+    def reset_():
+        with e._relo_lock:
+            pending = e._pending_relo is not None
+        if pending:
+            dropped.append(frame[0])
+        reset()
+
+    def set_relo_frame(*args, **kwargs):
+        ok = set_relo(*args, **kwargs)
+        if not ok:
+            refused.append(frame[0])
+        return ok
+
+    e.take_relo, e.reset, e.set_relo_frame = take_relo, reset_, set_relo_frame
+    for (t, a, g) in seq.imu:
+        pipe.push_imu(t, a, g)
+    black = torch.zeros_like(imgs[0])
+    flags, burst_at = [], None
+    try:
+        for k in range(n_frames):
+            frame[0] = k
+            if k == warmup:
+                pipe.drain()
+                stager.compile_warmup(imgs[0])
+                kf0 = stager.n_keyframes
+                reset_counts()
+            if burst_at is None and k > warmup and stager.n_loops >= 1:
+                burst_at = k
+            burst = burst_at is not None and k < burst_at + RECOVERY_N
+            pipe.push_image(ts[k], black if burst else imgs[k])
+            pipe.push_depth(ts[k], deps[k])
+            pipe.spin_once()
+            flags.append(e.solver_flag)
+        pipe.drain()  # raises the worker's exception, if any
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        counts = read_counts()
+    finally:
+        pipe.close()
+    seen, back = reboot_frames(flags, burst_at) if burst_at is not None else (None, None)
+    graph = pipe.pose_graph
+    return dict(frames=n_frames, timed=n_frames - warmup, burst_at=burst_at, fail_seen_at=seen,
+                nonlinear_again_at=back, flags=flags, taken=taken, dropped=dropped,
+                refused=refused, epoch=e.epoch, loops=[(lp["cur"], lp["old"]) for lp in
+                                                       graph.loops],
+                keyframes=len(graph.keyframes), kf_timed=stager.n_keyframes - kf0,
+                n_loops=stager.n_loops, max_round=stager.max_round, counts=counts,
+                lk_levels=pipe.tcfg.pyr_levels_predicted)
+
+
+def check_loop_recovery_path(res, on_gpu: bool = True) -> None:
+    """Phase 22c: a loop accepted before the burst, the failure seen within
+    it, NON_LINEAR again before the last frame, the stager drained without
+    an exception (``run_loop_recovery_path`` raises it), and no
+    relocalization constraint made before the reboot taken by a solve after
+    it (every constraint taken in the epoch it was made in).  On the card K1
+    per frame and per keyframe the worker extracted, K3 per level, K2
+    never."""
+    require(res["burst_at"] is not None, ("a loop accepted before the burst", res["loops"]))
+    seen, back = res["fail_seen_at"], res["nonlinear_again_at"]
+    require(seen is not None and res["burst_at"] <= seen < res["burst_at"] + RECOVERY_N,
+            ("the failure seen within the burst", res["burst_at"], res["flags"]))
+    require(back is not None and back < res["frames"] - 1,
+            ("NON_LINEAR again before the last frame", res["flags"]))
+    require(all(made == at for _, made, at in res["taken"]),
+            ("a constraint from before the reboot taken after it", res["taken"]))
+    if on_gpu:
+        n = res["timed"]
+        require(res["counts"] == {"fast_nms": n + res["kf_timed"], "lk_level": 0,
+                                  "lk_iterate": res["lk_levels"] * n},
+                ("loop-recovery launches", res["counts"]))
 
 
 # ---------------------------------------------------------------------------
@@ -3490,9 +3923,11 @@ def profile_span(fn, name: str, frames: int, path: str, step_ms: float):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on the GPU")
-    ap.add_argument("--phases", choices=("all", "21"), default="all",
+    ap.add_argument("--phases", choices=("all", "21", "22", "23"), default="all",
                     help="'21': phases 1-2 and 21 alone (the kernels and the runner sharded "
-                         "over every card present)")
+                         "over every card present); '22': phases 1-2, the kernels against "
+                         "their plain versions on card 0, and 22-22c (the failure reboot); "
+                         "'23': the same with phase 23 (the batched closer's three modes)")
     phases = ap.parse_args(argv).phases
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
@@ -3587,6 +4022,41 @@ def main(argv=None) -> int:
                    launch_timer=launch_timer)
             timings[-1]["points_by_step"] = steps
 
+    def kernels_on(d: int, f0, k2_in_, k3_in_, phase: str, errs: dict) -> None:
+        """On card ``d``, launched from this thread (whose current device
+        stays 0): K1 bit-exact on ``f0`` (B×480×640), K2 on ``k2_in_`` (B×N)
+        and K3 on ``k3_in_`` (1×N) on both levels against their plain
+        versions (their largest errors into ``errs``), then each timed on
+        the card under its guard."""
+        cd = torch.device("cuda", d)
+
+        def to(x):
+            return [y.to(cd) for y in x] if isinstance(x, list) else x.to(cd)
+
+        x0 = f0.to(cd)
+        b = x0.shape[0]
+        out_k = fast.fast_nms(x0, thr)
+        out_p = fast.nms3(fast.fast_score(x0, thr))
+        require(out_k.device == cd and torch.equal(out_k, out_p), f"K1 bit-exact on {cd}")
+        errs["fast_nms"] = max(errs["fast_nms"], float((out_k - out_p).abs().max()))
+        k2_d, k3_d = tuple(map(to, k2_in_)), tuple(map(to, k3_in_))
+        rep2, rep3 = compare_k2(*k2_d, tcfg_run), compare_k3(*k3_d, tcfg_run)
+        errs["lk_level"] = max(errs["lk_level"], check_parity("K2", rep2))
+        errs["lk_iterate"] = max(errs["lk_iterate"], check_parity("K3", rep3))
+        require(torch.cuda.current_device() == 0, "the main thread's device stays 0")
+        print(f"[{phase} {cd}] launched from the main thread (current device "
+              f"{torch.cuda.current_device()}): K1 bit-exact on {b}x480x640; K2 {b}x{N}: "
+              + summary(rep2) + f"; K3 1x{N}: " + summary(rep3), flush=True)
+        with torch.cuda.device(cd):
+            lt = LaunchTimer()
+            timing("fast_nms", f"card {d}: {b}x480x640 rendered",
+                   lambda: fast.fast_nms(x0, thr),
+                   lambda: fast.nms3(fast.fast_score(x0, thr)),
+                   kernel_bounds(b, 480, 640, N, 0, pairs=fast_pairs(x0, thr))["fast_nms"],
+                   phase=phase, launch_timer=lt)
+            time_k2(k2_d, tcfg_run, f"card {d}: {b}x{N}", phase=phase, launch_timer=lt)
+            time_k3(k3_d, tcfg_run, f"card {d}: 1x{N}", phase=phase, launch_timer=lt)
+
     def phase21(after_19: bool) -> dict:
         """Phase 21: the batched runner sharded by lane over the cards."""
         import __graft_entry_torch__ as graft
@@ -3605,34 +4075,7 @@ def main(argv=None) -> int:
         # (a) every kernel on every card, launched from this thread, whose
         # current device stays 0; then timed on each card under its guard
         for d in range(cards):
-            cd = torch.device("cuda", d)
-
-            def to(x):
-                return [y.to(cd) for y in x] if isinstance(x, list) else x.to(cd)
-
-            x0 = f0.to(cd)
-            out_k = fast.fast_nms(x0, thr)
-            out_p = fast.nms3(fast.fast_score(x0, thr))
-            require(out_k.device == cd and torch.equal(out_k, out_p), f"K1 bit-exact on {cd}")
-            errs["fast_nms"] = max(errs["fast_nms"], float((out_k - out_p).abs().max()))
-            k2_d, k3_d = tuple(map(to, k2_21)), tuple(map(to, k3_21))
-            rep2, rep3 = compare_k2(*k2_d, tcfg_run), compare_k3(*k3_d, tcfg_run)
-            errs["lk_level"] = max(errs["lk_level"], check_parity("K2", rep2))
-            errs["lk_iterate"] = max(errs["lk_iterate"], check_parity("K3", rep3))
-            require(torch.cuda.current_device() == 0, "the main thread's device stays 0")
-            print(f"[21a {cd}] launched from the main thread (current device "
-                  f"{torch.cuda.current_device()}): K1 bit-exact on {B}x480x640; K2 {B}x{N}: "
-                  + summary(rep2) + f"; K3 1x{N}: " + summary(rep3), flush=True)
-            with torch.cuda.device(cd):
-                lt = LaunchTimer()
-                timing("fast_nms", f"card {d}: {B}x480x640 rendered",
-                       lambda: fast.fast_nms(x0, thr),
-                       lambda: fast.nms3(fast.fast_score(x0, thr)),
-                       kernel_bounds(B, 480, 640, N, 0, pairs=fast_pairs(x0, thr))["fast_nms"],
-                       phase="21a", launch_timer=lt)
-                time_k2(k2_d, tcfg_run, f"card {d}: {B}x{N}", phase="21a", launch_timer=lt)
-                time_k3(k3_d, tcfg_run, f"card {d}: 1x{N}", phase="21a", launch_timer=lt)
-            del x0, k2_d, k3_d
+            kernels_on(d, f0, k2_21, k3_21, "21a", errs)
 
         # (b), (c) the main path sharded: two shards of card 0, then every card
         r = run_sharded_path(staged, dev, mesh, per_card=B, time_frames=20, turns=3,
@@ -3677,6 +4120,111 @@ def main(argv=None) -> int:
         run_counts = [c["counts"] for c in r["compare"].values()]
         r["counts"] = {k: sum(sum(c[k].values()) for c in run_counts) for k in KERNELS}
         return r
+
+    def phase22() -> dict:
+        """Phases 22-22c: the failure reboot of the latency pipeline."""
+        out = {}
+        for key, vo, label in (("recovery", False, "22"), ("recovery_vo", True, "22b")):
+            r = run_recovery_path(dev, vo=vo, record=True, profile=3,
+                                  path=os.path.join(OUT_DIR, f"profile_{key}.txt"))
+            check_recovery_path(r)
+            plain = run_recovery_path(dev, vo=vo, replay=False, record=True)
+            check_recovery_path(plain)
+            cmp = replay_against_plain(plain.pop("record"), r.pop("record"))
+            require(plain["flags"] == r["flags"] and cmp["bit_equal"],
+                    (f"phase {label}: the replayed run against the plain one", cmp,
+                     plain["flags"], r["flags"]))
+            prof, pre, post = r["profile"], r["pre_burst"], r["post_reboot"]
+            print(f"[{label} recovery{' VO' if vo else ''}] recovery_steady_fps "
+                  f"{r['recovery_steady_fps']:.2f} recovery_triggered {r['recovery_triggered']} "
+                  f"recovery_frames {r['recovery_frames']} recovery_ms {r['recovery_ms']:.1f} "
+                  f"(bench.py run_recovery: {r['frames']} frames 640x480, black at "
+                  f"{RECOVERY_AT}-{RECOVERY_AT + RECOVERY_N - 1}, failure check every frame, "
+                  f"{'VO, cold LK on 4 levels' if vo else 'IMU'}); the failure seen at frame "
+                  f"{r['fail_seen_at']}, NON_LINEAR again at frame {r['nonlinear_again_at']}; "
+                  f"captures at frames {r['captures']}, one graph kept across the reboot "
+                  f"{r['graph_kept']}; before the burst ATE {pre['err']:.4f} m (bound "
+                  f"{pre['bound']:.3f}); after the reboot, relative motion {post['d_est']:.4f} m "
+                  f"against the truth's {post['d_gt']:.4f} (error {post['err']:.4f}, not "
+                  f"gated); host waits on the frame thread {prof['host_syncs']} over "
+                  f"{prof['frames']} profiled frames {prof['host_sync_calls']}; launches "
+                  f"{r['counts']}; plain per-op frames: recovery_steady_fps "
+                  f"{plain['recovery_steady_fps']:.2f}, recovery_ms {plain['recovery_ms']:.1f}, "
+                  f"the same solver flag on every frame; replay against plain over "
+                  f"{cmp['outputs']} outputs: {cmp}; profile {prof}", flush=True)
+            out[key], out[key + "_plain"] = r, plain
+            done(label)
+        lr = run_loop_recovery_path(dev)
+        check_loop_recovery_path(lr)
+        after = [t for t in lr["taken"] if t[0] > lr["fail_seen_at"]]
+        print(f"[22c loop recovery] the latency-1-loop knobs on a 3-cycle revisit scene, "
+              f"{lr['frames']} frames, failure check every frame: the worker's first loop "
+              f"before frame {lr['burst_at']}, black from it; the failure seen at frame "
+              f"{lr['fail_seen_at']}, NON_LINEAR again at frame {lr['nonlinear_again_at']}; "
+              f"the stager drained without an exception; relocalizations taken by a solve "
+              f"{len(lr['taken'])} ({len(after)} after the reboot, each made in the epoch it "
+              f"was taken in: (frame, made, taken) {lr['taken']}); queued ones dropped at the "
+              f"reset at frames {lr['dropped']}, refused as made before it at frames "
+              f"{lr['refused']}; loops {lr['loops']} over {lr['keyframes']} keyframes; at most "
+              f"{lr['max_round']} frames handed over at once; launches {lr['counts']}",
+              flush=True)
+        out["recovery_loop"] = lr
+        done("22c")
+        return out
+
+    def phase23() -> dict:
+        """Phase 23: the batched closer's three modes from one staging."""
+        staged = stage_batched_loop_path(dev)
+        runs = {}
+        for mode in ("threaded", "pipelined", "inline"):
+            r = run_batched_loop_path(dev, mode=mode, staged=staged)
+            check_batched_loop_path(r)
+            runs[mode] = r
+        staged["runner"].close()
+        cmp = compare_closer_modes(runs)
+        for mode, c in cmp.items():
+            require(c["keyframes_equal"] and c["loops_equal"] and c["rel_t_max_diff"] <= 5e-5,
+                    (f"phase 23: the {mode} closer against the threaded one", c))
+        require(runs["pipelined"]["own_outputs"],
+                "phase 23: each segment's ScanOutputs its own, unchanged by later segments")
+        for mode, r in runs.items():
+            rd = r["closer_reads"]
+            reads = ("" if rd is None else f"; the closer's host reads on the frame thread "
+                     f"{rd['reads']}, {rd['waited']} of them waiting for the device "
+                     f"({1e3 * rd['wait_s']:.1f} ms in all)")
+            print(f"[23 {mode}] batched-8-loop, B={r['B']}, {r['n_timed']} timed lock-step "
+                  f"frames: {r['seq_frames_per_s']:.2f} seq-frames/s drain-inclusive, "
+                  f"{r['ms_per_frame']:.3f} ms per lock-step frame, drain tail "
+                  f"{r['drain_tail_ms']:.1f} ms; loop_kf {r['loop_kf']}, loops_found "
+                  f"{r['loops_found']}; loop_ate_m {r['loop_ate_m']:.4f}, loop_vio_ate_m "
+                  f"{r['loop_vio_ate_m']:.4f}; ate_m {r['ate_m']:.4f}; against the threaded "
+                  f"closer {cmp[mode]}; closer stage ms {r['stage_ms']}; launches "
+                  f"{r['counts']}{reads}", flush=True)
+        done("23")
+        return {f"batched_loop_{m}": r for m, r in runs.items()}
+
+    if phases in ("22", "23"):  # phases 1-2, the kernels on card 0, and the phase alone
+        done("1-2")
+        _, rendered_, _ = make_sequences(rig, B, 2, dev)
+        f0, f1 = (torch.stack([r[1][k] for r in rendered_]).contiguous() for k in (0, 1))
+        gen_ = torch.Generator(device=dev)
+        gen_.manual_seed(0)
+        k2_p = k2_inputs(f0, f1, tcfg_run, N, gen_)
+        k3_p = tuple([x[:1].contiguous() for x in a] if isinstance(a, list)
+                     else a[:1].contiguous() for a in k2_p)
+        errs = dict.fromkeys(KERNELS, 0.0)
+        kernels_on(0, f0, k2_p, k3_p, phases + "a", errs)
+        del rendered_, f0, f1, k2_p, k3_p
+        done(phases + "a")
+        got = phase22() if phases == "22" else phase23()
+        with open(os.path.join(OUT_DIR, f"chip_smoke_{phases}.json"), "w") as f:
+            json.dump(dict(card=smi, timings=timings, phase_s=phase_s, **{
+                k: {x: y for x, y in v.items() if x not in ("cost", "segments")}
+                for k, v in got.items()}), f, indent=1, default=float)
+        return finish(smi_cards, phase_s, kernel_entries(
+            got, errs, {"fast_nms": f"card 0: {B}x480x640 rendered",
+                        "lk_level": f"card 0: {B}x{N} level",
+                        "lk_iterate": f"card 0: 1x{N} level"}, timings))
 
     if phases == "21":  # phases 1-2 and 21 alone (the multi-card call)
         done("1-2")
@@ -4478,6 +5026,12 @@ def main(argv=None) -> int:
 
     done("21")
 
+    # 22-22c. the failure reboot (bench.py run_recovery; their own launch counts)
+    r22 = phase22()
+
+    # 23. the batched closer's three modes (their own launch counts)
+    r23 = phase23()
+
     # the kernels line: per launch at the main path's shapes (K1 8x480x640,
     # K2 8x200 averaged over its two levels) and K3 at the latency path's
     # 1x200 (it never runs on the main path)
@@ -4489,7 +5043,8 @@ def main(argv=None) -> int:
              "batched_kb": kbb, "latency_harsh": harsh, "batched_mei": bcams["MEI"],
              "batched_scaramuzza": bcams["SCARAMUZZA"], "latency_ocam_affine": ocs,
              "batched_dyn": r20, "batched_td": r20b,
-             "batched_sharded": dict(counts=r21["counts"], profile=r21["profile"]["D"])}
+             "batched_sharded": dict(counts=r21["counts"], profile=r21["profile"]["D"]),
+             **r22, **r23}
     errs = {"fast_nms": max(k1_err, r21["errs"]["fast_nms"]),
             "lk_level": max(k2_err, r21["errs"]["lk_level"]),
             "lk_iterate": max(k3_err, r21["errs"]["lk_iterate"])}
@@ -4525,6 +5080,8 @@ def main(argv=None) -> int:
                 for m, r in bcams.items()}, latency_ocam_affine=ocs, kb_run_vio=kbe,
             calibration=calr, runner_api=api, stack_states=stacked, batched_dyn=r20,
             batched_td=r20b, k2_batched_dyn=rep20, k2_batched_td=rep20b, batched_sharded=r21,
+            **{k: {x: y for x, y in v.items() if x not in ("cost", "segments")}
+               for k, v in {**r22, **r23}.items()},
             phase_s=phase_s), f, indent=1, default=float)
     return finish(smi_cards, phase_s, kernels)
 

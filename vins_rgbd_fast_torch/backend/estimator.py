@@ -685,7 +685,10 @@ class VinsEstimator:
     nothing is read back on a steady frame except the failure check, every
     ``failure_check_interval`` frames, and the td refresh.
     ``set_relo_frame`` (from any thread) queues a relocalization constraint
-    as host arrays; the next steady step takes it."""
+    as host arrays; the next steady step takes it.  A reset (a failure or a
+    stream discontinuity) drops the queued one and refuses one made from a
+    frame before it (JAX's ``reset`` keeps it for the first solve after the
+    re-initialization, whose feature ids and world are new)."""
 
     INITIAL = 0
     NON_LINEAR = 1
@@ -716,6 +719,7 @@ class VinsEstimator:
         self._latest_base = None
         self._relo_lock = threading.Lock()
         self._pending_relo: Optional[dict] = None  # host arrays of set_relo_frame
+        self.epoch = 0  # resets so far: a constraint belongs to the window it was made from
         # extrinsic rotation calibration (estimate_extrinsic 2)
         self._ex_calibrating = vcfg.estimate_extrinsic == 2
         self._ex_pairs: list = []  # (q_cam (4,), q_imu (4,)) host arrays
@@ -723,6 +727,12 @@ class VinsEstimator:
         self.reset()
 
     def reset(self):
+        # a queued relocalization binds the old window's feature ids (the
+        # tracker restarts them) and poses of the old world: it is dropped,
+        # and one made from a frame before this reset is refused later
+        with self._relo_lock:
+            self._pending_relo = None
+            self.epoch += 1
         self.state = init_estimator_state(self.cfg, self.vcfg.ric_matrix(),
                                           self.vcfg.tic_vector(), self.vcfg.td, 1,
                                           self.device, self.dtype)
@@ -972,17 +982,25 @@ class VinsEstimator:
             t_prev = ts
         return dict(t=t_prev, P=P, Q=Q, V=V)
 
-    def set_relo_frame(self, match_pts, match_valid, match_ids, P_old, Q_old):
+    def set_relo_frame(self, match_pts, match_valid, match_ids, P_old, Q_old,
+                       epoch: Optional[int] = None) -> bool:
         """Queue a relocalization constraint for the next solve: the matched
         old-keyframe observations (MAXF, 2), their mask, the FEATURE IDS of
         the window points they match (``StepOutput.wp_ids`` of the keyframe)
-        and the old keyframe's pose."""
+        and the old keyframe's pose.  ``epoch``: the estimator's ``epoch``
+        at the keyframe's frame (a worker thread's constraint); one made
+        before a reset is refused.  The queued constraint keeps the epoch
+        it belongs to (``"epoch"``).  Returns whether it was queued."""
         relo = dict(match_pts=np.asarray(match_pts, np.float32),
                     match_valid=np.asarray(match_valid, bool),
                     match_ids=np.asarray(match_ids, np.int32),
                     P=np.asarray(P_old, np.float32), Q=np.asarray(Q_old, np.float32))
         with self._relo_lock:
+            if epoch is not None and epoch != self.epoch:
+                return False
+            relo["epoch"] = self.epoch
             self._pending_relo = relo
+        return True
 
     def take_relo(self) -> Optional[dict]:
         """The queued constraint (host arrays), or None; clears the queue."""

@@ -102,7 +102,7 @@ def save_pipeline(pipe, path: str) -> None:
         arrs["ex_prev_ids"], arrs["ex_prev_pts"] = e._prev_feats_host
     relo = e._pending_relo
     if relo is not None:
-        arrs.update({f"relo_{k}": np.asarray(v) for k, v in relo.items()})
+        arrs.update({f"relo_{k}": np.asarray(v) for k, v in relo.items() if k != "epoch"})
     pr = pipe.pairer
     gate = _gate(pipe)
     meta: dict[str, Any] = dict(
@@ -163,6 +163,7 @@ def load_pipeline(vcfg, path: str, device, dtype=torch.float32, **pipeline_kwarg
         if meta["pending_relo"]:
             e._pending_relo = {k: np.asarray(z[f"relo_{k}"])
                                for k in ("match_pts", "match_valid", "match_ids", "P", "Q")}
+            e._pending_relo["epoch"] = e.epoch
         graph = {k: np.asarray(z[k]) for k in z.files if k.startswith(("pg_", "gen_graph"))}
     e.frame_count = int(meta["frame_count"])
     e.solver_flag = int(meta["solver_flag"])

@@ -96,7 +96,8 @@ class HostCopy:
     """Device tensors on their way to the host: on CUDA, non-blocking copies
     into pinned buffers on the current stream, then an event; ``get`` waits
     on that event (on the thread that reads) and returns numpy arrays.  CPU
-    tensors are read as they are."""
+    tensors are read as they are; a copy already done is read without a
+    wait."""
 
     __slots__ = ("_host", "_event")
 
@@ -114,7 +115,7 @@ class HostCopy:
             self._event.record()
 
     def get(self) -> list:
-        if self._event is not None:
+        if self._event is not None and not self._event.query():
             self._event.synchronize()
         return [h.numpy() for h in self._host]
 
@@ -854,6 +855,7 @@ class AsyncLoopStager:
         self.gate = KeyframeGate(skip_cnt, skip_dis)
         self.fast_relo = fast_relocalization
         self._relo_sent_kf: Optional[int] = None
+        self._epoch = None  # the estimator's epoch of the worker's last frame
         self.n_keyframes = 0
         self.n_loops = 0
         self.stage_s = dict.fromkeys(STAGES, 0.0)  # the worker's wall seconds by stage
@@ -868,7 +870,9 @@ class AsyncLoopStager:
         ``img``/``depth`` (H, W) device images.  Launches only; hands the
         frames held so far over when the worker is idle."""
         # the copy and its event go on the frame thread's stream, after this frame
-        self._buf.append((HostCopy([pack_latency_gating(sout)]), float(t), sout, img, depth))
+        epoch = self.est.epoch if self.est is not None else 0
+        self._buf.append((HostCopy([pack_latency_gating(sout)]), float(t), sout, img, depth,
+                          epoch))
         if self._worker.idle():
             self._flush_buf()
 
@@ -908,10 +912,12 @@ class AsyncLoopStager:
 
     # -- worker thread ---------------------------------------------------
     def _process(self, toks):
-        for hc, t, sout, img, depth in toks:
+        for hc, t, sout, img, depth, epoch in toks:
             t0 = time.perf_counter()
             row = hc.get()[0].astype(np.float64)  # waits for this frame alone
             self.stage_s["gating"] += time.perf_counter() - t0
+            if epoch != self._epoch:  # the estimator was reset: its constraint was dropped
+                self._epoch, self._relo_sent_kf = epoch, None
             if row[8] > 0.5 and self._relo_sent_kf is not None:
                 self._consume_relo(row, self._prev)
             self._prev = (t, row)
@@ -919,11 +925,13 @@ class AsyncLoopStager:
                 continue
             self._worker.adopt(hc._event, img, depth, sout.wp_uv, sout.wp_valid, sout.wp_world,
                                sout.wp_norm, sout.wp_ids)
-            self._handle_keyframe(t, row[1:4], row[4:8], sout, img, depth)
+            self._handle_keyframe(t, row[1:4], row[4:8], sout, img, depth, epoch)
 
-    def _handle_keyframe(self, t, P, Q, sout, img, depth):
+    def _handle_keyframe(self, t, P, Q, sout, img, depth, epoch):
         """Extraction, retrieval, insertion and the DB append; on a
-        candidate the loop check, the PGO and the relocalization hand-off."""
+        candidate the loop check, the PGO and the relocalization hand-off
+        (refused by the estimator if it was reset after the keyframe's
+        frame, its ``epoch``)."""
         g, cfg = self.g, self.cfg
         t0 = time.perf_counter()
         ext = extract_kf_device(cfg, g.cam, img[None], sout.wp_uv, sout.wp_valid,
@@ -966,9 +974,9 @@ class AsyncLoopStager:
         g.accept_loop(kf, cand, info)
         if self.fast_relo and self.est is not None:  # the constraint needs no PGO: send it first
             old = g.keyframes[info["old"]]
-            self.est.set_relo_frame(info["matched_old_norm"], info["inlier_mask"],
-                                    _host(sout.wp_ids[0]), old.P_vio, old.Q_vio)
-            self._relo_sent_kf = info["cur"]
+            if self.est.set_relo_frame(info["matched_old_norm"], info["inlier_mask"],
+                                       _host(sout.wp_ids[0]), old.P_vio, old.Q_vio, epoch=epoch):
+                self._relo_sent_kf = info["cur"]
         g.optimize()
         self.stage_s["pgo"] += time.perf_counter() - t3
 

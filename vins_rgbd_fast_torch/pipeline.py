@@ -256,6 +256,7 @@ class VinsPipeline:
             self.estimator.reset()
             self.estimator.prev_time = None
             if self.pose_graph is not None:
+                self._relo_sent_kf = None  # the reset dropped its constraint
                 self.pose_graph.new_sequence()  # a discontinuity starts a new sequence
 
         t = frame.t
@@ -386,9 +387,11 @@ class VinsPipeline:
         self._frame_idx += 1
         est_.headers = est_.headers[1:] + [t]
         if est_._step % est_.failure_check_interval == 0 and bool(step_out.failure[0]):
-            est_.reset()
+            est_.reset()  # drops a queued relocalization: its ids and world are gone
             est_.prev_time = None
             self._reset_tracker()
+            if self.pose_graph is not None:
+                self._relo_sent_kf = None
             est_._step += 1
             return None
         out = est_._emit(step_out, t)
