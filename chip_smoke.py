@@ -10,7 +10,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
   2. build of the hand-written kernels (``csrc/*.cu``, one nvcc per source,
      sm_90a, started together) and ptxas's registers, static shared memory
      and spills of each kernel (none may spill), K3's warps per point and
-     its dynamic shared memory at WIN = 38;
+     its dynamic shared memory at WIN = 38; the tracer's stage marks
+     (``check_stage_marks``) captured in a graph and replayed;
   3. K1 (FAST + NMS) against its plain PyTorch version: bit-exact on 8
      and on 1 rendered 640×480 frames and uniform-noise images, on 32
      rendered frames (the batched closer's extraction chunk), and on one
@@ -82,13 +83,14 @@ Phases (each prints one line; any failure raises and exits non-zero):
      extracts, K3 twice per frame, K2 never, and a profile of a few more
      frames, the worker busy meanwhile, with no host wait on the frame
      thread inside ``spin_once`` (the worker's own waits are allowed and
-     counted apart); the worker's seconds by stage, beside
-     phase 7's ms per frame; 9b. the same scene and configuration without
+     counted apart), beside phase 7's ms per frame; 9b. the same scene and configuration without
      the pose graph (the relo block in every solve, never active), plain
      and replayed, held bit for bit as in phase 7, and 9c.
      9b and 9 once more in the reverse order, for what the worker costs the
      frame thread; 9d. the loop cell with the pose graph inline
-     (``eager_outputs``), with phase 9's checks but the profile.  Phase 9
+     (``eager_outputs``), with phase 9's checks but the profile; 9e. phase
+     9 again with the port's tracer on, for the worker's seconds by span
+     and the ms per frame that tracing costs.  Phase 9
      counts the relocalizations the worker consumes (the solver's relo pose
      fed back into the graph) and needs one when a loop was accepted in the
      timed frames, and holds its last loop's check, replayed from a captured
@@ -121,7 +123,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      host wait on the frame thread; before it, the same cell plain and
      replayed with the frame thread waiting for the worker after each
      hand-over (a loop's relocalization then reaches the solve at a fixed
-     frame), held bit for bit as in phase 7 and to the same gates;
+     frame), held bit for bit as in phase 7 and to the same gates, the
+     replayed one traced (its graph holds the stage marks; the worker's
+     seconds by span);
      11b. that run's map saved
      (``PoseGraph.save``) and loaded into a fresh VO pipeline that replays
      the last 48 frames from its own origin: at least one loop onto a
@@ -335,6 +339,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -356,6 +361,8 @@ from vins_rgbd_fast_torch.parallel.loop_closer import (BatchedLoopCloser, HostCo
                                                        ThreadedLoopCloser)
 from vins_rgbd_fast_torch.parallel.throughput import make_mesh
 from vins_rgbd_fast_torch.pipeline import VinsPipeline
+from vins_rgbd_fast_torch.utils import timing
+from vins_rgbd_fast_torch.utils.timing import TRACER
 
 # radtan coefficients of the bench rig (reference realsense vio.yaml)
 DISTORTION = dict(k1=0.13387871564774004, k2=-0.2731913133377051,
@@ -813,6 +820,19 @@ def capture_clock(pipe: VinsPipeline) -> list:
     return caps
 
 
+@contextlib.contextmanager
+def traced():
+    """The port's tracer on within (as it was after); yields its snapshot
+    at entry."""
+    was = TRACER.on
+    TRACER.enable()
+    try:
+        yield TRACER.snapshot()
+    finally:
+        if not was:
+            TRACER.disable()
+
+
 def timed_ms(elapsed: float, n: int, caps: list, k0: int) -> float:
     """ms per frame of a timed window of ``n`` frames that took ``elapsed``
     s; ``caps[k0:]``, the capture frames inside it, must be none."""
@@ -973,7 +993,7 @@ def run_latency_path(device, n_frames: int = 112, warmup: int = 16, W: int = 640
                 replay=replay, record=kept,
                 latency_ate_m=ate, bound=bound, frames=n_frames,
                 n_records=len(traj), solver_flag_after_warmup=flag, counts=counts,
-                profile=prof, timer=pipe.timer.summary(), rig_file=rig_file,
+                profile=prof, rig_file=rig_file,
                 camera=type(pipe.cam).__name__,
                 n_dynamic=torch.stack(n_dyn).cpu().tolist() if n_dyn else None)
 
@@ -1032,7 +1052,7 @@ def revisit_scene(rig, n_frames: int, extra: int = 0, seed: int = 207, imu_seed:
 def run_loop_path(device, n_frames: int = 112, warmup: int = 16, W: int = 640, H: int = 480,
                   max_cnt: int = 130, max_kp: int = 192, profile: int = 0, path=None,
                   eager: bool = False, vo: bool = False, lockstep: bool = False,
-                  replay: bool = True, record: bool = False):
+                  replay: bool = True, record: bool = False, trace: bool = False):
     """bench.py run_latency with BENCH_LAT_LOOP=1 on the port: the revisit
     scene rendered on the device first, the fused steady state with no
     read-back per frame, the envelope, and the pose graph on the
@@ -1052,7 +1072,9 @@ def run_loop_path(device, n_frames: int = 112, warmup: int = 16, W: int = 640, H
     warm-up and capture) is timed apart and must fall before the timed
     frames.
     The result keeps the pose graph (``graph``), the scene (``scene``) and,
-    with ``record``, what ``replay_against_plain`` compares (``record``)."""
+    with ``record``, what ``replay_against_plain`` compares (``record``).
+    With ``trace`` the timed frames run with the port's tracer on, and
+    ``worker_s`` holds the worker's seconds by ``loop::`` span."""
     rig, _, _, _ = slice_config(W, H, max_cnt)
     seq = revisit_scene(rig, n_frames, profile)
     ts, imgs, deps = syn.render_sequence(seq, rig, device)
@@ -1093,17 +1115,17 @@ def run_loop_path(device, n_frames: int = 112, warmup: int = 16, W: int = 640, H
         pipe.drain()
         if stager is not None:
             stager.compile_warmup(imgs[0])
-            stager.stage_s = dict.fromkeys(stager.stage_s, 0.0)
         sync()
         kf0, relo0 = len(graph.keyframes), len(consumed)
         loops0 = stager.n_loops if stager is not None else None
         reset_counts()
         k_cap = len(caps)
-        t0 = time.perf_counter()
-        feed(warmup, n_frames)
-        pipe.drain()
-        sync()
-        elapsed = time.perf_counter() - t0
+        with traced() if trace else contextlib.nullcontext() as snap:
+            t0 = time.perf_counter()
+            feed(warmup, n_frames)
+            pipe.drain()
+            sync()
+            elapsed = time.perf_counter() - t0
         counts = read_counts()
         n_timed = n_frames - warmup
         ms = timed_ms(elapsed, n_timed, caps, k_cap)
@@ -1111,7 +1133,8 @@ def run_loop_path(device, n_frames: int = 112, warmup: int = 16, W: int = 640, H
         kf_timed = len(graph.keyframes) - kf0
         relo_timed = len(consumed) - relo0 if stager is not None else None
         loops_timed = stager.n_loops - loops0 if stager is not None else None
-        stages = dict(stager.stage_s) if stager is not None else None
+        stages = ({k: v[0] for k, v in TRACER.delta(snap)["spans"].items()
+                   if k.startswith("loop::")} if trace and stager is not None else None)
         prof = None
         if profile and stager is not None:
             def busy_feed():
@@ -1145,7 +1168,7 @@ def run_loop_path(device, n_frames: int = 112, warmup: int = 16, W: int = 640, H
                 bound=max(0.05 * travelled, 0.08), frames=n_frames, timed=n_timed,
                 kf_timed=kf_timed, solver_flag_after_warmup=flag, counts=counts,
                 loops_timed=loops_timed, relo_consumed=relo_timed, relo_keyframes=consumed,
-                max_round=stager.max_round if stager is not None else None, worker_s=stages, profile=prof, timer=pipe.timer.summary(), vo=vo,
+                max_round=stager.max_round if stager is not None else None, worker_s=stages, profile=prof, vo=vo,
                 lk_levels=pipe.tcfg.pyr_levels_cold if vo else pipe.tcfg.pyr_levels_predicted,
                 solves_6dof=graph.n_solves_6dof, graph=graph,
                 scene=(seq, ts, imgs, deps, cfg, pg_cfg))
@@ -1518,8 +1541,7 @@ def run_rig_path(device, cfg: VinsConfig, rig, seq, n_frames: int = 112, warmup:
                 calib_frame=lane["calib_frame"], calib_err_deg=lane["calib_err_deg"],
                 calibrating=e._ex_calibrating,
                 ric_err_deg=angle_deg(quat_np_R(e.state.x.qic[0]), seq.ric),
-                td=float(e.state.x.td[0]), td_cache=e._td_cache, counts=counts, profile=prof,
-                timer=pipe.timer.summary())
+                td=float(e.state.x.td[0]), td_cache=e._td_cache, counts=counts, profile=prof)
 
 
 def quat_np_R(q: torch.Tensor) -> np.ndarray:
@@ -1992,7 +2014,7 @@ def run_recovery_path(device, n_frames: int = 80, W: int = 640, H: int = 480,
                             * (n_frames - back - 1)),
                 pre_burst=acc_pre, post_reboot=acc_post, frames=n_frames, vo=vo, replay=replay,
                 levels=pipe.tcfg.pyr_levels_cold if vo else pipe.tcfg.pyr_levels_predicted,
-                counts=counts, profile=prof, record=kept, timer=pipe.timer.summary())
+                counts=counts, profile=prof, record=kept)
 
 
 def check_recovery_path(res, on_gpu: bool = True) -> None:
@@ -2305,8 +2327,10 @@ def run_bag_path(device, n_frames: int = 64, warmup: int = 16, W: int = 640, H: 
     ``replay_into_pipeline`` into a ``VinsPipeline`` with phase 12's
     settings (fused, no read-back but the failure check and td refresh
     every 4th frame, the envelope), in three windows: the warm-up, the
-    timed frames (launch counters from the start of the warm-up, ``decode``
-    and ``spin_once`` host time) and ``profile`` frames under the profiler.
+    timed frames (launch counters from the start of the warm-up and
+    ``spin_once`` host time) and ``profile`` frames under the profiler; the
+    timed frames' messages are then decoded again alone, traced, for the
+    ``io::decode`` time (``decode_ms_per_frame``).
     The bag and rig file go to ``workdir/replay`` and are deleted after."""
     from vins_rgbd_fast_torch.io.rosbag import BagReader, replay_into_pipeline
 
@@ -2360,7 +2384,7 @@ def run_bag_path(device, n_frames: int = 64, warmup: int = 16, W: int = 640, H: 
         replay(0, warmup)
         flag = pipe.estimator.solver_flag
         sync()
-        dec0, spin_s[0], tracked0 = pipe.timer.total["decode"], 0.0, pipe._frame_idx
+        spin_s[0], tracked0 = 0.0, pipe._frame_idx
         k_cap = len(caps)
         t0 = time.perf_counter()
         replay(warmup, n_frames)
@@ -2368,7 +2392,13 @@ def run_bag_path(device, n_frames: int = 64, warmup: int = 16, W: int = 640, H: 
         elapsed = time.perf_counter() - t0
         counts, tracked = read_counts(), pipe._frame_idx
         n_timed = tracked - tracked0
-        decode_ms = 1e3 * (pipe.timer.total["decode"] - dec0) / n_timed
+        # the timed frames' messages again, decoded alone with the tracer on
+        sink = types.SimpleNamespace(push_imu=lambda *a: None, push_image=lambda *a: None,
+                                     push_depth=lambda *a: None, spin_once=lambda: None)
+        with traced() as snap:
+            replay_into_pipeline(BagWindow(bag, edge[warmup], edge[n_frames]), sink,
+                                 cfg.image_topic, cfg.depth_topic, cfg.imu_topic)
+        decode_ms = 1e3 * TRACER.delta(snap)["spans"].get("io::decode", [0.0])[0] / n_timed
         spin_ms = timed_ms(spin_s[0], n_timed, caps, k_cap)
         ms = timed_ms(elapsed, n_timed, caps, k_cap)
         prof = None
@@ -2396,8 +2426,7 @@ def run_bag_path(device, n_frames: int = 64, warmup: int = 16, W: int = 640, H: 
         tracked=tracked, timed=n_timed, latency_ms_per_frame=ms, capture_s=caps,
         decode_ms_per_frame=decode_ms, spin_ms_per_frame=spin_ms,
         td=float(e.state.x.td[0]), clahe_changed=not torch.equal(level0, raw),
-        clahe_err=float((level0 - image.clahe(raw)).abs().max()), profile=prof,
-        timer=pipe.timer.summary())
+        clahe_err=float((level0 - image.clahe(raw)).abs().max()), profile=prof)
 
 
 def check_bag_path(res, on_gpu: bool = True) -> None:
@@ -2521,7 +2550,7 @@ def run_tum_path(device, n_frames: int = 64, warmup: int = 16, W: int = 640, H: 
         solver_flag_after_warmup=flag, counts=counts, tracked=tracked, timed=n_timed,
         latency_ms_per_frame=ms, capture_s=caps,
         decode_ms_per_frame=decode_ms,
-        profile=prof, timer=pipe.timer.summary())
+        profile=prof)
 
 
 def check_tum_path(res, on_gpu: bool = True) -> None:
@@ -3555,6 +3584,52 @@ def jsonable(res) -> dict:
     return {k: v for k, v in res.items() if k not in ("graph", "scene", "record")}
 
 
+def check_stage_marks(device, reps: int = 20, cycles=(2, 1, 4, 1, 3)) -> dict:
+    """The tracer's stage-mark kernel (``csrc/stage_mark.cu``) in a captured
+    graph of five stages, each a ``torch.cuda._sleep`` of ``cycles[i]``
+    million cycles, replayed ``reps`` times between two CUDA events: one
+    mark per stage and replay, the five sums within 3 % of the events'
+    time, and each stage's share that of its cycles within 3 points."""
+    was = TRACER.on
+    TRACER.enable()
+    try:
+        def step():
+            with TRACER.marking(device):
+                for name, c in zip(timing.STAGES, cycles):
+                    torch.cuda._sleep(c * 1_000_000)
+                    if name != timing.STAGES[-1]:
+                        TRACER.mark(name)
+
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            step()
+        torch.cuda.current_stream(device).wait_stream(side)
+        graph = native.capture(step, side)
+        torch.cuda.synchronize(device)
+        s0 = TRACER.snapshot()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        for _ in range(reps):
+            graph.replay()
+        e1.record()
+        torch.cuda.synchronize(device)
+        stages = TRACER.delta(s0)["stages"]
+        graph.reset()
+    finally:
+        if not was:
+            TRACER.disable()
+    event_s = 1e-3 * e0.elapsed_time(e1)
+    marked_s = sum(v[0] for v in stages.values())
+    shares = {k: v[0] / marked_s for k, v in stages.items()}
+    res = dict(stages=stages, event_s=event_s, marked_s=marked_s, shares=shares)
+    require(all(v[1] == reps for v in stages.values()), ("one mark per stage and replay", res))
+    require(abs(marked_s / event_s - 1) < 0.03, ("the marks' sum against the events", res))
+    require(all(abs(shares[k] - c / sum(cycles)) < 0.03 for k, c in zip(timing.STAGES, cycles)),
+            ("each stage's share", res))
+    return res
+
+
 def require(ok, what) -> None:
     """A check of this script's results (raises even under ``python -O``)."""
     if not ok:
@@ -3966,6 +4041,9 @@ def main(argv=None) -> int:
             and 4 * (lk.MAX_WIN * 53 + 4 * nw) < 48 * 1024, ("K1, K3 under 48 KB", usage))
     print(f"[2 build] {build_s:.2f} s ({path}); ptxas {usage}; K3 {nw} warps per point, "
           f"{4 * (38 * 53 + 4 * nw)} B dynamic shared memory at WIN = 38", flush=True)
+    marks = check_stage_marks(dev)
+    print(f"[2 stage marks] {marks['marked_s']:.6f} s marked against {marks['event_s']:.6f} s "
+          f"between events; shares {marks['shares']}", flush=True)
 
     B, N, T, EXTRA = 8, 200, 40, 10
     rig, tcfg, ecfg, cam = slice_config()
@@ -4476,8 +4554,7 @@ def main(argv=None) -> int:
           f"consumed by the worker in the timed frames and their drain (keyframes "
           f"{loop['relo_keyframes']}), at most {loop['max_round']} frames handed over at once; "
           f"the replayed loop check against the plain one: {cmp_verify}; "
-          f"worker seconds by stage {loop['worker_s']}; {replay_note(loop)}; profile "
-          f"{loop['profile']}", flush=True)
+          f"{replay_note(loop)}; profile {loop['profile']}", flush=True)
 
     done("9")
 
@@ -4530,6 +4607,18 @@ def main(argv=None) -> int:
 
     done("9d")
 
+    # 9e. phase 9 again with the port's tracer on: the worker's seconds by
+    # span, and what tracing costs the frame thread (against 9 and 9c's 9)
+    loop_traced = run_loop_path(dev, trace=True)
+    check_loop_path(loop_traced)
+    print(f"[9e traced] the loop cell with the tracer on: latency_ms_per_frame "
+          f"{loop_traced['latency_ms_per_frame']:.3f} (untraced, phase 9 and 9c: "
+          f"{loop['latency_ms_per_frame']:.3f}, {loop2['latency_ms_per_frame']:.3f}), "
+          f"latency_loops {loop_traced['latency_loops']}; worker seconds by stage "
+          f"{loop_traced['worker_s']}", flush=True)
+
+    done("9e")
+
     # 10. the batched path with loop closure (its own launch counts)
     # the profile covers 6 frames of a segment: a profiled frame's trace
     # takes seconds to export and read, and the script's time goes to the
@@ -4558,11 +4647,12 @@ def main(argv=None) -> int:
     # graph on the worker (its own launch counts).  First the plain per-op
     # frames and the replayed ones in lock step with the worker (a loop's
     # relocalization then reaches the estimator at a fixed frame), the replay
-    # held to the plain frames bit for bit; then the timed run
+    # (traced: its graph holds the stage marks) held to the plain frames bit
+    # for bit; then the timed run
     vo_lock = {}
     for rp in (False, True):
         vo_lock[rp] = run_loop_path(dev, max_cnt=250, vo=True, lockstep=True, replay=rp,
-                                    record=True)
+                                    record=True, trace=rp)
         check_loop_path(vo_lock[rp])
     cmp11 = replay_against_plain(vo_lock[False].pop("record"), vo_lock[True].pop("record"))
     require(cmp11["bit_equal"], ("phase 11: the replayed frames against the plain ones", cmp11))
@@ -4573,8 +4663,8 @@ def main(argv=None) -> int:
           f"{vo_lock[False]['relo_consumed']} / {vo_lock[True]['relo_consumed']}, loops "
           f"{vo_lock[True]['loops']}, latency_loop_ate_m "
           f"{vo_lock[True]['latency_loop_ate_m']:.4f} against the VO keyframes' "
-          f"{vo_lock[True]['latency_vio_kf_ate_m']:.4f}; replay against plain: {cmp11}",
-          flush=True)
+          f"{vo_lock[True]['latency_vio_kf_ate_m']:.4f}; replay against plain: {cmp11}; worker "
+          f"seconds by stage (replayed, traced) {vo_lock[True]['worker_s']}", flush=True)
     vo = run_loop_path(dev, max_cnt=250, profile=6, vo=True,
                        path=os.path.join(OUT_DIR, "profile_vo.txt"))
     require(vo["profile"] is not None, "phase 11 profiled")
@@ -4589,9 +4679,8 @@ def main(argv=None) -> int:
           f"{vo['latency_kf']}, latency_loops {vo['latency_loops']} {vo['loops']}, 6-DoF solves "
           f"{vo['solves_6dof']}; launches {vo['counts']} ({vo['kf_timed']} keyframes extracted "
           f"in the timed frames); {vo['relo_consumed']} relocalizations consumed in the timed "
-          f"frames and their drain, at most {vo['max_round']} frames handed over at once; worker "
-          f"seconds by stage {vo['worker_s']}; {replay_note(vo)}; profile {vo['profile']}",
-          flush=True)
+          f"frames and their drain, at most {vo['max_round']} frames handed over at once; "
+          f"{replay_note(vo)}; profile {vo['profile']}", flush=True)
 
     done("11")
 

@@ -182,7 +182,7 @@ def test_kept_outputs_are_per_frame_copies(stream):
     (plain, prog), (kp, kr) = pipes, got
     assert len(kr) == len(kp) == FRAMES - 11 and len(slots) == 4
     ptrs = []
-    for (row_p, t_p, s_p, img_p, dep_p, _), (row_r, t_r, s_r, img_r, dep_r, _) in zip(kp, kr):
+    for (row_p, t_p, s_p, img_p, dep_p, *_), (row_r, t_r, s_r, img_r, dep_r, *_) in zip(kp, kr):
         assert t_p == t_r and _same_tree((s_p, img_p, dep_p), (s_r, img_r, dep_r))
         assert np.array_equal(row_p.get()[0], row_r.get()[0])
         ptrs += [a.untyped_storage().data_ptr() for a in tbp.leaves((s_r, img_r, dep_r))]

@@ -414,10 +414,11 @@ def test_loop_pipeline_eager_matches_jax_pose_graph():
 
 
 def test_loop_pipeline_async_on_the_worker():
-    """Phase 9 of ``chip_smoke.py`` on the CPU at 320×240: the pose graph on
-    the stager's worker finds loops, and the corrected keyframes beat the
-    drifted ones."""
-    res = chip_smoke.run_loop_path("cpu", LFRAMES, W=LW, H=LH, max_cnt=LMAX_CNT, max_kp=128)
+    """Phases 9 and 9e of ``chip_smoke.py`` on the CPU at 320×240: the pose
+    graph on the stager's worker finds loops, the corrected keyframes beat
+    the drifted ones, and the traced worker's spans take time."""
+    res = chip_smoke.run_loop_path("cpu", LFRAMES, W=LW, H=LH, max_cnt=LMAX_CNT, max_kp=128,
+                                   trace=True)
     chip_smoke.check_loop_path(res, on_gpu=False)
     assert res["kf_timed"] >= 10 and sum(res["worker_s"].values()) > 0
 

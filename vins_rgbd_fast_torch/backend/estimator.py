@@ -35,6 +35,7 @@ from ..ops import marginalization as marg
 from ..ops import ransac as ransac_ops
 from ..ops import solver as slv
 from ..utils import quaternion as quat
+from ..utils.timing import TRACER
 from . import feature_table as ftab
 from . import initialization as init_ops
 from .feature_table import FeatureTable, FrameFeatures
@@ -325,6 +326,7 @@ def _solve_and_slide(cfg: EstimatorConfig, st: EstimatorState, is_kf, last_track
     table = ftab.update_depths_from_solver(st.table, res.inv_depth, vis.depth_free)
     table = _moving_consistency(cfg, x_new, table)
     failure = _failure_flags(cfg, st, x_new, last_track_num)
+    TRACER.mark("solve")
     st = st._replace(x=x_new, table=table)
 
     vis_post = _visual_data(cfg, st.table)
@@ -334,6 +336,7 @@ def _solve_and_slide(cfg: EstimatorConfig, st: EstimatorState, is_kf, last_track
                              sqrt_infos=sqrt_infos),
         marg.marginalize_new(cfg.solver, st.x, st.prior))
     st = st._replace(prior=prior)
+    TRACER.mark("marg")
 
     wp_world, wp_uv, wp_norm, wp_valid, wp_ids = _window_points(st.x, st.table)
     W = WINDOW_SIZE
@@ -592,6 +595,7 @@ def vio_step(cfg: EstimatorConfig, st: EstimatorState, feats: FrameFeatures,
         if pnp_u is None:
             raise ValueError("vio_step: VO mode needs the PnP uniforms pnp_u")
         st = st._replace(x=_pnp_newest(cfg, st, pnp_u))
+    TRACER.mark("init")
     return _solve_and_slide(cfg, st, is_kf, ltn, relo)
 
 
@@ -757,10 +761,12 @@ class VinsEstimator:
             buf, done = self._td_copy
             self._td_copy = None
             if not done.query():
-                done.synchronize()  # the step before is still running
+                with TRACER.wait("wait::td"):
+                    done.synchronize()  # the step before is still running
             self._td_cache = float(buf[0])
         else:
-            self._td_cache = float(self.state.x.td[0])
+            with TRACER.wait("wait::td"):
+                self._td_cache = float(self.state.x.td[0])
 
     def stage_td_copy(self):
         """At the end of a step on CUDA: when the next step refreshes td,
@@ -864,7 +870,7 @@ class VinsEstimator:
             pnp_u = None if cfg.use_imu else self.draw_pnp_uniforms(self._step)
             self.state, step_out = vio_step(cfg, self.state, feats, imu, relo, pnp_u)
             self.headers = self.headers[1:] + [t]
-            if self._step % self.failure_check_interval == 0 and bool(step_out.failure[0]):
+            if self.failed(step_out):
                 self.reset()
                 self.prev_time = None
                 return None
@@ -1008,10 +1014,23 @@ class VinsEstimator:
             relo, self._pending_relo = self._pending_relo, None
         return relo
 
+    def failed(self, step_out: StepOutput) -> bool:
+        """The failure check of a steady step, every
+        ``failure_check_interval`` steps (a read of the step's flag, which
+        waits for the step); a failure is counted."""
+        if self._step % self.failure_check_interval:
+            return False
+        with TRACER.wait("wait::failure"):
+            fail = bool(step_out.failure[0])
+        if fail:
+            TRACER.count("vins::failure_resets")
+        return fail
+
     def _emit(self, step_out: StepOutput, t: float):
         self._pending.append((t, step_out))
         if self.eager_outputs:
-            return self._materialize(t, step_out)
+            with TRACER.wait("wait::outputs"):
+                return self._materialize(t, step_out)
         return step_out
 
     @staticmethod

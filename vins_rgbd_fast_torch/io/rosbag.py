@@ -19,6 +19,7 @@ from typing import Dict, Iterator, Optional, Tuple
 import numpy as np
 
 from ..runtime import bag_lib
+from ..utils.timing import TRACER
 from .images import PNG_MAGIC, decode_depth as _decode_png16, decode_gray
 from .stream import decode_depth
 
@@ -162,9 +163,8 @@ def replay_into_pipeline(bag: BagReader, pipeline, image_topic: str, depth_topic
     ``sensor_msgs/CompressedImage`` are decoded as PNG (or JPEG, with
     Pillow), and a topic also matches as ``<topic>/compressed`` or
     ``<topic>/compressedDepth``.  The decoding of the image and depth
-    messages is timed as the pipeline timer's stage "decode"."""
+    messages is traced as the span ``io::decode`` (``utils/timing``)."""
     types = bag.topics()
-    timer = pipeline.timer
 
     def _match(topic, want):
         return topic in (want, want + "/compressed", want + "/compressedDepth")
@@ -179,7 +179,7 @@ def replay_into_pipeline(bag: BagReader, pipeline, image_topic: str, depth_topic
             t, acc, gyr = decode_imu(payload)
             pipeline.push_imu(t, acc, gyr)
         elif _match(topic, image_topic):
-            with timer.stage("decode"):
+            with TRACER.span("io::decode"):
                 if compressed:
                     t, _, img = decode_compressed_image(payload)
                     img = img.astype(np.float32)
@@ -188,7 +188,7 @@ def replay_into_pipeline(bag: BagReader, pipeline, image_topic: str, depth_topic
                     img = to_grayscale(img, enc)
             pipeline.push_image(t, img)
         elif _match(topic, depth_topic):
-            with timer.stage("decode"):
+            with TRACER.span("io::decode"):
                 if compressed:
                     t, _, img = decode_compressed_image(payload)
                     dep = decode_depth(img.astype(np.uint16), "16UC1")

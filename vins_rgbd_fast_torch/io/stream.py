@@ -10,7 +10,11 @@ of the JAX package (the machine with the card has no JAX, and
 copy; ``tests/test_torch_pipeline.py`` holds the pairer to JAX's.  The
 pairer pairs RGB and depth by stamp within ±3 ms, applies the frontend
 and publish rate gates and flags stream discontinuities (>1 s gap or
-backwards time) for a tracker + estimator reset.
+backwards time) for a tracker + estimator reset.  It counts (``utils/
+timing``) the pairs it takes in (``pairer::pairs``), those the frontend
+gate skips (``pairer::skipped``) or the publish gate withholds from the
+estimator (``pairer::unpublished``), and the discontinuities
+(``pairer::resets``).
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ import dataclasses
 from typing import Iterable, NamedTuple, Optional, Tuple
 
 import numpy as np
+
+from ..utils.timing import TRACER
 
 
 class ImuMsg(NamedTuple):
@@ -100,12 +106,14 @@ class StreamPairer:
                 return None
             img, dep = pair
             t = img.t
+            TRACER.count("pairer::pairs")
 
             # discontinuity detection (estimator_nodelet.cpp:243-262)
             if self.last_image_time is not None and (
                 t < self.last_image_time or t - self.last_image_time > self.gap_reset
             ):
                 self.reset_flag = True
+                TRACER.count("pairer::resets")
                 self.first_image_time = None
                 self.last_pub_time = None
                 self.pub_count = 0
@@ -120,6 +128,7 @@ class StreamPairer:
             if self.frontend_freq > 0:
                 elapsed = t - self.first_image_time
                 if elapsed > 0 and (self.pub_count + 1) / elapsed > self.frontend_freq * 1.15:
+                    TRACER.count("pairer::skipped")
                     continue  # skip frame entirely
 
             # publish gate (estimator_nodelet.cpp:274-286): PUB_THIS_FRAME at publish_freq
@@ -133,6 +142,8 @@ class StreamPairer:
                     self.pub_count = 0
             if publish:
                 self.pub_count += 1
+            else:
+                TRACER.count("pairer::unpublished")
             return RgbdFrame(t=t, image=img.image, depth=dep.depth, publish=publish)
 
     def consume_reset(self) -> bool:

@@ -50,6 +50,7 @@ from ..ops import ransac as ransac_ops
 from ..ops.solver import cho_solve, cholesky_nan
 from ..utils import quaternion as quat
 from ..utils import quaternion_np as nq
+from ..utils.timing import TRACER
 from . import brief
 
 log = logging.getLogger(__name__)
@@ -272,15 +273,18 @@ class _Replayed:
     its output, which the next call overwrites."""
 
     def __init__(self, fn, inputs):
-        self.slots = [x.clone() for x in inputs]
-        side = torch.cuda.Stream(inputs[0].device)
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            fn(*self.slots)
-        torch.cuda.current_stream().wait_stream(side)
-        out = []
-        self.cap = native.capture(lambda: out.append(fn(*self.slots)), side)
-        self.out = out[0]
+        TRACER.count("program::captures")
+        with TRACER.span("program::capture"):
+            self.slots = [x.clone() for x in inputs]
+            side = torch.cuda.Stream(inputs[0].device)
+            side.wait_stream(torch.cuda.current_stream())
+            with TRACER.span("program::warm"), torch.cuda.stream(side):
+                fn(*self.slots)
+            torch.cuda.current_stream().wait_stream(side)
+            out = []
+            with TRACER.span("program::record"):
+                self.cap = native.capture(lambda: out.append(fn(*self.slots)), side)
+            self.out = out[0]
 
     def __call__(self, inputs) -> torch.Tensor:
         for s, x in zip(self.slots, inputs):

@@ -108,6 +108,8 @@ def lib() -> ctypes.CDLL:
                                           i, i, i, i, i, i, i, f, f, i, p]
             L.lk_iterate_launch.restype = i
             L.lk_iterate_launch.argtypes = [p] * 14 + [i, i, i, i, i, f, i, p]
+            L.stage_mark_launch.restype = i
+            L.stage_mark_launch.argtypes = [p, i, i, p]
             _lib = L
     return _lib
 

@@ -72,6 +72,7 @@ from ..frontend import feature_tracker as ft
 from ..models.camera import CameraModel
 from ..ops import ransac as ransac_ops
 from ..utils import quaternion as quat
+from ..utils.timing import TRACER
 
 
 class FrameBatch(NamedTuple):
@@ -132,6 +133,7 @@ def fused_frame_step(tcfg: TrackerConfig, cam: CameraModel, ecfg: EstimatorConfi
     trk, tout = ft.track_frame(tcfg, cam, trk, img, t, relR, ransac_u)
     feats = tout.features
     feats = feats._replace(depth=ft.lookup_depth(depth, feats.uv, feats.ids >= 0))
+    TRACER.mark("track")
     st, sout = est.vio_step(ecfg, st, feats, imu, relo, pnp_u)
     return trk, st, sout
 
@@ -211,26 +213,34 @@ class _FrameProgram:
 
     def load(self, trk, st, T: int = 0) -> None:
         """Start from the caller's states (a runner call of T frames)."""
+        TRACER.count("program::loads")
         _assign((self.trk, self.st), (trk, st))
         self.T, self.outs = T, None
 
     def step(self) -> None:
-        """The frame on the buffers: what the graph records."""
-        trk, st, sout = fused_frame_step(*self.cfg, self.trk, self.st, *self.args(self.inp))
-        out = self.outputs(sout)
-        if self.out is None:
-            self.out = map_tree(torch.empty_like, out)
-        _assign(self.out, out)  # first: an output may be a view of an old state buffer
-        _assign((self.trk, self.st), (trk, st))
+        """The frame on the buffers: what the graph records (with tracing
+        on, the stage marks too: ``track`` ends after the depth lookup,
+        ``init`` after the ingest and pose init, ``solve`` after the failure
+        flags, ``marg`` after the prior, ``tail`` after the copies)."""
+        with TRACER.marking(self.device):
+            trk, st, sout = fused_frame_step(*self.cfg, self.trk, self.st,
+                                             *self.args(self.inp))
+            out = self.outputs(sout)
+            if self.out is None:
+                self.out = map_tree(torch.empty_like, out)
+            _assign(self.out, out)  # first: an output may be a view of an old state buffer
+            _assign((self.trk, self.st), (trk, st))
 
-    def run(self, inputs) -> None:
-        """One frame: ``inputs`` (the tree ``args`` reads) into the slots,
-        then the step (replayed, or its warm-up and capture, or on the CPU
-        eager); its outputs are left in ``out``."""
+    def put(self, inputs) -> None:
+        """``inputs`` (the tree ``args`` reads) into the slots."""
         if self.inp is None:
             self.inp = map_tree(torch.empty_like, inputs)
         for slot, a in zip(leaves(self.inp), leaves(inputs)):
             slot.copy_(a)
+
+    def replay(self) -> None:
+        """The step on the slots (replayed, or its warm-up and capture, or
+        on the CPU eager); its outputs are left in ``out``."""
         if self.device.type != "cuda":
             self.step()
         elif self.graph is not None:
@@ -239,24 +249,32 @@ class _FrameProgram:
             self._warm_and_capture()
 
     def frame(self, batch: FrameBatch, k: int, ransac_u, pnp_u) -> None:
-        """A runner's frame k of ``batch`` with these draws (``run``), its
-        outputs into the call's (T, B, ...) ``ScanOutputs``."""
-        self.run((FrameBatch(*(a[k] for a in batch)), ransac_u, pnp_u))
-        if self.outs is None:
-            self.outs = map_tree(lambda a: a.new_empty((self.T,) + tuple(a.shape)), self.out)
-        for o, a in zip(leaves(self.outs), leaves(self.out)):
-            o[k].copy_(a)
+        """A runner's frame k of ``batch`` with these draws (``put``, then
+        ``replay``), its outputs into the call's (T, B, ...) ``ScanOutputs``."""
+        with TRACER.span("runner::inputs"):
+            self.put((FrameBatch(*(a[k] for a in batch)), ransac_u, pnp_u))
+        with TRACER.span("runner::replay"):
+            self.replay()
+        with TRACER.span("runner::outputs"):
+            if self.outs is None:
+                self.outs = map_tree(lambda a: a.new_empty((self.T,) + tuple(a.shape)),
+                                     self.out)
+            for o, a in zip(leaves(self.outs), leaves(self.out)):
+                o[k].copy_(a)
 
     def _warm_and_capture(self) -> None:
-        current = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            self.step()
-        for a in leaves(self.out):  # made on the side stream, read on the current one
-            a.record_stream(current)
-        self.graph = native.capture(self.step, side)
-        current.wait_stream(side)
+        TRACER.count("program::captures")
+        with TRACER.span("program::capture"):
+            current = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(current)
+            with TRACER.span("program::warm"), torch.cuda.stream(side):
+                self.step()
+            for a in leaves(self.out):  # made on the side stream, read on the current one
+                a.record_stream(current)
+            with TRACER.span("program::record"):
+                self.graph = native.capture(self.step, side)
+            current.wait_stream(side)
 
     def states(self):
         """(trk, st) copied out of the buffers, so no later frame changes
@@ -421,10 +439,15 @@ class BatchedVioRunner:
         the same program runs eagerly); returns (trk, st, ScanOutputs
         (T, B, ...)), states of the caller's own."""
         self._one_device("run")
-        prog = self._program(trk, st, batch)
-        for k in range(batch.ts.shape[0]):
-            prog.frame(batch, k, self.ransac_uniforms(), self.pnp_uniforms())
-        return prog.result()
+        with TRACER.frame("runner::run"):
+            with TRACER.span("runner::inputs"):
+                prog = self._program(trk, st, batch)
+            for k in range(batch.ts.shape[0]):
+                with TRACER.span("runner::draws"):
+                    u, pnp_u = self.ransac_uniforms(), self.pnp_uniforms()
+                prog.frame(batch, k, u, pnp_u)
+            with TRACER.span("runner::states"):
+                return prog.result()
 
     def run_chained(self, trk, st, batch: FrameBatch):
         """JAX's host-dispatched twin of its scanned ``run`` (one compiled
@@ -495,12 +518,19 @@ class BatchedVioRunner:
                                  ("batch", batch, 1)):
             self.shard_spec(axis).check(tree, f"run_sharded: the {name}")
         shards = self._shards
-        progs = on_shards(self.mesh, lambda i: shards[i]._program(
-            trk.parts[i], st.parts[i], batch.parts[i]))
-        for k in range(batch.parts[0].ts.shape[0]):
-            on_shards(self.mesh, lambda i: progs[i].frame(
-                batch.parts[i], k, shards[i].ransac_uniforms(), shards[i].pnp_uniforms()))
-        res = [p.result() for p in progs]
+
+        def draws(i):
+            with TRACER.span("runner::draws"):
+                return shards[i].ransac_uniforms(), shards[i].pnp_uniforms()
+
+        with TRACER.frame("runner::run"):
+            with TRACER.span("runner::inputs"):
+                progs = on_shards(self.mesh, lambda i: shards[i]._program(
+                    trk.parts[i], st.parts[i], batch.parts[i]))
+            for k in range(batch.parts[0].ts.shape[0]):
+                on_shards(self.mesh, lambda i: progs[i].frame(batch.parts[i], k, *draws(i)))
+            with TRACER.span("runner::states"):
+                res = [p.result() for p in progs]
         return (Sharded(self.mesh, [r[0] for r in res], 0),
                 Sharded(self.mesh, [r[1] for r in res], 0),
                 Sharded(self.mesh, [r[2] for r in res], 1))

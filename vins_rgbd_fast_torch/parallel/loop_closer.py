@@ -63,9 +63,8 @@ from ..loop.pose_graph import (KeyframeGate, PoseGraph, PoseGraphConfig, _host, 
                                relo_keyframe_pose, relo_relative_pose, verify_loops_batch,
                                verify_loops_device)
 from ..models.camera import CameraModel
+from ..utils.timing import TRACER
 from .batched_pipeline import FrameBatch, ScanOutputs
-
-STAGES = ("gating", "extract", "query", "verify", "pgo")
 
 
 def _pad_pow2(n: int, lo: int = 4) -> int:
@@ -844,7 +843,15 @@ class AsyncLoopStager:
     """Pose graph for the latency pipeline with no host wait on the frame
     thread: frames go to the worker whenever it is idle, so a keyframe
     reaches the graph once the worker has finished the round it was busy
-    with when the keyframe was made."""
+    with when the keyframe was made.
+
+    Traced (``utils/timing``): the worker's spans ``loop::gating_wait``,
+    ``loop::extract``, ``loop::query``, ``loop::verify`` and ``loop::pgo``
+    carry the frame id of the frame they serve; counters ``loop::rounds``,
+    ``loop::frames`` (handed over), ``loop::keyframes``, ``loop::loops``,
+    summed over the process's stagers.  This stager's own keyframes and
+    loops are ``n_keyframes`` and ``n_loops``; ``max_round`` is the most
+    frames one round handed over."""
 
     def __init__(self, pose_graph: PoseGraph, estimator=None, skip_cnt: int = 0,
                  skip_dis: float = 0.0, fast_relocalization: bool = False):
@@ -858,21 +865,23 @@ class AsyncLoopStager:
         self._epoch = None  # the estimator's epoch of the worker's last frame
         self.n_keyframes = 0
         self.n_loops = 0
-        self.stage_s = dict.fromkeys(STAGES, 0.0)  # the worker's wall seconds by stage
         self.max_round = 0  # the most frames handed over at once
-        self._buf: list = []  # (gating row on its way to the host, t, StepOutput, img, depth)
+        # (gating row on its way to the host, t, StepOutput, img, depth, epoch, frame id)
+        self._buf: list = []
         self._prev: Optional[tuple] = None  # (t, gating row) of the worker's last frame
         self._worker = _Worker(self.device, "loop-stager")
 
     # -- frame thread ----------------------------------------------------
-    def on_frame(self, sout, img: torch.Tensor, t: float, depth: Optional[torch.Tensor] = None):
+    def on_frame(self, sout, img: torch.Tensor, t: float, depth: Optional[torch.Tensor] = None,
+                 frame: Optional[int] = None):
         """Record a steady frame: ``sout`` its (B = 1) ``StepOutput``,
-        ``img``/``depth`` (H, W) device images.  Launches only; hands the
-        frames held so far over when the worker is idle."""
+        ``img``/``depth`` (H, W) device images, ``frame`` its tracer frame
+        id.  Launches only; hands the frames held so far over when the
+        worker is idle."""
         # the copy and its event go on the frame thread's stream, after this frame
         epoch = self.est.epoch if self.est is not None else 0
         self._buf.append((HostCopy([pack_latency_gating(sout)]), float(t), sout, img, depth,
-                          epoch))
+                          epoch, frame))
         if self._worker.idle():
             self._flush_buf()
 
@@ -881,6 +890,8 @@ class AsyncLoopStager:
             return
         toks, self._buf = self._buf, []
         self.max_round = max(self.max_round, len(toks))
+        TRACER.count("loop::rounds")
+        TRACER.count("loop::frames", len(toks))
         self._worker.put(functools.partial(self._process, toks))
 
     @property
@@ -912,10 +923,9 @@ class AsyncLoopStager:
 
     # -- worker thread ---------------------------------------------------
     def _process(self, toks):
-        for hc, t, sout, img, depth, epoch in toks:
-            t0 = time.perf_counter()
-            row = hc.get()[0].astype(np.float64)  # waits for this frame alone
-            self.stage_s["gating"] += time.perf_counter() - t0
+        for hc, t, sout, img, depth, epoch, frame in toks:
+            with TRACER.span("loop::gating_wait", frame):
+                row = hc.get()[0].astype(np.float64)  # waits for this frame alone
             if epoch != self._epoch:  # the estimator was reset: its constraint was dropped
                 self._epoch, self._relo_sent_kf = epoch, None
             if row[8] > 0.5 and self._relo_sent_kf is not None:
@@ -925,60 +935,59 @@ class AsyncLoopStager:
                 continue
             self._worker.adopt(hc._event, img, depth, sout.wp_uv, sout.wp_valid, sout.wp_world,
                                sout.wp_norm, sout.wp_ids)
-            self._handle_keyframe(t, row[1:4], row[4:8], sout, img, depth, epoch)
+            self._handle_keyframe(t, row[1:4], row[4:8], sout, img, depth, epoch, frame)
 
-    def _handle_keyframe(self, t, P, Q, sout, img, depth, epoch):
+    def _handle_keyframe(self, t, P, Q, sout, img, depth, epoch, frame):
         """Extraction, retrieval, insertion and the DB append; on a
         candidate the loop check, the PGO and the relocalization hand-off
         (refused by the estimator if it was reset after the keyframe's
-        frame, its ``epoch``)."""
+        frame, its ``epoch``).  ``frame``: the keyframe's tracer frame id."""
         g, cfg = self.g, self.cfg
-        t0 = time.perf_counter()
-        ext = extract_kf_device(cfg, g.cam, img[None], sout.wp_uv, sout.wp_valid,
-                                None if depth is None else depth[None])
-        f32 = torch.float32
-        mk, mw = cfg.max_kp, sout.wp_valid.shape[1]
-        flat = _host(torch.cat([ext[0][0].reshape(-1), ext[1][0].reshape(-1),
-                                ext[2][0].to(f32), sout.wp_world[0].reshape(-1),
-                                sout.wp_norm[0].reshape(-1), sout.wp_valid[0].to(f32)]))
-        o = np.cumsum([0, 2 * mk, 3 * mk, mk, 3 * mw, 2 * mw, mw])
-        kp_uv, kp_norm = flat[o[0]:o[1]].reshape(mk, 2), flat[o[1]:o[2]].reshape(mk, 3)
-        kp_valid = flat[o[2]:o[3]] > 0.5
-        wp_world = flat[o[3]:o[4]].reshape(mw, 3).astype(np.float64)
-        wp_norm, wp_valid = flat[o[4]:o[5]].reshape(mw, 2), flat[o[5]:o[6]] > 0.5
-        t1 = time.perf_counter()
-        scores = None
-        if g._dev_db is not None and g._db_size > 0:
-            scores = _host(db_query_multi(g._dev_db, g._dev_valid, ext[3], ext[2],
-                                          float(cfg.score_dist)))[0]
-        kf, cand = g.insert_keyframe(t, P, Q, wp_world, wp_norm, wp_valid, kp_uv, kp_norm,
-                                     kp_valid, ext[3][0], ext[4][0],
-                                     detect_loop=scores is not None, scores=scores)
-        self.n_keyframes += 1
-        # appended after this keyframe's own query: the next keyframe's query
-        # sees it (the recency exclusion makes that the serial order)
-        d_c, v_c, n_c = combine_db_rows(ext[3], ext[2], ext[1], ext[4], sout.wp_valid,
-                                        sout.wp_norm)
-        g._db_append_block(d_c, v_c, count=1, norms=n_c, kf_indices=[kf.index])
-        t2 = time.perf_counter()
-        self.stage_s["extract"] += t1 - t0
-        self.stage_s["query"] += t2 - t1
+        with TRACER.span("loop::extract", frame):
+            ext = extract_kf_device(cfg, g.cam, img[None], sout.wp_uv, sout.wp_valid,
+                                    None if depth is None else depth[None])
+            f32 = torch.float32
+            mk, mw = cfg.max_kp, sout.wp_valid.shape[1]
+            flat = _host(torch.cat([ext[0][0].reshape(-1), ext[1][0].reshape(-1),
+                                    ext[2][0].to(f32), sout.wp_world[0].reshape(-1),
+                                    sout.wp_norm[0].reshape(-1), sout.wp_valid[0].to(f32)]))
+            o = np.cumsum([0, 2 * mk, 3 * mk, mk, 3 * mw, 2 * mw, mw])
+            kp_uv, kp_norm = flat[o[0]:o[1]].reshape(mk, 2), flat[o[1]:o[2]].reshape(mk, 3)
+            kp_valid = flat[o[2]:o[3]] > 0.5
+            wp_world = flat[o[3]:o[4]].reshape(mw, 3).astype(np.float64)
+            wp_norm, wp_valid = flat[o[4]:o[5]].reshape(mw, 2), flat[o[5]:o[6]] > 0.5
+        with TRACER.span("loop::query", frame):
+            scores = None
+            if g._dev_db is not None and g._db_size > 0:
+                scores = _host(db_query_multi(g._dev_db, g._dev_valid, ext[3], ext[2],
+                                              float(cfg.score_dist)))[0]
+            kf, cand = g.insert_keyframe(t, P, Q, wp_world, wp_norm, wp_valid, kp_uv, kp_norm,
+                                         kp_valid, ext[3][0], ext[4][0],
+                                         detect_loop=scores is not None, scores=scores)
+            self.n_keyframes += 1
+            TRACER.count("loop::keyframes")
+            # appended after this keyframe's own query: the next keyframe's query
+            # sees it (the recency exclusion makes that the serial order)
+            d_c, v_c, n_c = combine_db_rows(ext[3], ext[2], ext[1], ext[4], sout.wp_valid,
+                                            sout.wp_norm)
+            g._db_append_block(d_c, v_c, count=1, norms=n_c, kf_indices=[kf.index])
         if cand is None:
             return
-        info = g._find_connection(kf, g.keyframes[cand])
-        t3 = time.perf_counter()
-        self.stage_s["verify"] += t3 - t2
+        with TRACER.span("loop::verify", frame):
+            info = g._find_connection(kf, g.keyframes[cand])
         if info is None:
             return
         self.n_loops += 1
-        g.accept_loop(kf, cand, info)
-        if self.fast_relo and self.est is not None:  # the constraint needs no PGO: send it first
-            old = g.keyframes[info["old"]]
-            if self.est.set_relo_frame(info["matched_old_norm"], info["inlier_mask"],
-                                       _host(sout.wp_ids[0]), old.P_vio, old.Q_vio, epoch=epoch):
-                self._relo_sent_kf = info["cur"]
-        g.optimize()
-        self.stage_s["pgo"] += time.perf_counter() - t3
+        TRACER.count("loop::loops")
+        with TRACER.span("loop::pgo", frame):
+            g.accept_loop(kf, cand, info)
+            if self.fast_relo and self.est is not None:  # the constraint needs no PGO: send it first
+                old = g.keyframes[info["old"]]
+                if self.est.set_relo_frame(info["matched_old_norm"], info["inlier_mask"],
+                                           _host(sout.wp_ids[0]), old.P_vio, old.Q_vio,
+                                           epoch=epoch):
+                    self._relo_sent_kf = info["cur"]
+            g.optimize()
 
     def _consume_relo(self, p: np.ndarray, prev: Optional[tuple]):
         """The estimator's optimized relo pose -> the loop's refined

@@ -81,7 +81,7 @@ from .loop.pose_graph import KeyframeGate, PoseGraph, PoseGraphConfig, relo_rela
 from .ops import solver as slv
 from .parallel.batched_pipeline import _FrameProgram, _layout, fused_frame_step, map_tree
 from .parallel.loop_closer import AsyncLoopStager
-from .utils.timing import StageTimer
+from .utils.timing import TRACER
 
 _RING = 4  # pinned upload buffers in flight
 
@@ -154,7 +154,6 @@ class VinsPipeline:
         self.tracker_state = ft.init_state(self.tcfg, 1, self.device, dtype)
         self.pairer = io_stream.StreamPairer(frontend_freq=vcfg.frontend_freq,
                                              publish_freq=vcfg.freq)
-        self.timer = StageTimer()
         self._frame_idx = 0
         self._fused_step = 0
         self._held_frame = None  # paired frame waiting on IMU coverage
@@ -244,65 +243,75 @@ class VinsPipeline:
 
     # ------------------------------------------------------------------
     def spin_once(self):
-        """Process at most one paired frame; returns odometry or None."""
-        frame = self._held_frame
-        self._held_frame = None
-        if frame is None:
-            frame = self.pairer.next_frame()
-        if frame is None:
-            return None
-        if self.pairer.consume_reset():
-            self._reset_tracker()
-            self.estimator.reset()
-            self.estimator.prev_time = None
-            if self.pose_graph is not None:
-                self._relo_sent_kf = None  # the reset dropped its constraint
-                self.pose_graph.new_sequence()  # a discontinuity starts a new sequence
+        """Process at most one paired frame; returns odometry or None.
+        Traced as the root span ``vins::frame`` (``utils/timing``)."""
+        with TRACER.frame("vins::frame"):
+            return self._spin()
 
-        t = frame.t
-        # the backend needs IMU coverage up to t + td: hold the frame (it is
-        # already popped from the pairer) and retry on the next spin
-        if self.vcfg.imu and not self.estimator.imu_available(t + self.vcfg.td):
-            self._held_frame = frame
-            return None
+    def _spin(self):
+        with TRACER.span("vins::pair"):
+            frame = self._held_frame
+            self._held_frame = None
+            if frame is None:
+                frame = self.pairer.next_frame()
+            if frame is None:
+                return None
+            if self.pairer.consume_reset():
+                self._reset_tracker()
+                self.estimator.reset()
+                self.estimator.prev_time = None
+                if self.pose_graph is not None:
+                    self._relo_sent_kf = None  # the reset dropped its constraint
+                    self.pose_graph.new_sequence()  # a discontinuity starts a new sequence
+
+            t = frame.t
+            # the backend needs IMU coverage up to t + td: hold the frame (it is
+            # already popped from the pairer) and retry on the next spin
+            if self.vcfg.imu and not self.estimator.imu_available(t + self.vcfg.td):
+                TRACER.count("vins::held")
+                self._held_frame = frame
+                return None
         t_last = self._last_frame_time
         self._last_frame_time = t
 
         if (self._fused_enabled and frame.publish
                 and self.estimator.solver_flag == est.VinsEstimator.NON_LINEAR):
-            img = self._frame_on_device(frame.image, "image")
-            depth = self._frame_on_device(frame.depth, "depth")
+            TRACER.count("vins::fused")
+            with TRACER.span("vins::upload"):
+                img = self._frame_on_device(frame.image, "image")
+                depth = self._frame_on_device(frame.depth, "depth")
             out = self._spin_fused(img, depth, t)  # gyro prediction on the device
             if self.pose_graph is not None and out is not None:
                 if isinstance(out, dict):
-                    self._consume_relo_result(out)
-                    self._maybe_add_keyframe(out, img[0], depth[0], t)
+                    with TRACER.span("vins::keyframe"):
+                        self._consume_relo_result(out)
+                        self._maybe_add_keyframe(out, img[0], depth[0], t)
                 elif self._loop_stager is not None:
-                    self._loop_stager.on_frame(out, img[0], t, depth=depth[0])
+                    with TRACER.span("vins::loop_handoff"):
+                        self._loop_stager.on_frame(out, img[0], t, depth=depth[0],
+                                                   frame=TRACER.current_frame())
             return out
 
-        rel_R = (self._predict_relative_R(t_last if t_last else t - 1e-3, t) if self.vcfg.imu
-                 else np.eye(3))
-        with self.timer.stage("frontend"):
+        with TRACER.span("vins::tracker_only"):
+            rel_R = (self._predict_relative_R(t_last if t_last else t - 1e-3, t)
+                     if self.vcfg.imu else np.eye(3))
             img = self._frame_on_device(frame.image, "image")
             self.tracker_state, tout = ft.track_frame(
                 self.tcfg, self.cam, self.tracker_state, img,
                 self._on_device(t), self._on_device(rel_R),
                 self._uniforms(False, self._frame_idx))
-        self._frame_idx += 1
-        if not frame.publish:
-            return None
-
-        with self.timer.stage("depth_lookup"):
+            self._frame_idx += 1
+            if not frame.publish:
+                return None
+            TRACER.count("vins::unfused")
             depth = self._frame_on_device(frame.depth, "depth")
             feats = tout.features
             feats = feats._replace(depth=ft.lookup_depth(depth, feats.uv, feats.ids >= 0))
-
-        with self.timer.stage("backend"):
             out = self.estimator.process_features(feats, t)
         if self.pose_graph is not None and isinstance(out, dict):
-            self._consume_relo_result(out)
-            self._maybe_add_keyframe(out, img[0], depth[0], t)
+            with TRACER.span("vins::keyframe"):
+                self._consume_relo_result(out)
+                self._maybe_add_keyframe(out, img[0], depth[0], t)
         return out
 
     # ------------------------------------------------------------------
@@ -319,7 +328,8 @@ class VinsPipeline:
         buf, done = bufs[pos]
         self._rings[ring] = (bufs, (pos + 1) % _RING)
         if not done.query():
-            done.synchronize()
+            with TRACER.wait("wait::ring"):
+                done.synchronize()
         buf.numpy()[:] = arr
         dev = buf.to(self.device, non_blocking=True)
         done.record()
@@ -357,36 +367,42 @@ class VinsPipeline:
         ``VinsEstimator.process_features`` (NON_LINEAR arm)."""
         est_ = self.estimator
         maxi = est_.cfg.max_imu
-        est_.refresh_td_cache()
-        cur_time = t + est_._td_cache
-        if est_.cfg.use_imu:
-            dts, acc, gyr = est_._collect_interval_np(
-                est_.prev_time if est_.prev_time is not None else cur_time - 1e-3, cur_time)
-        else:  # VO: an empty interval
-            dts, acc, gyr = np.zeros(maxi), np.zeros((maxi + 1, 3)), np.zeros((maxi + 1, 3))
-        est_.prev_time = cur_time
-        parts = [[t], dts, acc.ravel(), gyr.ravel()]
-        if est_.cfg.fast_relo:
-            parts.append(self._pack_relo(est_.take_relo(), est_.cfg.maxf))
-        dev = self._pinned_upload(np.concatenate(parts).astype(np.float32), "packed")
-        u = self._uniforms(True, self._fused_step)
-        pnp_u = None if est_.cfg.use_imu else self._vo_uniforms(self._fused_step)
+        with TRACER.span("vins::interval"):
+            est_.refresh_td_cache()
+            cur_time = t + est_._td_cache
+            if est_.cfg.use_imu:
+                dts, acc, gyr = est_._collect_interval_np(
+                    est_.prev_time if est_.prev_time is not None else cur_time - 1e-3, cur_time)
+            else:  # VO: an empty interval
+                dts, acc, gyr = np.zeros(maxi), np.zeros((maxi + 1, 3)), np.zeros((maxi + 1, 3))
+            est_.prev_time = cur_time
+        with TRACER.span("vins::upload"):
+            parts = [[t], dts, acc.ravel(), gyr.ravel()]
+            if est_.cfg.fast_relo:
+                parts.append(self._pack_relo(est_.take_relo(), est_.cfg.maxf))
+            dev = self._pinned_upload(np.concatenate(parts).astype(np.float32), "packed")
+        with TRACER.span("vins::draws"):
+            u = self._uniforms(True, self._fused_step)
+            pnp_u = None if est_.cfg.use_imu else self._vo_uniforms(self._fused_step)
         self._fused_step += 1
-        with self.timer.stage("fused"):
-            if self.replay:
+        if self.replay:
+            with TRACER.span("vins::replay"):
                 inputs = (img, depth, dev, u, pnp_u)
                 prog = self._program(inputs)
-                prog.run(inputs)
+                prog.put(inputs)
+                prog.replay()
+            with TRACER.span("vins::handout"):
                 step_out = map_tree(torch.clone, prog.out)
                 self.tracker_state, est_.state = prog.handed = prog.states()
-            else:
+        else:
+            with TRACER.span("vins::replay"):
                 t_dev, imu, relo = _unpack_packed(est_.cfg, dev)
                 self.tracker_state, est_.state, step_out = fused_frame_step(
                     self.tcfg, self.cam, est_.cfg, self.tracker_state, est_.state,
                     img, depth, t_dev, imu, u, relo, pnp_u)
         self._frame_idx += 1
         est_.headers = est_.headers[1:] + [t]
-        if est_._step % est_.failure_check_interval == 0 and bool(step_out.failure[0]):
+        if est_.failed(step_out):
             est_.reset()  # drops a queued relocalization: its ids and world are gone
             est_.prev_time = None
             self._reset_tracker()
@@ -394,9 +410,10 @@ class VinsPipeline:
                 self._relo_sent_kf = None
             est_._step += 1
             return None
-        out = est_._emit(step_out, t)
-        est_._step += 1
-        est_.stage_td_copy()
+        with TRACER.span("vins::emit"):
+            out = est_._emit(step_out, t)
+            est_._step += 1
+            est_.stage_td_copy()
         return out
 
     def _program(self, inputs) -> _FrameProgram:
@@ -441,10 +458,9 @@ class VinsPipeline:
         P = np.asarray(out["P"])
         if not self._kf_gate.admit(bool(out.get("is_keyframe")), P):
             return
-        with self.timer.stage("pose_graph"):
-            info = self.pose_graph.add_keyframe(img, t, P, np.asarray(out["Q"]), out["wp_world"],
-                                                out["wp_uv"], out["wp_norm"], out["wp_valid"],
-                                                depth=depth)
+        info = self.pose_graph.add_keyframe(img, t, P, np.asarray(out["Q"]), out["wp_world"],
+                                            out["wp_uv"], out["wp_norm"], out["wp_valid"],
+                                            depth=depth)
         if info is not None and self.vcfg.fast_relocalization:
             old = self.pose_graph.keyframes[info["old"]]
             self.estimator.set_relo_frame(info["matched_old_norm"], info["inlier_mask"],

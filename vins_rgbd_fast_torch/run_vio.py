@@ -19,7 +19,9 @@ versions on the CPU instead, for a rehearsal.  Outputs:
 ``vins_result_no_loop.csv`` (the reference's format), the TUM-format
 ``stamped_traj_estimate.txt`` and, with loop closure, ``vins_result_loop.csv``.
 The ATE against the ground truth (the TUM directory's or the rendered one)
-and the stage timer's report go to standard error.
+and the tracer's report (its counters; with ``--trace PATH`` its spans'
+mean times too, every record written to PATH as JSON by
+``utils.timing.Tracer.export``) go to standard error.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch
 from .config import VinsConfig, load_config
 from .io import stream as io_stream
 from .pipeline import VinsPipeline
+from .utils.timing import TRACER
 
 
 def main(argv=None) -> int:
@@ -47,7 +50,11 @@ def main(argv=None) -> int:
     ap.add_argument("--max-frames", type=int, default=10 ** 9)
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu for a rehearsal on the CPU)")
+    ap.add_argument("--trace", metavar="PATH",
+                    help="trace the run and write the tracer's records to PATH (JSON)")
     args = ap.parse_args(argv)
+    if args.trace:
+        TRACER.enable()
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         ap.error("CUDA is not available: the pipeline runs on the GPU "
@@ -118,7 +125,9 @@ def main(argv=None) -> int:
         ate = io_stream.ate_rmse([r["t"] for r in traj], [np.asarray(r["P"]) for r in traj],
                                  gt[0], gt[1])
         print(f"ATE RMSE vs ground truth: {ate:.4f} m", file=sys.stderr)
-    print(pipe.timer.report(), file=sys.stderr)
+    print(TRACER.report(), file=sys.stderr)
+    if args.trace:
+        TRACER.export(args.trace)
     return 0
 
 
