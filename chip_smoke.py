@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``vins_rgbd_fast_torch``) on the GPU.
 
-    python3 chip_smoke.py [--phases 21|22|23]
+    python3 chip_smoke.py [--phases 21|22|23|24]
 
 One card is enough; phase 21 shards over every card present.
 
@@ -305,12 +305,21 @@ Phases (each prints one line; any failure raises and exits non-zero):
      5e-5 m of the threaded closer's; each segment's ``ScanOutputs`` of the
      pipelined run its own memory and unchanged by the later segments;
      drain-inclusive seq-frames/s, the drain tail and, pipelined, the
-     closer's host reads on the frame thread that waited for the device.
+     closer's host reads on the frame thread that waited for the device;
+ 24. K4 (the solve's projection assembly): the fleet's batched VO (B = 32,
+     376 slots) replayed bit-equal to ``run_eager``, the VO loop robot's
+     replayed frames bit-equal to its plain ones, the RealSense robot (td,
+     rolling shutter); then K4 against its plain version (in float64, no
+     worse than 4x the plain float32 version's own error), two launches
+     bit-equal and Hpp mirrored, at every (B, M, NXP) whose inputs were
+     tapped from phase 5 on (``ProjSchurTap``), covering its tiles of 8,
+     16 and 32 features, each timed beside its bound.
 Phases 5, 7, 9, 10, 11, 12, 13, 14, 14b, 15, 15b, 16, 16c (once per
 camera), 16d, 16e (once per camera), 16f, 17, 20, 20b, 21 (each
 sharded run of 21b), 22 and 22b (each run), 22c and 23 (each mode) each
-zero the kernels' launch counters just before their path and read them
-just after; the ``kernels`` line sums them.
+zero the kernels' launch counters (K4's among them) just before their
+path and read them just after; the ``kernels`` line sums them.  The
+batched paths want K4 max_iters + 2 times per replayed frame.
 Every latency-pipeline phase replays its steady frames; its first steady
 frame (eager warm-up and capture) is timed apart, and a capture inside
 the timed frames fails the phase.  A
@@ -319,7 +328,9 @@ line before the card's lists each phase's wall seconds.
 call on several cards); its ``kernels`` line holds card 0's timings and
 phase 21's launches.  ``--phases 22`` runs phases 1-2, the three kernels
 against their plain versions and timed on card 0 (22a), then 22-22c;
-``--phases 23`` the same with phase 23 (23a, 23).
+``--phases 23`` the same with phase 23 (23a, 23).  ``--phases 24`` runs
+phases 1-2, the main path's batched VIO and VO at B = 8 (8 steady frames
+each, tapped), then 24.
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA it exits
 non-zero before printing any result.
 """
@@ -356,6 +367,7 @@ from vins_rgbd_fast_torch.loop.pose_graph import (KeyframeGate, PoseGraphConfig,
                                                   extract_kf_device)
 from vins_rgbd_fast_torch.models.camera import PinholeCamera
 from vins_rgbd_fast_torch.ops import fast, image, lk
+from vins_rgbd_fast_torch.ops import solver as slv
 from vins_rgbd_fast_torch.parallel import batched_pipeline as bp
 from vins_rgbd_fast_torch.parallel.loop_closer import (BatchedLoopCloser, HostCopy,
                                                        ThreadedLoopCloser)
@@ -375,6 +387,11 @@ TD_TRUE = 0.005  # phase 12's IMU clock runs 5 ms ahead of the image stamps
 HOST_SYNC_CALLS = ("cudaStreamSynchronize", "cudaEventSynchronize", "cudaDeviceSynchronize",
                    "cudaMemcpy")
 KERNELS = ("fast_nms", "lk_level", "lk_iterate")  # launch counters, and <name>_kernel on the card
+# the launch counters every path reads: K1-K3's and K4's (``solver.launches``,
+# the solve's projection assembly); K4's two kernels (the assembly and the
+# finishing sum) are reported by ptxas beside K1-K3's
+COUNTED = KERNELS + ("proj_schur",)
+PTXAS_NAMES = COUNTED + ("proj_schur_finish",)
 # bench.py's BENCH_DEGRADE=harsh preset (phase 17)
 HARSH = syn.SensorDegradation(depth_sigma=0.006, hole_p=0.10, edge_hole=True, exposure_amp=0.3,
                               read_noise=3.0, rs_shear_px=2.0, dyn_radius=0.5)
@@ -393,6 +410,17 @@ FAST_OPS_PER_PAIR = 80
 # one bilinear sample of a GN pass and its two products: 4 taps, 3 blends
 # (2 flop each), the residual and the two multiply-adds
 LK_FLOP_PER_SAMPLE = 16
+# K4 per live projection factor (csrc/proj_schur.cuh): the residual and
+# the 2 x 20 Jacobian (~815 flop: four rotations, three rotation matrices,
+# their products, the 3 x 20 J3 and its 2 x 3 reduction, the Cauchy
+# weight), the feature's common Gram (120 entries, two rows, a multiply-add
+# each: 480) and the frame's items (111 entries: 444), rounded up
+PROJ_FLOP_PER_FACTOR = 1750
+# K4 against the plain version in float64 (``compare_k4``, ``k4_within``):
+# each output's largest error over its entry's scale at most this many
+# times the plain float32 version's own, or under the floor
+PROJ_SCHUR_RATIO = 4.0
+PROJ_SCHUR_FLOOR = 1e-6
 
 
 def _bound(nbytes: float, ops: float) -> dict:
@@ -441,6 +469,127 @@ def kernel_bounds(B: int, H: int, W: int, N: int, iters: int, win: int = 21,
             "lk_iterate": _bound(k3_bytes, gn_ops)}
 
 
+def proj_schur_bound(B: int, M: int, nxp: int, live: int) -> dict:
+    """The least time one K4 launch can take: the window (P, Q, tic, qic,
+    td: 85 floats a sequence), the grid (284 bytes a feature: start,
+    inverse depth and valid, and 11 frames of pts, vel, td_obs, row_scaled
+    and obs) and the system it adds to (Hpp, Hpl, dl, gp, gl) read once,
+    the system and Σ r² written once; ``PROJ_FLOP_PER_FACTOR`` for each of
+    the ``live`` factors (valid, seen at start and at j, j != start)."""
+    system = 4 * (nxp * nxp + nxp * M + 2 * M + nxp)
+    return _bound(B * (4 * 85 + 284 * M + 2 * system + 4), PROJ_FLOP_PER_FACTOR * live)
+
+
+def live_factors(vis) -> int:
+    """The projection factors of a grid that K4 folds in (``_proj_grid``'s
+    mask)."""
+    s = vis.start.to(torch.int64)
+    at_start = torch.gather(vis.obs_mask, 2, s[..., None])
+    j = torch.arange(vis.obs_mask.shape[-1], device=s.device)
+    return int((vis.valid[..., None] & at_start & vis.obs_mask & (j != s[..., None])).sum())
+
+
+class ProjSchurTap:
+    """Within: copies of the inputs of ``solver.proj_schur``'s calls on the
+    card outside a graph capture, taken on the caller's stream with no
+    synchronisation: for each (B, M, NXP), its 1st, 2nd, 4th, 8th, ... call
+    (the last ``KEEP`` of those).  ``shapes`` gives each (B, M, NXP)'s kept
+    call with the most live factors (a solve's rather than a
+    marginalization's)."""
+
+    KEEP = 4
+
+    def __init__(self):
+        self.calls, self.kept = {}, {}
+        self.lock = threading.Lock()
+
+    def __enter__(self):
+        self.orig = orig = slv.proj_schur
+
+        def tapped(x, vis, s):
+            if x.P.is_cuda and not torch.cuda.is_current_stream_capturing():
+                key = (*vis.start.shape, s.Hpp.shape[-1])
+                with self.lock:
+                    n = self.calls[key] = self.calls.get(key, 0) + 1
+                if n & (n - 1) == 0:
+                    copy = tuple(type(t)(*[a.clone() for a in t]) for t in (x, vis, s))
+                    with self.lock:
+                        kept = self.kept.setdefault(key, [])
+                        kept.append(copy)
+                        del kept[:-self.KEEP]
+            return orig(x, vis, s)
+
+        slv.proj_schur = tapped
+        return self
+
+    def __exit__(self, *exc):
+        slv.proj_schur = self.orig
+
+    def shapes(self, device) -> dict:
+        """(B, M, NXP) -> (live factors, x, vis, s) of its kept call with the
+        most live factors (the later of equals), on ``device``."""
+        torch.cuda.synchronize()
+        out = {}
+        for key, cands in self.kept.items():
+            for c in cands:
+                c = tuple(type(t)(*[a.to(device) for a in t]) for t in c)
+                live = live_factors(c[1])
+                if live >= out.get(key, (-1,))[0]:
+                    out[key] = (live,) + c
+        return out
+
+
+def compare_k4(x, vis, s) -> dict:
+    """K4 and its plain version, each against the plain version in float64
+    on the card: each output's largest error over its entry's scale
+    (``err_k4``, ``err_plain``), and K4 against the plain float32 version
+    (``rel``); two launches bit-equal; Hpp mirrored bit for bit.  An
+    entry's scale bounds the sum it rounds (Cauchy-Schwarz over its
+    factors, from the float64 factors alone: sqrt(H_aa H_bb) for Hpp and
+    Hpl, dl, sqrt(H_aa Σ r²) for gp and gl) plus the magnitude of the input
+    entry it is added to: near an optimum the gradient's terms cancel, so
+    its largest entry is no scale.  A factor of a landmark near a camera's
+    plane is as ill-conditioned in either float32 version, so K4 is held to
+    the plain version's own error (``PROJ_SCHUR_RATIO``)."""
+    k1, c1 = slv.proj_schur(x, vis, s)
+    k2, c2 = slv.proj_schur(x, vis, s)
+    p, cp = slv.proj_schur_plain(x, vis, s)
+
+    def f64(t):
+        return type(t)(*[a.double() if a.is_floating_point() else a for a in t])
+
+    r, cr = slv.proj_schur_plain(f64(x), f64(vis), f64(s))
+    z, cz = slv.proj_schur_plain(f64(x), f64(vis),
+                                 slv.StructuredSystem(*[torch.zeros_like(t) for t in f64(s)]))
+    d = torch.diagonal(z.Hpp, dim1=1, dim2=2)
+    s64 = f64(s)
+    scale = dict(Hpp=torch.sqrt(d[:, :, None] * d[:, None, :]) + s64.Hpp.abs(),
+                 Hpl=torch.sqrt(d[:, :, None] * z.dl[:, None, :]) + s64.Hpl.abs(),
+                 dl=z.dl + s64.dl.abs(), gp=torch.sqrt(d * cz[:, None]) + s64.gp.abs(),
+                 gl=torch.sqrt(z.dl * cz[:, None]) + s64.gl.abs(), cost=cz)
+
+    def err(a, b, name):
+        diff = (a.double() - b).abs()
+        return float(torch.where(diff > 0, diff / scale[name], torch.zeros_like(diff)).max())
+
+    names = k1._fields + ("cost",)
+    ks, ps, rs = list(k1) + [c1], list(p) + [cp], list(r) + [cr]
+    return dict(err_k4={n: err(a, b, n) for n, a, b in zip(names, ks, rs)},
+                err_plain={n: err(a, b, n) for n, a, b in zip(names, ps, rs)},
+                rel={n: err(a, b.double(), n) for n, a, b in zip(names, ks, ps)},
+                repeat_bit_equal=all(torch.equal(a, b) for a, b in zip(
+                    list(k1) + [c1], list(k2) + [c2])),
+                mirrored=torch.equal(k1.Hpp, k1.Hpp.transpose(1, 2)))
+
+
+def k4_within(c: dict) -> bool:
+    """``compare_k4``'s gate: every output of K4 within ``PROJ_SCHUR_RATIO``
+    times the plain float32 version's own error against float64, or within
+    ``PROJ_SCHUR_FLOOR`` of its scale."""
+    return all(c["err_k4"][n] <= max(PROJ_SCHUR_RATIO * c["err_plain"][n], PROJ_SCHUR_FLOOR)
+               for n in c["err_k4"])
+
+
 def ptxas_usage(log: str) -> dict:
     """Registers, static shared memory, stack and spills of each of the
     port's kernels, from the messages of ``nvcc -Xptxas -v`` (the log that
@@ -448,7 +597,7 @@ def ptxas_usage(log: str) -> dict:
     usage = {}
     for chunk in log.split("Compiling entry function '")[1:]:
         mangled = chunk.split("'", 1)[0]
-        name = next((k for k in KERNELS if re.search(rf"\d{k}_kernel", mangled)), None)
+        name = next((k for k in PTXAS_NAMES if re.search(rf"\d{k}_kernel", mangled)), None)
         if name is None:
             continue
 
@@ -694,21 +843,24 @@ def run_replayed(runner, trk, st, batch, timer=None):
     captured for this layout; ``capture_s`` its host time) and the other
     frames replayed, timed by ``timer`` (``step_ms`` per frame, None with
     one frame or no timer); returns (trk, st, the outputs of both calls
-    joined, the times)."""
+    joined, the times and ``k4_per_replayed_frame``, K4's launches per frame
+    of the second call, counted by replay)."""
     synchronize([runner.device])
     t0 = time.perf_counter()
     trk, st, outs = runner.run(trk, st, first_frames(batch, 1))
     synchronize([runner.device])
     capture_s = time.perf_counter() - t0
-    T, step_ms = batch.ts.shape[0], None
+    T, step_ms, k4 = batch.ts.shape[0], None, None
     if T > 1:
+        k0 = slv.launches.total
         if timer is not None:
             timer.start()
         trk, st, rest = runner.run(trk, st, bp.FrameBatch(*(a[1:] for a in batch)))
         if timer is not None:
             step_ms = timer.stop() / (T - 1)
+        k4 = (slv.launches.total - k0) / (T - 1)
         outs = bp.ScanOutputs(*(torch.cat(f) for f in zip(outs, rest)))
-    return trk, st, outs, dict(step_ms=step_ms, capture_s=capture_s)
+    return trk, st, outs, dict(step_ms=step_ms, capture_s=capture_s, k4_per_replayed_frame=k4)
 
 
 def check_main_path(res, B: int, T: int, on_gpu: bool = True) -> None:
@@ -721,6 +873,10 @@ def check_main_path(res, B: int, T: int, on_gpu: bool = True) -> None:
         require(res["counts"]["fast_nms"] == frames, res["counts"])
         require(res["counts"]["lk_level"] == res["levels"] * frames, res["counts"])
         require(res["counts"]["lk_iterate"] == 0, res["counts"])
+        # K4 once per assembly: the solve's max_iters + 1 and the marginalization's
+        want = res["runner"].ecfg.solver.max_iters + 2
+        require(res["k4_per_replayed_frame"] in (None, want),
+                ("K4 launches per replayed frame", res["k4_per_replayed_frame"], want))
     for b in range(1, B):
         require(not np.allclose(res["P"][:, 0], res["P"][:, b], atol=1e-3),
                 f"sequences 0 and {b} coincide")
@@ -753,8 +909,8 @@ def first_difference(a, b):
 
 
 def launch_counts() -> tuple:
-    """The kernels' launch counters, in ``KERNELS`` order."""
-    return fast.launches, lk.level_launches, lk.iterate_launches
+    """The kernels' launch counters, in ``COUNTED`` order."""
+    return fast.launches, lk.level_launches, lk.iterate_launches, slv.launches
 
 
 def reset_counts() -> None:
@@ -763,7 +919,13 @@ def reset_counts() -> None:
 
 
 def read_counts() -> dict:
-    return dict(zip(KERNELS, (c.total for c in launch_counts())))
+    return dict(zip(COUNTED, (c.total for c in launch_counts())))
+
+
+def k1_k3(counts: dict) -> dict:
+    """K1-K3's launches of a ``read_counts`` dict (K4's follow the solve,
+    which a path's frames may or may not reach)."""
+    return {k: counts[k] for k in KERNELS}
 
 
 def latency_config(rig, seq, max_cnt: int = 130) -> VinsConfig:
@@ -1005,7 +1167,7 @@ def check_latency_path(res, on_gpu: bool = True) -> None:
             ("latency ATE", res["latency_ate_m"], res["bound"]))
     if on_gpu:  # K1 once per frame, K3 once per pyramid level, never K2
         n = res["frames"]
-        require(res["counts"] == {"fast_nms": n, "lk_level": 0, "lk_iterate": 2 * n},
+        require(k1_k3(res["counts"]) == {"fast_nms": n, "lk_level": 0, "lk_iterate": 2 * n},
                 ("latency launches", res["counts"]))
         require(res["profile"]["host_syncs"] == 0, "no host wait inside spin_once")
         check_replay_profile(res["profile"], {"fast_nms": 1, "lk_iterate": 2},
@@ -1196,8 +1358,8 @@ def check_loop_path(res, on_gpu: bool = True) -> None:
                                             res["relo_consumed"]))
     if on_gpu:  # K1 per frame and per extracted keyframe, K3 per level, never K2
         n = res["timed"]
-        require(res["counts"] == {"fast_nms": n + res["kf_timed"], "lk_level": 0,
-                                  "lk_iterate": res["lk_levels"] * n},
+        require(k1_k3(res["counts"]) == {"fast_nms": n + res["kf_timed"], "lk_level": 0,
+                                         "lk_iterate": res["lk_levels"] * n},
                 ("loop-path launches", res["counts"]))
     if res["profile"] is not None:
         require(res["profile"]["host_syncs"] == 0,
@@ -1563,7 +1725,7 @@ def check_rig_path(res, init_by: int = 16, on_gpu: bool = True, waits: int = 0) 
              res["latency_ate_m"]))
     if on_gpu:
         n = res["tracked"]
-        require(n >= res["frames"] - 1 and res["counts"] == {
+        require(n >= res["frames"] - 1 and k1_k3(res["counts"]) == {
             "fast_nms": n, "lk_level": 0, "lk_iterate": 2 * n}, ("launches", res["counts"], n))
         if res["profile"] is not None:
             require(res["profile"]["host_syncs"] <= waits,
@@ -1844,9 +2006,9 @@ def check_batched_loop_path(res, on_gpu: bool = True) -> None:
         require(res["solves_6dof"] >= 1, ("6-DoF solves", res["solves_6dof"]))
     if on_gpu:  # K1 per frame and per extraction chunk, K2 per level, never K3
         n = res["n_timed"]
-        require(res["counts"] == {"fast_nms": n + res["chunks"], "lk_level": res["levels"] * n,
-                                  "lk_iterate": 0}, ("batched-loop launches", res["counts"],
-                                                     res["chunks"]))
+        require(k1_k3(res["counts"]) == {"fast_nms": n + res["chunks"],
+                                         "lk_level": res["levels"] * n, "lk_iterate": 0},
+                ("batched-loop launches", res["counts"], res["chunks"]))
     if res["profile"] is not None:
         prof = res["profile"]
         require(prof["host_syncs"] == 0,
@@ -2046,8 +2208,8 @@ def check_recovery_path(res, on_gpu: bool = True) -> None:
                                                               res["captures"]))
     if on_gpu:
         n = res["frames"]
-        require(res["counts"] == {"fast_nms": n, "lk_level": 0,
-                                  "lk_iterate": res["levels"] * n},
+        require(k1_k3(res["counts"]) == {"fast_nms": n, "lk_level": 0,
+                                         "lk_iterate": res["levels"] * n},
                 ("recovery launches", res["counts"]))
     if res["profile"] is not None:
         require(res["profile"]["host_syncs"] <= res["profile"]["frames"],
@@ -2152,8 +2314,8 @@ def check_loop_recovery_path(res, on_gpu: bool = True) -> None:
             ("a constraint from before the reboot taken after it", res["taken"]))
     if on_gpu:
         n = res["timed"]
-        require(res["counts"] == {"fast_nms": n + res["kf_timed"], "lk_level": 0,
-                                  "lk_iterate": res["lk_levels"] * n},
+        require(k1_k3(res["counts"]) == {"fast_nms": n + res["kf_timed"], "lk_level": 0,
+                                         "lk_iterate": res["lk_levels"] * n},
                 ("loop-recovery launches", res["counts"]))
 
 
@@ -2449,7 +2611,7 @@ def check_bag_path(res, on_gpu: bool = True) -> None:
             ("CLAHE ran on the tracked frame", res["clahe_changed"], res["clahe_err"]))
     if on_gpu:
         n = res["tracked"]
-        require(n >= res["frames"] - 2 and res["counts"] == {
+        require(n >= res["frames"] - 2 and k1_k3(res["counts"]) == {
             "fast_nms": n, "lk_level": 0, "lk_iterate": 2 * n}, ("launches", res["counts"], n))
         require(res["profile"]["host_syncs"] <= 2,
                 ("host waits on the frame thread", res["profile"]))
@@ -2653,8 +2815,8 @@ def check_fisheye_pipeline(res, on_gpu: bool = True) -> None:
     require(res["compare"]["bit_equal"], ("fisheye and CLAHE: replay against plain", res))
     if on_gpu:
         n = res["frames"]
-        require(res["captured"] and res["counts"] == {"fast_nms": n, "lk_level": 0,
-                                                      "lk_iterate": 2 * n},
+        require(res["captured"] and k1_k3(res["counts"]) == {"fast_nms": n, "lk_level": 0,
+                                                             "lk_iterate": 2 * n},
                 ("fisheye and CLAHE: captured, and its launches", res))
 
 
@@ -3179,7 +3341,7 @@ def run_batched_rig_path(staged: dict, path=None, timer=None) -> dict:
             acc["latency_init"] = (ref["init_frame"], ref["attempts"])
         lane_res.append(acc)
     res.update(**timing, run_counts=run_counts, profile=prof, lanes=lane_res,
-               counts={k: staged["warm_counts"][k] + run_counts[k] for k in KERNELS},
+               counts={k: staged["warm_counts"][k] + run_counts[k] for k in COUNTED},
                cost=outs.cost.cpu().numpy(), td=st2.x.td.cpu().tolist(), state=(trk2, st2))
     return res
 
@@ -3217,9 +3379,9 @@ def check_batched_rig_path(res, on_gpu: bool = True) -> None:
     require(res["configs_equal"], "one configuration for every lane")
     if on_gpu:
         T, n = res["T"], res["tracked"]
-        require(res["run_counts"] == {"fast_nms": T, "lk_level": 2 * T, "lk_iterate": 0},
+        require(k1_k3(res["run_counts"]) == {"fast_nms": T, "lk_level": 2 * T, "lk_iterate": 0},
                 ("steady launches", res["run_counts"]))
-        require(res["warm_counts"] == {"fast_nms": n, "lk_level": 0, "lk_iterate": 2 * n},
+        require(k1_k3(res["warm_counts"]) == {"fast_nms": n, "lk_level": 0, "lk_iterate": 2 * n},
                 ("warm-up launches", res["warm_counts"], n))
         if res["profile"] is not None:
             check_replay_profile(res["profile"], {"fast_nms": 1, "lk_level": 2},
@@ -3998,11 +4160,13 @@ def profile_span(fn, name: str, frames: int, path: str, step_ms: float):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on the GPU")
-    ap.add_argument("--phases", choices=("all", "21", "22", "23"), default="all",
+    ap.add_argument("--phases", choices=("all", "21", "22", "23", "24"), default="all",
                     help="'21': phases 1-2 and 21 alone (the kernels and the runner sharded "
                          "over every card present); '22': phases 1-2, the kernels against "
                          "their plain versions on card 0, and 22-22c (the failure reboot); "
-                         "'23': the same with phase 23 (the batched closer's three modes)")
+                         "'23': the same with phase 23 (the batched closer's three modes); "
+                         "'24': phases 1-2, the main path's batched VIO and VO at B = 8, "
+                         "and 24 (K4, the solve's projection assembly, at every shape)")
     phases = ap.parse_args(argv).phases
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
@@ -4032,7 +4196,7 @@ def main(argv=None) -> int:
     build_s = time.perf_counter() - t0
     with open(path + ".log") as f:
         usage = ptxas_usage(f.read())
-    require(set(usage) == set(KERNELS), ("ptxas report", usage))
+    require(set(usage) == set(PTXAS_NAMES), ("ptxas report", usage))
     require(all(u["spill_bytes"] == 0 for u in usage.values()), ("spills", usage))
     nw = lk.K3_WARPS
     # K1's static and K3's largest dynamic shared memory stay under the 48 KB
@@ -4281,6 +4445,146 @@ def main(argv=None) -> int:
         done("23")
         return {f"batched_loop_{m}": r for m, r in runs.items()}
 
+    def phase24(tap=None) -> dict:
+        """Phase 24: K4 (the solve's projection assembly) against its plain
+        version at every (B, M, NXP) that ``tap`` (an entered
+        ``ProjSchurTap``, which the phase closes; one of its own without)
+        took from the paths' runs, each at its kept
+        solve's assembly: as close to the plain version in float64 as the
+        plain float32 version (``k4_within``), two launches bit-equal, Hpp
+        mirrored bit for bit, then timed beside its bound and the plain
+        version's ms.  The shapes cover K4's tiles of 8, 16 and 32 features
+        (without a tapped shape of tile 16, the fleet's lanes 0-7 stand in).
+        First the main path's three shapes are run: the fleet's batched VO
+        (32 × 376), its replayed steps held to ``run_eager`` bit for bit and
+        its K4 launches per replayed step counted; the VO loop robot (1 ×
+        376, the relo block: NXP 178), its replayed frames held to its plain
+        per-op frames bit for bit in lock step; the RealSense robot (1 × 48,
+        td and rolling shutter)."""
+        out = {}
+        tap = tap if tap is not None else ProjSchurTap().__enter__()
+        try:
+            fl = run_main_path(dev, 32, 8, max_cnt=250, vo=True, eager=True)
+            check_main_path(fl, 32, 8)
+            e = fl["eager"]
+            require(e["bit_equal"] and e["states_equal"],
+                    ("phase 24: the fleet's replayed steps against run_eager", e))
+            runner = fl["runner"]
+            per_step = fl["k4_per_replayed_frame"]
+            runner.close()
+            print(f"[24 fleet] batched VO B=32 640x480, max_cnt 250 ({runner.ecfg.maxf} slots), "
+                  f"warm 11 + 8 steady frames: run against run_eager bit-equal "
+                  f"{e['bit_equal']}, states equal {e['states_equal']}; eager "
+                  f"{e['eager_step_ms']:.2f} ms/step; K4 {per_step:.0f} launches per replayed "
+                  f"step (counted by replay); ATE m {[round(a, 4) for a in fl['ates']]}; "
+                  f"launches {fl['counts']}", flush=True)
+            out["fleet"] = dict(eager=e, k4_per_step=per_step, ates=fl["ates"],
+                                counts=fl["counts"])
+            lock = {}
+            for rp in (False, True):
+                lock[rp] = run_loop_path(dev, max_cnt=250, vo=True, lockstep=True, replay=rp,
+                                         record=True)
+                check_loop_path(lock[rp])
+            cmp = replay_against_plain(lock[False].pop("record"), lock[True].pop("record"))
+            require(cmp["bit_equal"], ("phase 24: the VO loop robot's replayed frames against "
+                                       "the plain ones", cmp))
+            print(f"[24 loop robot] the VO loop cell in lock step, plain / replayed: "
+                  f"latency_ms_per_frame {lock[False]['latency_ms_per_frame']:.3f} / "
+                  f"{lock[True]['latency_ms_per_frame']:.3f}, launches {lock[False]['counts']} "
+                  f"/ {lock[True]['counts']}; replay against plain: {cmp}", flush=True)
+            out["loop_robot"] = dict(compare=cmp, counts=lock[True]["counts"], **{
+                k: [lock[rp][k] for rp in (False, True)]
+                for k in ("latency_ms_per_frame", "latency_ate_m")})
+            rig_r, seq_r, cfg_r = realsense_scene(40)
+            td = run_rig_path(dev, cfg_r, rig_r, seq_r, n_frames=40, failure_check_interval=4,
+                              imu_shift=TD_TRUE)
+            check_rig_path(td)
+            print(f"[24 IMU robot] RealSense rig, td and rolling shutter, 40 frames: "
+                  f"latency_ms_per_frame {td['latency_ms_per_frame']:.3f}, td {td['td']:.5f} "
+                  f"s, launches {td['counts']}", flush=True)
+            out["imu_robot"] = dict(counts=td["counts"], td=td["td"],
+                                    latency_ms_per_frame=td["latency_ms_per_frame"])
+        finally:
+            tap.__exit__()
+        kept = tap.shapes(dev)
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        tiles = {key: slv.proj_schur_tile(key[0], key[1], n_sm) for key in kept}
+        if 16 not in tiles.values():
+            live, x, vis, s = kept[(32, 376, 172)]
+            part = tuple(type(t)(*[a[:8].contiguous() for a in t]) for t in (x, vis, s))
+            kept[(8, 376, 172)] = (live_factors(part[1]),) + part
+            tiles[(8, 376, 172)] = slv.proj_schur_tile(8, 376, n_sm)
+        shapes = {}
+        for key in sorted(kept, reverse=True):
+            live, x, vis, s = kept[key]
+            B_, M_, nxp = key
+            label = f"{B_}x{M_} NXP {nxp}"
+            c = compare_k4(x, vis, s)
+            require(c["repeat_bit_equal"] and c["mirrored"] and k4_within(c),
+                    ("phase 24: K4", label, c))
+            timing("proj_schur", label, lambda: slv.proj_schur(x, vis, s),
+                   lambda: slv.proj_schur_plain(x, vis, s),
+                   proj_schur_bound(B_, M_, nxp, live), phase="24")
+            shapes[label] = dict(live=live, tile=tiles[key], **c)
+            print(f"[24 K4 {label}] tile {tiles[key]}, {live} live factors: against the plain "
+                  f"version in float64 (largest error over its entry's scale) K4 "
+                  f"{c['err_k4']}, plain float32 {c['err_plain']}; K4 against plain float32 "
+                  f"{c['rel']}; two launches bit-equal {c['repeat_bit_equal']}; Hpp mirrored "
+                  f"{c['mirrored']}", flush=True)
+        require({(32, 376, 172), (1, 376, 178)} <= set(kept)
+                and any(k[0] == 1 and k[2] == 172 for k in kept)
+                and {8, 16, 32} <= set(tiles.values()),
+                ("phase 24: the three shapes and K4's three tiles", tiles))
+        out["shapes"] = shapes
+        done("24")
+        return out
+
+    def k4_entry(r24: dict, paths=None) -> dict:
+        """K4's row of the ``kernels`` line: its launches summed over the
+        paths that count them (``paths``, with phase 24's three runs), each
+        path's own count and, on the batched paths, per replayed frame; its
+        errors over every shape; the fleet's shape's timing."""
+        paths = {**(paths or {}), **{"k4_" + p: r24[p]
+                                     for p in ("fleet", "loop_robot", "imu_robot")}}
+        by_path = {p: r["counts"]["proj_schur"] for p, r in paths.items()
+                   if "proj_schur" in r.get("counts", {})}
+        rows = [t for t in timings if t["kernel"] == "proj_schur"]
+        main = next(t for t in rows if t["shape"].startswith("32x376"))
+        return dict(name="proj_schur", route="cuda",
+                    source="vins_rgbd_fast_torch/csrc/proj_schur.cu", replaces=None,
+                    launches=sum(by_path.values()), launches_by_path=by_path,
+                    per_replayed_frame={p: r["k4_per_replayed_frame"] for p, r in paths.items()
+                                        if r.get("k4_per_replayed_frame") is not None},
+                    launches_per_step=r24["fleet"]["k4_per_step"],
+                    max_err=max(max(c["err_k4"].values()) for c in r24["shapes"].values()),
+                    max_err_plain=max(max(c["err_plain"].values())
+                                      for c in r24["shapes"].values()),
+                    ms=main["device_ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                    bound_by=main["bound_by"], library_ms=None, host_us=main["host_us"],
+                    timings={t["shape"]: dict(ms=t["device_ms"], bound_ms=t["bound_ms"],
+                                              plain_ms=t["plain_ms"]) for t in rows})
+
+    if phases == "24":  # phases 1-2, the main path's two B = 8 shapes tapped, and 24
+        done("1-2")
+        k4_tap = ProjSchurTap().__enter__()
+        mains = {}
+        for name, vo in (("batched", False), ("batched_vo", True)):
+            r = run_main_path(dev, B, 8, max_cnt=250 if vo else 130, vo=vo)
+            check_main_path(r, B, 8)
+            r["runner"].close()
+            mains[name] = r
+            print(f"[24 {name}] B={B} 640x480, max_cnt {250 if vo else 130} "
+                  f"({r['runner'].ecfg.maxf} slots), warm 11 + 8 steady frames: K4 "
+                  f"{r['k4_per_replayed_frame']:.0f} per replayed frame (counted by replay); "
+                  f"launches {r['counts']}; ATE m {[round(a, 4) for a in r['ates']]}", flush=True)
+        done("24 main")
+        r24 = phase24(k4_tap)
+        with open(os.path.join(OUT_DIR, "chip_smoke_24.json"), "w") as f:
+            json.dump(dict(card=smi, timings=timings, phase_s=phase_s, k4=r24, main={
+                n: {k: r[k] for k in ("ates", "counts", "k4_per_replayed_frame")}
+                for n, r in mains.items()}), f, indent=1, default=float)
+        return finish(smi_cards, phase_s, [k4_entry(r24, mains)])
+
     if phases in ("22", "23"):  # phases 1-2, the kernels on card 0, and the phase alone
         done("1-2")
         _, rendered_, _ = make_sequences(rig, B, 2, dev)
@@ -4411,7 +4715,10 @@ def main(argv=None) -> int:
 
     # 5. the main path: run (its first frame eager and captured, the rest
     # replayed), after run_eager over the same frames from the same states
-    # and generator states (the per-op dispatch, held to bit for bit)
+    # and generator states (the per-op dispatch, held to bit for bit).  From
+    # here to phase 24, which checks them, K4's inputs are tapped at every
+    # shape the paths give it
+    k4_tap = ProjSchurTap().__enter__()
     res = run_main_path(dev, B, T, extra=EXTRA, timer=CudaTimer(), eager=True)
     check_main_path(res, B, T)
     step5, e5 = res["step_ms"], res["eager"]
@@ -4419,7 +4726,8 @@ def main(argv=None) -> int:
           f"{1e3 / step5:.2f} steps/s = {B * 1e3 / step5:.2f} sequence-frames/s "
           f"({step5:.2f} ms/step over the {T - 1} replayed frames, CUDA events; the first "
           f"frame with its warm-up and capture {res['capture_s']:.3f} s); launches "
-          f"{res['counts']}; ATE m {[round(a, 4) for a in res['ates']]} (bounds "
+          f"{res['counts']}, K4 {res['k4_per_replayed_frame']:.0f} per replayed frame; ATE m "
+          f"{[round(a, 4) for a in res['ates']]} (bounds "
           f"{[round(b, 3) for b in res['bounds']]}); features/seq "
           f"{res['n_features'][-1].tolist()}", flush=True)
     print(f"[5 eager] run_eager over the same {T} frames: {e5['eager_step_ms']:.2f} "
@@ -4849,7 +5157,8 @@ def main(argv=None) -> int:
           f"({vob['runner'].ecfg.maxf} slots), cold LK on {vob['levels']} levels, warm 11 + "
           f"{T} steady frames: {step15:.2f} ms/step over the {T - 1} replayed frames (phase 5 "
           f"in this run: {step5:.2f}) = {B * 1e3 / step15:.2f} sequence-frames/s (CUDA events; "
-          f"first frame and capture {vob['capture_s']:.3f} s); launches {vob['counts']} over "
+          f"first frame and capture {vob['capture_s']:.3f} s); launches {vob['counts']} (K4 "
+          f"{vob['k4_per_replayed_frame']:.0f} per replayed frame) over "
           f"{vob['frames']} frames; ATE m "
           f"{[round(a, 4) for a in vob['ates']]} (bounds "
           f"{[round(b, 3) for b in vob['bounds']]}); features/seq "
@@ -5121,6 +5430,10 @@ def main(argv=None) -> int:
     # 23. the batched closer's three modes (their own launch counts)
     r23 = phase23()
 
+    # 24. K4 at every shape tapped since phase 5, and at the main path's
+    # three shapes
+    r24 = phase24(k4_tap)
+
     # the kernels line: per launch at the main path's shapes (K1 8x480x640,
     # K2 8x200 averaged over its two levels) and K3 at the latency path's
     # 1x200 (it never runs on the main path)
@@ -5140,6 +5453,7 @@ def main(argv=None) -> int:
     kernels = kernel_entries(paths, errs, {"fast_nms": f"{B}x480x640 rendered",
                                            "lk_level": f"{B}x{N} level",
                                            "lk_iterate": f"1x{N} level"}, timings)
+    kernels.append(k4_entry(r24, paths))
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi, cards=smi_cards, kernels=kernels, timings=timings, k2=rep,
                        k3=rep3, main={
@@ -5171,7 +5485,7 @@ def main(argv=None) -> int:
             batched_td=r20b, k2_batched_dyn=rep20, k2_batched_td=rep20b, batched_sharded=r21,
             **{k: {x: y for x, y in v.items() if x not in ("cost", "segments")}
                for k, v in {**r22, **r23}.items()},
-            phase_s=phase_s), f, indent=1, default=float)
+            k4=r24, phase_s=phase_s), f, indent=1, default=float)
     return finish(smi_cards, phase_s, kernels)
 
 

@@ -149,6 +149,37 @@ ptxas info    : Used 128 registers, used 0 barriers
 """
 
 
+@pytest.mark.parametrize("B, M, nxp, mb, us", [(32, 376, 172, 27.794176, 8.2968),
+                                               (1, 376, 178, 0.903464, 0.26969),
+                                               (1, 48, 172, 0.31884, 0.095176)])
+def test_proj_schur_bound_counts_each_byte_once(B, M, nxp, mb, us):
+    """K4's bound: per sequence the window (85 floats) and Σ r² (one), per
+    feature 284 bytes of grid, and the system read and written once; bytes
+    set it at the main path's three shapes."""
+    b = chip_smoke.proj_schur_bound(B, M, nxp, live=5 * B * M)
+    system = 4 * (nxp * nxp + nxp * M + 2 * M + nxp)
+    assert b["bytes"] == B * (340 + 284 * M + 2 * system + 4)
+    assert b["bytes"] / 1e6 == pytest.approx(mb, rel=1e-6)
+    assert b["bound_ms"] * 1e3 == pytest.approx(us, rel=2e-3)
+    assert b["ops"] == chip_smoke.PROJ_FLOP_PER_FACTOR * 5 * B * M
+    assert b["bound_by"] == "bytes"
+
+
+def test_ptxas_usage_reads_k4_beside_its_finishing_kernel():
+    """K4's two kernels are told apart by their mangled names."""
+    log = PTXAS_LOG + """\
+ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__1a2b3c4d_13_proj_schur_cu_5e6f708117proj_schur_kernelEPKfS1_' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__1a2b3c4d_13_proj_schur_cu_5e6f708124proj_schur_finish_kernelEPKfiS1_' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 20 registers, used 0 barriers
+"""
+    u = chip_smoke.ptxas_usage(log)
+    assert set(u) == set(chip_smoke.PTXAS_NAMES)
+    assert u["proj_schur"]["registers"] == 96 and u["proj_schur_finish"]["registers"] == 20
+
+
 def test_ptxas_usage_reads_each_kernel():
     """Phase 2's report of ``nvcc -Xptxas -v``: each kernel by its mangled
     name, its registers, static shared memory and spilled bytes."""

@@ -110,8 +110,23 @@ def lib() -> ctypes.CDLL:
             L.lk_iterate_launch.argtypes = [p] * 14 + [i, i, i, i, i, f, i, p]
             L.stage_mark_launch.restype = i
             L.stage_mark_launch.argtypes = [p, i, i, p]
+            L.proj_schur_launch.restype = i
+            L.proj_schur_launch.argtypes = [p] * 25 + [i, i, i, i, f, f, i, p]
+            L.proj_schur_scratch_floats.restype = i
+            L.proj_schur_scratch_floats.argtypes = []
             _lib = L
     return _lib
+
+
+def check_args(name: str, ref: torch.Tensor, specs) -> None:
+    """Refuse a launcher's argument that is not a contiguous tensor of the
+    dtype and shape the kernel reads, on ``ref``'s device: ``specs`` holds
+    (argument name, tensor, dtype, shape) for each."""
+    for arg, t, dt, shape in specs:
+        if t.device != ref.device or t.dtype != dt or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be a contiguous {dt} "
+                             f"tensor of shape {shape} on {ref.device}")
 
 
 def check(status: int, name: str) -> None:

@@ -229,14 +229,6 @@ def lk_level_plain(prev, cur, pts_l, flow, active, ax, ay, win: int,
     return u, p.ok_eig, err
 
 
-def _check_args(name: str, ref: torch.Tensor, specs) -> None:
-    for arg, t, dt, shape in specs:
-        if t.device != ref.device or t.dtype != dt or tuple(t.shape) != shape \
-                or not t.is_contiguous():
-            raise ValueError(f"{name}: {arg} must be a contiguous {dt} "
-                             f"tensor of shape {shape} on {ref.device}")
-
-
 def _lk_level_cuda(prev, cur, pts_l, flow, active, ax, ay, win, search_margin,
                    iters, eps, min_eig):
     B, H, W = prev.shape
@@ -247,7 +239,7 @@ def _lk_level_cuda(prev, cur, pts_l, flow, active, ax, ay, win, search_margin,
                          f"of at most {MAX_WIN} (got win={win}, "
                          f"search_margin={search_margin})")
     f32, i32 = torch.float32, torch.int32
-    _check_args("lk_level", prev, (
+    native.check_args("lk_level", prev, (
         ("prev", prev, f32, (B, H, W)), ("cur", cur, f32, (B, H, W)),
         ("pts_l", pts_l, f32, (B, N, 2)), ("flow", flow, f32, (B, N, 2)),
         ("active", active, torch.bool, (B, N)),
@@ -273,7 +265,7 @@ def _lk_iterate_cuda(tmpl, Ix, Iy, win_img, px, py, u0, done0, inv_det, Gxx, Gxy
                          f"of at most {MAX_WIN} (got win={win}, WIN={WIN})")
     f32 = torch.float32
     pw, pn = (B, N, win, win), (B, N)
-    _check_args("lk_iterate", tmpl, (
+    native.check_args("lk_iterate", tmpl, (
         ("tmpl", tmpl, f32, pw), ("Ix", Ix, f32, pw), ("Iy", Iy, f32, pw),
         ("win", win_img, f32, (B, N, WIN, WIN)), ("px", px, f32, pn), ("py", py, f32, pn),
         ("u0", u0, f32, (B, N, 2)), ("done0", done0, torch.bool, pn),

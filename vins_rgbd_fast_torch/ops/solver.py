@@ -7,10 +7,17 @@ dims after the NX window dims, free only while the constraint is active)
 joins the solve, tied to window landmarks by the relo factors of
 ``ReloData``.  Factorizations that fail give NaN, as ``jnp.linalg.cholesky`` does, so the
 LM step rejects the non-finite cost instead of raising and synchronising.
+
+``proj_schur`` is the wrapper of kernel K4 (``csrc/proj_schur.cu``, which
+replaces no TPU kernel: JAX assembles the projection factors in plain
+``jnp``): on CUDA tensors it launches the kernel, on CPU tensors it runs
+the plain version ``proj_schur_plain`` below.  The two sum in different
+orders, so they agree to float32 rounding, not bit for bit.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -20,6 +27,7 @@ from ..backend.state import (EX_OFF, FRAMES, NP, NX, POSE_DIM, SB_DIM, TD_OFF,
                              WINDOW_SIZE, WindowState, boxminus, boxplus, where_state,
                              yaw_gauge_fix)
 from ..backend.feature_table import take_frame
+from .. import native
 from ..config import SolverConfig
 from ..utils import quaternion as quat
 from . import factors
@@ -30,6 +38,8 @@ CAUCHY_C = 1.0
 LM_LAMBDA0 = 1e-6
 LM_UP = 10.0
 LM_DOWN = 0.1
+
+launches = native.LaunchCount()  # K4 launches (the CUDA path only), by device too
 
 
 class PriorFactor(NamedTuple):
@@ -215,6 +225,80 @@ def _accumulate_proj_s(vis: VisualData, r, Jl, s: StructuredSystem) -> Structure
     return StructuredSystem(Hpp=H, Hpl=Hpl, dl=dl, gp=g, gl=gl)
 
 
+def proj_schur_plain(x: WindowState, vis: VisualData,
+                     s: StructuredSystem) -> Tuple[StructuredSystem, torch.Tensor]:
+    """The plain version of K4: every projection factor of the grid
+    (``_proj_grid``) added into the system ``s`` in Schur form
+    (``_accumulate_proj_s``); returns (system, Σ r² (B,))."""
+    r, Jl = _proj_grid(x, vis)
+    return _accumulate_proj_s(vis, r, Jl, s), torch.sum(r * r, dim=(1, 2, 3))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _scratch_floats() -> int:
+    """The floats of one K4 block's partial sum (the library's own count:
+    Hpp's upper triangle on the 73 dims the projection factors touch, gp on
+    them, Σ r²)."""
+    return native.lib().proj_schur_scratch_floats()
+
+
+def proj_schur_tile(B: int, M: int, n_sm: int) -> int:
+    """K4's features per block: the largest of 32, 16 and 8 that still
+    gives every SM a block, else 8."""
+    for t in (32, 16):
+        if B * -(-M // t) >= n_sm:
+            return t
+    return 8
+
+
+def proj_schur(x: WindowState, vis: VisualData,
+               s: StructuredSystem) -> Tuple[StructuredSystem, torch.Tensor]:
+    """The projection factors added into ``s``; returns (system, Σ r² (B,)).
+    CPU tensors take ``proj_schur_plain``, CUDA tensors kernel K4 (float32);
+    ``s`` is not written."""
+    dev = x.P.device
+    if dev.type == "cpu":
+        return proj_schur_plain(x, vis, s)
+    if dev.type != "cuda":
+        raise ValueError(f"proj_schur: unsupported device {dev}")
+    return _proj_schur_cuda(*[t.contiguous() for t in (x.P, x.Q, x.tic, x.qic, x.td)],
+                            VisualData(*[t.contiguous() for t in vis]),
+                            StructuredSystem(*[t.contiguous() for t in s]))
+
+
+def _proj_schur_cuda(P, Q, tic, qic, td, vis: VisualData, s: StructuredSystem):
+    B, M = vis.start.shape
+    nxp = s.Hpp.shape[-1]
+    if nxp < NX:
+        raise ValueError(f"proj_schur: the system needs at least {NX} dims (got {nxp})")
+    f32, b8 = torch.float32, torch.bool
+    g = (B, M, FRAMES)
+    native.check_args("proj_schur", P, (
+        ("P", P, f32, (B, FRAMES, 3)), ("Q", Q, f32, (B, FRAMES, 4)), ("tic", tic, f32, (B, 3)),
+        ("qic", qic, f32, (B, 4)), ("td", td, f32, (B,)),
+        ("start", vis.start, torch.int32, (B, M)), ("pts", vis.pts, f32, g + (2,)),
+        ("vel", vis.vel, f32, g + (2,)), ("td_obs", vis.td_obs, f32, g),
+        ("row_scaled", vis.row_scaled, f32, g), ("obs_mask", vis.obs_mask, b8, g),
+        ("inv_depth", vis.inv_depth, f32, (B, M)), ("valid", vis.valid, b8, (B, M)),
+        ("Hpp", s.Hpp, f32, (B, nxp, nxp)), ("Hpl", s.Hpl, f32, (B, nxp, M)),
+        ("dl", s.dl, f32, (B, M)), ("gp", s.gp, f32, (B, nxp)), ("gl", s.gl, f32, (B, M))))
+    tile = proj_schur_tile(B, M, _sm_count(P.device.index))
+    out = StructuredSystem(*[torch.empty_like(t) for t in s])
+    cost = torch.empty((B,), dtype=f32, device=P.device)
+    scratch = torch.empty((B, -(-M // tile), _scratch_floats()), dtype=f32, device=P.device)
+    native.launch("proj_schur_launch", P.device,
+                  *[t.data_ptr() for t in (P, Q, tic, qic, td) + tuple(vis[:6])
+                    + (vis.inv_depth, vis.valid) + tuple(s) + tuple(out) + (cost, scratch)],
+                  B, M, nxp, tile, float(factors.PROJ_SQRT_INFO), float(CAUCHY_C) ** 2)
+    launches.add(P.device.index)
+    return out, cost
+
+
 def _relo_grid(x: WindowState, vis: VisualData, relo: ReloData):
     """One factor per matched feature: its start-frame landmark reprojected
     into the relo pose (the projection factor with pose j := relo pose, no
@@ -367,9 +451,8 @@ def normal_equations_structured(x: WindowState, vis: VisualData,
         gl=torch.zeros((B, M), dtype=dtype, device=dev))
     cost = torch.sum(rp * rp, dim=1)
 
-    r_proj, Jl_proj = _proj_grid(x, vis)
-    s = _accumulate_proj_s(vis, r_proj, Jl_proj, s)
-    cost = cost + torch.sum(r_proj * r_proj, dim=(1, 2, 3))
+    s, cost_proj = proj_schur(x, vis, s)
+    cost = cost + cost_proj
 
     if relo is not None:
         r_rl, Jl_rl = _relo_grid(x, vis, relo)
